@@ -4,23 +4,49 @@
 Phases (any failure exits nonzero and prints no result line):
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
-   nvcc version, and the time to build every kernel from the sources;
+   nvcc version, and the time to build every kernel from the sources (one
+   nvcc per source, all at once);
 2. K1 against its plain version on the card, at F in {47, 100, 128},
    weighted and unweighted, f32 and bf16 streams, on a graph with empty rows
    and one hub row;
-3. serving, the main path: a 3-layer GCN (100 -> 128 -> 128 -> 47, ReLU
-   between layers, random weights from ``--seed`` carried through
+3. K2 against its plain version on the card, at F in {7, 16, 47, 100, 128,
+   130}, f32 and bf16 streams, on the transpose of a graph with empty rows
+   and a hub row in both directions;
+4. serving, the first main path: a 3-layer GCN (100 -> 128 -> 128 -> 47,
+   ReLU between layers, random weights from ``--seed`` carried through
    ``convert.py``) behind a ``Predictor`` on the synthetic ogbn-products
-   graph (``--scale 1.0``: 2,449,029 nodes, 123,718,280 edges, so K1
-   streams bf16) answers 3 requests. The K1 launch count is
-   set to 0 just before and read just after; it must grow by 3 a request.
+   graph (``--scale 1.0``: 2,449,029 nodes, 123,718,280 edges, so K1 and K2
+   stream bf16) answers 3 requests. The launch counts are set to 0 just
+   before and read just after; K1 must grow by 3 a request, K2 not at all.
    Each layer's output in the first request is held against the plain
    formula on 4096 sampled destination rows (and the largest hub);
-4. K1 at the main path's shapes: the kernel, its plain version (in edge
+5. K1 at the main path's shapes: the kernel, its plain version (in edge
    blocks, to bound memory) and ``torch.sparse.mm`` as a timed yardstick,
    with the full outputs compared;
-5. the whole model at ``--scale 0.01`` against the plain torch path;
-6. a profile of one request (informational).
+6. a profile of one request (device time by kernel, idle share);
+7. K2 at the main path's shapes (F = 128 and 47 on the transpose of the
+   full graph): the kernel, its plain version and ``torch.sparse.mm`` plus
+   ``torch.sparse.sampled_addmm`` as a timed yardstick, full outputs
+   compared;
+8. training, the second main path: the served GCN class with
+   ``F.cross_entropy`` and ``torch.optim.AdamW(lr=1e-2, weight_decay=5e-4)``
+   on the full graph, 1 warm step and 5 timed ones. The counts are set to 0
+   just before the timed steps and read just after: 3 K1 and 3 K2 launches
+   a step; the loss must be finite and fall;
+9. a profile of one training step;
+10. the unweighted route (``bench.py``'s formulation,
+    ``spmm(csr, (h @ W) * norm) * norm``): one full-size step launches K1 6
+    times (3 on the transpose) and K2 never;
+11. checkpoint -> serve: the trained model and optimizer through
+    ``Checkpointer``, ``Predictor.from_checkpoint`` answers one request,
+    each layer held to its own forward on the same input;
+12. the whole model at ``--scale 0.01`` against the plain torch path;
+13. gradients at ``--scale 0.01`` against the plain torch path, for every
+    parameter and for a ``GCNConv``'s edge weights;
+14. Cora as ``benchmarking/gcn/train.py`` runs it (2 layers, hidden 16,
+    AdamW, 200 epochs, the kernel route): train accuracy above 0.9;
+15. TGCN on a 200k-edge weighted graph, 3 timesteps forward and backward,
+    against the same run on the CPU's plain path.
 
 The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 ``--details PATH`` also writes every measurement of the run as JSON.
@@ -58,11 +84,23 @@ KERNEL_TOL = 2e-4
 # Whole model, kernel path (bf16 stream) vs the plain torch path (f32
 # throughout): three roundings of 2^-9 per product, over three layers.
 MODEL_TOL = 3e-2
+# Gradients, kernel path vs the plain torch path, against the largest
+# gradient of each tensor: the backward streams bf16 through three more
+# SpMMs (K2 rounds g, fs, w and each product: four roundings of 2^-9) on
+# top of the forward's, so six layers of up to four roundings, 24 * 2^-9.
+GRAD_TOL = 5e-2
+# CUDA vs CPU on the same plain-version arithmetic: the GEMMs and the
+# f32 sums run in another order, so a value streamed as bf16 may round to
+# the neighbouring bf16 number (2^-8 of it); 1e-2 of the largest value.
+DEVICE_TOL = 1e-2
 
 GCN_DIMS = (100, 128, 128, 47)
 REQUESTS = 3
 SAMPLE_ROWS = 4096
 PLAIN_EDGE_BLOCK = 1 << 24  # bounds the plain version's temporaries (~25 GB)
+K2_PLAIN_EDGE_BLOCK = 1 << 22  # K2's plain version also gathers fs: ~12 GB
+TRAIN_STEPS = 5
+CORA_DIMS, CORA_EPOCHS = (1433, 16, 7), 200
 
 
 class SmokeFailure(Exception):
@@ -99,6 +137,20 @@ def k1_bound(n: int, e: int, f: int, weighted: bool):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
+def k2_bound(n: int, e: int, f: int):
+    """Least time for one K2 call: indptr, cols, w and dw once each, the f32
+    g and fs tables read once, the f32 dh written once, over HBM; or 4 f32
+    operations per edge and column over the f32 peak."""
+    nbytes = (n + 1) * 4 + 3 * e * 4 + 3 * n * f * 4
+    ops = 4 * e * f
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def _err_over_mass(err, mass):
+    return (err / mass.clamp(min=1e-30)).masked_fill(err == 0, 0.0).max().item()
+
+
 def k1_agreement(out, csr, w, x, stream, edge_block=None):
     """Hold K1's output against its plain version on the same inputs.
     Returns (max_abs_err, worst err / sum|terms| ratio, max |plain|)."""
@@ -110,8 +162,24 @@ def k1_agreement(out, csr, w, x, stream, edge_block=None):
     del ref
     absw = None if w is None else w.abs()
     mass = spmm_rowmask_plain(csr, absw, x.abs(), stream, edge_block)  # sum of |terms|
-    ratio = (err / mass.clamp(min=1e-30)).masked_fill(err == 0, 0.0).max().item()
+    ratio = _err_over_mass(err, mass)
     return max_err, ratio, max_ref
+
+
+def k2_agreement(dh, dw, csr_t, w, g, fs, stream, edge_block=None):
+    """Hold K2's ``dh`` and ``dw`` against its plain version on the same
+    inputs. Returns per output (max_abs_err, worst err / sum|terms|, max
+    |plain|), and whether every padding slot of ``dw`` is exactly 0."""
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_bwd_plain
+
+    refs = spmm_rowmask_bwd_plain(csr_t, w, g, fs, stream, edge_block)
+    errs = [(out - ref).abs() for out, ref in zip((dh, dw), refs)]
+    max_refs = [ref.abs().max().item() for ref in refs]
+    del refs
+    masses = spmm_rowmask_bwd_plain(csr_t, w.abs(), g.abs(), fs.abs(), stream, edge_block)
+    stats = [(err.max().item(), _err_over_mass(err, mass), m)
+             for err, mass, m in zip(errs, masses, max_refs)]
+    return stats[0], stats[1], not dw[csr_t.num_edges:].any().item()
 
 
 def phase_environment(port):
@@ -171,6 +239,41 @@ def phase_k1_vs_plain(dev, rng):
             "cases": results, "max_abs_err": worst}
 
 
+def phase_k2_vs_plain(dev, rng):
+    from stgraph_tpu_torch.graph.csr import build_csr
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_bwd
+
+    n, e, empty, hub, hub_deg = 200_000, 4_000_000, 1000, 12_345, 300_000
+    src = rng.integers(0, n - empty, e)  # the transpose's rows: 1000 empty
+    dst = rng.integers(0, n - empty, e)
+    dst[:hub_deg] = hub
+    src[-hub_deg:] = hub + 1  # a hub row of the transpose too
+    csr_t = build_csr(src, dst, n, device=dev).transpose()
+    results, worst = [], 0.0
+    for f in (7, 16, 47, 100, 128, 130):
+        g = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(dev)
+        fs = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(dev)
+        w = torch.from_numpy(rng.standard_normal(csr_t.capacity).astype(np.float32)).to(dev)
+        for stream in (torch.float32, torch.bfloat16):
+            dh, dw = spmm_rowmask_bwd(csr_t, w, g, fs, stream_dtype=stream)
+            torch.cuda.synchronize()
+            (dh_err, dh_ratio, dh_ref), (dw_err, dw_ratio, dw_ref), pad_zero = k2_agreement(
+                dh, dw, csr_t, w, g, fs, stream)
+            ok = (dh_ratio <= KERNEL_TOL and dw_ratio <= KERNEL_TOL and pad_zero
+                  and not dh[n - empty:].any().item())
+            tag = f"F={f} {str(stream)[6:]} stream"
+            print(f"k2-check {tag}: dh max_abs_err {dh_err:.3e} (max |plain| {dh_ref:.1f}, "
+                  f"err/sum|terms| {dh_ratio:.2e}); dw max_abs_err {dw_err:.3e} (max |plain| "
+                  f"{dw_ref:.1f}, err/sum|terms| {dw_ratio:.2e}); padding dw zero {pad_zero} "
+                  f"(tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"K2 disagrees with its plain version at {tag}")
+            worst = max(worst, dh_err, dw_err)
+            results.append({"case": tag, "dh_max_abs_err": dh_err, "dh_err_over_mass": dh_ratio,
+                            "dw_max_abs_err": dw_err, "dw_err_over_mass": dw_ratio})
+    return {"graph": {"n": n, "e": e, "empty_rows": empty, "hub_deg": hub_deg},
+            "cases": results, "max_abs_err": worst}
+
+
 class GCN(torch.nn.Module):
     """The served model: GCNConv layers over a fixed graph."""
 
@@ -204,11 +307,11 @@ def numpy_gcn_params(dims, seed):
     return {"params": tree}
 
 
-def build_model(graph, impl, dev, seed):
+def build_model(graph, impl, dev, seed, dims=GCN_DIMS):
     from stgraph_tpu_torch.convert import gcn_params_from_jax
 
-    model = GCN(graph, GCN_DIMS, impl, dev)
-    model.load_state_dict(gcn_params_from_jax(numpy_gcn_params(GCN_DIMS, seed)))
+    model = GCN(graph, dims, impl, dev)
+    model.load_state_dict(gcn_params_from_jax(numpy_gcn_params(dims, seed)))
     return model.eval()
 
 
@@ -248,7 +351,7 @@ def sampled_layer_check(graph, layer, h_in, y, rows, relu):
 def phase_serving(dev, args, workdir):
     from stgraph_tpu_torch.dataset import OgbNodeDataLoader
     from stgraph_tpu_torch.graph import StaticGraph
-    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_bwd
     from stgraph_tpu_torch.serve import Predictor
 
     t0 = time.perf_counter()
@@ -278,7 +381,7 @@ def phase_serving(dev, args, workdir):
     ]
     torch.cuda.synchronize()
     times = []
-    spmm_rowmask.launches = 0
+    spmm_rowmask.launches = spmm_rowmask_bwd.launches = 0
     for r, x in enumerate(requests):
         before = spmm_rowmask.launches
         t = time.perf_counter()
@@ -293,7 +396,8 @@ def phase_serving(dev, args, workdir):
         check(tuple(logits.shape) == (n, GCN_DIMS[-1]), f"logits shape {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all().item()), f"request {r}: non-finite logits")
     launches = spmm_rowmask.launches
-    print(f"serve: {REQUESTS} requests, K1 launches {launches}, per-request s "
+    check(spmm_rowmask_bwd.launches == 0, f"serving launched K2 {spmm_rowmask_bwd.launches} times")
+    print(f"serve: {REQUESTS} requests, K1 launches {launches}, K2 launches 0, per-request s "
           f"{[round(t, 4) for t in times]}, logits finite, shape {tuple(logits.shape)}")
 
     rng = np.random.default_rng(args.seed + 1)
@@ -313,6 +417,7 @@ def phase_serving(dev, args, workdir):
                            "max_abs_ref": max_ref, "rows": len(rows)})
     return {
         "graph": graph, "model": model, "predictor": predictor, "feats": feats,
+        "labels": torch.from_numpy(data.get_all_targets()).to(dev),
         "inputs": [h for h, _ in captured], "launches": launches,
         "record": {
             "n": n, "e": e, "synthetic": data.synthetic, "scale": args.scale,
@@ -387,18 +492,17 @@ def phase_model_vs_plain(dev, args, workdir):
     return {"n": n, "e": graph.get_num_edges(), "max_abs_err": err, "max_abs_plain": scale}
 
 
-def phase_profile(served):
-    """Device time by kernel over one request, and the device's idle share
-    between the request's first and last kernel (informational)."""
+def phase_profile(fn, what):
+    """Device time by kernel over one call of ``fn``, and the device's idle
+    share between its first and last kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    predictor, feats = served["predictor"], served["feats"]
-    predictor(feats)  # the profiler's own first-use cost stays out of the window
+    fn()  # the profiler's own first-use cost stays out of the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        predictor(feats)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -410,13 +514,358 @@ def phase_profile(served):
     busy = sum(ms for ms, _ in by_name.values())
     span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
     rows = sorted(((ms, name, c) for name, (ms, c) in by_name.items()), reverse=True)
-    print(f"profile: one request {wall_ms:.1f} ms wall (profiled); kernels busy {busy:.2f} ms of a "
+    print(f"profile: {what} {wall_ms:.1f} ms wall (profiled); kernels busy {busy:.2f} ms of a "
           f"{span:.2f} ms device span (idle share {1 - busy / span:.3f})")
-    for ms, name, count in rows[:6]:
+    for ms, name, count in rows[:8]:
         print(f"  {ms:9.3f} ms  x{count:<3d} {name[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "device_span_ms": span,
             "idle_share": 1 - busy / span,
             "top": [{"ms": ms, "name": name, "count": c} for ms, name, c in rows[:12]]}
+
+
+def phase_k2_at_main_shapes(served):
+    """K2 on the transpose of the full graph at the widths a training step
+    gives it (F = 128 and 47), with the forward's own weights and features
+    (``fs``) and a random cotangent."""
+    from stgraph_tpu_torch.ops import message as M
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_bwd, spmm_rowmask_bwd_plain
+    from stgraph_tpu_torch.utils.norm import symmetric_norm
+
+    graph = served["graph"]
+    csr = graph.fwd_csr
+    n = csr.num_nodes
+    e = int(csr.host_arrays()[0][-1])
+    t0 = time.perf_counter()
+    csr_t = csr.transpose()
+    t1 = time.perf_counter()
+    perm_t, _, _ = csr.edge_perms()
+    t2 = time.perf_counter()
+    max_out = int(np.diff(csr_t.host_arrays()[0]).max())
+    print(f"k2-main setup: transpose CSR (host counting sort + upload) {t1 - t0:.2f} s, "
+          f"edge permutations {t2 - t1:.2f} s, largest out-degree {max_out}")
+    per_launch, worst = [], 0.0
+    gen = torch.Generator(device=csr.device).manual_seed(7)
+    bf16 = torch.bfloat16
+    with torch.inference_mode():
+        w = M.gather_src(csr, symmetric_norm(graph)).reshape(-1)
+        w_t = w.index_select(0, perm_t)
+        pattern = torch.sparse_csr_tensor(csr_t.indptr, csr_t.cols[:e], w_t[:e], size=(n, n),
+                                          check_invariants=False)
+        for layer, h_in in (pair for i, pair in enumerate(zip(served["model"].layers, served["inputs"]))
+                            if i in (1, 2)):
+            fs = h_in @ layer.weight
+            f = fs.shape[1]
+            g = torch.randn(fs.shape, device=fs.device, generator=gen)
+            dh, dw = spmm_rowmask_bwd(csr_t, w_t, g, fs, stream_dtype=bf16)
+            torch.cuda.synchronize()
+            (dh_err, dh_ratio, _), (dw_err, dw_ratio, _), pad_zero = k2_agreement(
+                dh, dw, csr_t, w_t, g, fs, bf16, K2_PLAIN_EDGE_BLOCK)
+            check(dh_ratio <= KERNEL_TOL and dw_ratio <= KERNEL_TOL and pad_zero,
+                  f"K2 at F={f} (full graph) disagrees: dh {dh_ratio}, dw {dw_ratio}, padding zero {pad_zero}")
+            del dh, dw
+            ms = cuda_ms(lambda: spmm_rowmask_bwd(csr_t, w_t, g, fs, stream_dtype=bf16), iters=10, warmup=2)
+            plain_ms = cuda_ms(lambda: spmm_rowmask_bwd_plain(csr_t, w_t, g, fs, bf16, K2_PLAIN_EDGE_BLOCK),
+                               iters=2, warmup=1)
+            lib = {}
+            for name, fn in (("sparse.mm", lambda: torch.sparse.mm(pattern, g)),
+                             ("sampled_addmm", lambda: torch.sparse.sampled_addmm(pattern, fs, g.t(), beta=0.0))):
+                try:  # a timed yardstick only; the port never calls it
+                    lib[name] = cuda_ms(fn, iters=3, warmup=1)
+                except RuntimeError as exc:
+                    print(f"library yardstick {name} unavailable at F={f}: {exc}")
+                    lib[name] = None
+            lib_ms = None if None in lib.values() else sum(lib.values())
+            bound_ms, bound_by, nbytes, ops = k2_bound(n, e, f)
+            print(f"k2-main F={f}: {ms:.3f} ms (plain {plain_ms:.1f} ms, torch.sparse.mm "
+                  f"{lib['sparse.mm']} ms + sampled_addmm {lib['sampled_addmm']} ms, bound {bound_ms:.3f} ms "
+                  f"by {bound_by}); full-graph dh max_abs_err {dh_err:.3e} (err/sum|terms| "
+                  f"{dh_ratio:.2e}), dw max_abs_err {dw_err:.3e} (err/sum|terms| {dw_ratio:.2e})")
+            worst = max(worst, dh_err, dw_err)
+            per_launch.append({"F": f, "E": e, "N": n, "stream": "bf16", "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": lib_ms, "library_parts_ms": lib, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+                               "dh_max_abs_err": dh_err, "dh_err_over_mass": dh_ratio,
+                               "dw_max_abs_err": dw_err, "dw_err_over_mass": dw_ratio})
+    return per_launch, worst, {"transpose_s": t1 - t0, "edge_perms_s": t2 - t1, "max_out_degree": max_out}
+
+
+def phase_training(dev, args, served):
+    """The served GCN class trained on the full graph: the main path of the
+    training slice."""
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_bwd
+
+    graph, feats, labels = served["graph"], served["feats"], served["labels"]
+    model = build_model(graph, "auto", dev, args.seed).train()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-2, weight_decay=5e-4)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(model(feats), labels)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return loss.item()
+
+    t = time.perf_counter()
+    warm_loss = step()
+    warm_s = time.perf_counter() - t
+    losses, times, per_step = [], [], []
+    spmm_rowmask.launches = spmm_rowmask_bwd.launches = 0
+    for _ in range(TRAIN_STEPS):
+        before = spmm_rowmask.launches, spmm_rowmask_bwd.launches
+        t = time.perf_counter()
+        losses.append(step())
+        times.append(time.perf_counter() - t)
+        per_step.append((spmm_rowmask.launches - before[0], spmm_rowmask_bwd.launches - before[1]))
+    launches = {"K1": spmm_rowmask.launches, "K2": spmm_rowmask_bwd.launches}
+    print(f"train: warm step {warm_s:.3f} s (loss {warm_loss:.4f}); {TRAIN_STEPS} AdamW steps, "
+          f"s per step {[round(t, 4) for t in times]}, losses {[round(v, 4) for v in losses]}, "
+          f"launches per step (K1, K2) {per_step}")
+    check(all(c == (3, 3) for c in per_step), f"a training step launched (K1, K2) {per_step}, expected (3, 3)")
+    check(all(np.isfinite(losses)) and np.isfinite(warm_loss), "non-finite training loss")
+    check(losses[-1] < losses[0], f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    return {"model": model, "optimizer": opt, "step": step, "launches": launches,
+            "record": {"warm_s": warm_s, "warm_loss": warm_loss, "step_s": times, "losses": losses,
+                       "launches_per_step": per_step, "launches": launches}}
+
+
+def phase_unweighted_step(dev, args, served):
+    """``bench.py``'s training step formulation: the norms outside the SpMM,
+    so it runs unweighted and its backward is K1 on the transpose."""
+    from stgraph_tpu_torch.ops import message as M
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_bwd
+    from stgraph_tpu_torch.utils.norm import symmetric_norm
+
+    graph, feats, labels = served["graph"], served["feats"], served["labels"]
+    csr = graph.fwd_csr
+    norm = symmetric_norm(graph)
+    rng = np.random.default_rng(args.seed)
+    ws = [torch.from_numpy((rng.standard_normal((a, b)) * 0.05).astype(np.float32)).to(dev).requires_grad_()
+          for a, b in zip(GCN_DIMS[:-1], GCN_DIMS[1:])]
+
+    def step():
+        h = feats
+        for i, w in enumerate(ws):
+            h = M.spmm(csr, (h @ w) * norm, impl="kernel") * norm
+            if i < len(ws) - 1:
+                h = torch.relu(h)
+        loss = torch.nn.functional.cross_entropy(h, labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item()
+
+    step()  # warm
+    spmm_rowmask.launches = spmm_rowmask_bwd.launches = 0
+    t = time.perf_counter()
+    loss = step()
+    step_s = time.perf_counter() - t
+    counts = (spmm_rowmask.launches, spmm_rowmask_bwd.launches)
+    print(f"unweighted step: {step_s:.4f} s, loss {loss:.4f}, launches (K1, K2) {counts}")
+    check(counts == (6, 0), f"the unweighted step launched (K1, K2) {counts}, expected (6, 0)")
+    check(np.isfinite(loss) and all(bool(torch.isfinite(w.grad).all()) for w in ws), "non-finite step")
+    return {"step_s": step_s, "loss": loss, "launches": {"K1": counts[0], "K2": counts[1]}}
+
+
+def phase_checkpoint_serve(dev, served, trained, workdir):
+    """Save the trained model and optimizer, serve from the checkpoint, and
+    hold each served layer to the trained layer's own forward on the same
+    input (they differ only by the order of K1's split-row atomics)."""
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_plain
+    from stgraph_tpu_torch.serve import Predictor
+    from stgraph_tpu_torch.utils import Checkpointer
+    from stgraph_tpu_torch.utils.norm import symmetric_norm
+    from stgraph_tpu_torch.ops import message as M
+
+    graph, feats = served["graph"], served["feats"]
+    model, opt = trained["model"], trained["optimizer"]
+    ckdir = os.path.join(workdir, "checkpoints")
+    t = time.perf_counter()
+    Checkpointer(ckdir).save(1 + TRAIN_STEPS, {"model": model.state_dict(), "optimizer": opt.state_dict()})
+    save_s = time.perf_counter() - t
+    like = {"model": model.state_dict(), "optimizer": opt.state_dict()}
+
+    def apply_fn(state, x):
+        return torch.func.functional_call(model, state["model"], (x,))
+
+    t = time.perf_counter()
+    predictor = Predictor.from_checkpoint(ckdir, apply_fn, like, (feats,), device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    captured = []
+    hooks = [layer.register_forward_hook(lambda mod, inp, out: captured.append((inp[1], out)))
+             for layer in model.layers]
+    logits = predictor(feats)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    check(tuple(logits.shape) == (graph.get_num_nodes(), GCN_DIMS[-1]) and bool(torch.isfinite(logits).all()),
+          "the checkpointed model served bad logits")
+    csr = graph.fwd_csr
+    worst, checks = 0.0, []
+    with torch.inference_mode():
+        w_abs = M.gather_src(csr, symmetric_norm(graph)).abs()
+        bit_equal = torch.equal(logits, model(feats))
+        for i, (layer, (x_in, y_served)) in enumerate(zip(model.layers, captured)):
+            y = layer(graph, x_in)
+            err = (y_served - y).abs()
+            hw = x_in @ layer.weight
+            mass = spmm_rowmask_plain(csr, w_abs, hw.abs(), torch.bfloat16, PLAIN_EDGE_BLOCK)
+            mass = mass * symmetric_norm(graph)
+            bound = KERNEL_TOL * mass + 1e-6 * y.abs()  # + one rounding of the bias add
+            ok = bool((err <= bound).all())
+            ratio = _err_over_mass(err, mass)
+            print(f"checkpoint-serve layer {i}: max_abs_err {err.max().item():.3e} vs its own forward, "
+                  f"worst err/(norm*sum|terms|) {ratio:.2e} {'ok' if ok else 'FAIL'}")
+            check(ok, f"served layer {i} from the checkpoint disagrees with the trained layer")
+            worst = max(worst, err.max().item())
+            checks.append({"layer": i, "max_abs_err": err.max().item(), "err_over_mass": ratio})
+    print(f"checkpoint-serve: save {save_s:.3f} s, from_checkpoint (restore + warm call) {restore_s:.3f} s, "
+          f"logits bit-equal to the trained model's forward: {bit_equal}")
+    return {"save_s": save_s, "restore_s": restore_s, "bit_equal": bit_equal, "layers": checks,
+            "max_abs_err": worst}
+
+
+def phase_grads_vs_plain(dev, args, workdir):
+    from stgraph_tpu_torch.dataset import OgbNodeDataLoader
+    from stgraph_tpu_torch.graph import StaticGraph
+    from stgraph_tpu_torch.nn import GCNConv
+
+    data = OgbNodeDataLoader(root=workdir, scale=0.01, seed=args.seed)
+    n = data.gdata["num_nodes"]
+    graph = StaticGraph(data.get_edges(), None, n, device=dev)
+    x = torch.from_numpy(data.get_all_features()).to(dev)
+    y = torch.from_numpy(data.get_all_targets()).to(dev)
+    grads = {}
+    for impl in ("auto", "torch"):
+        model = build_model(graph, impl, dev, args.seed)
+        torch.nn.functional.cross_entropy(model(x), y).backward()
+        grads[impl] = {k: p.grad for k, p in model.named_parameters()}
+    e = graph.get_num_edges()
+    rng = np.random.default_rng(args.seed + 2)
+    ew = torch.from_numpy(rng.random(e).astype(np.float32)).to(dev)
+    r = torch.from_numpy(rng.standard_normal((n, 47)).astype(np.float32)).to(dev)
+    for impl in ("auto", "torch"):
+        conv = GCNConv(100, 47, impl=impl, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+        w = ew.clone().requires_grad_()
+        (conv(graph, x, w) * r).sum().backward()
+        grads[impl]["edge_weight"] = w.grad
+        grads[impl]["conv.weight (weighted)"] = conv.weight.grad
+    worst, rows = 0.0, []
+    for k, ref in grads["torch"].items():
+        err = (grads["auto"][k] - ref).abs().max().item()
+        ratio = err / max(ref.abs().max().item(), 1e-30)
+        worst = max(worst, ratio)
+        rows.append({"tensor": k, "max_abs_err": err, "err_over_max": ratio})
+        print(f"grad-check {k}: kernel path vs plain torch path max_abs_err {err:.3e}, "
+              f"{ratio:.2e} of the largest (tol {GRAD_TOL:g}) {'ok' if ratio <= GRAD_TOL else 'FAIL'}")
+    check(worst <= GRAD_TOL, "a gradient on the kernel path disagrees with the plain path at scale 0.01")
+    return {"n": n, "e": e, "grads": rows, "worst_err_over_max": worst}
+
+
+def phase_cora(dev, args, workdir):
+    """``benchmarking/gcn/train.py`` on the port: 2 GCN layers, hidden 16,
+    AdamW(1e-2, 5e-4), 200 full-graph epochs, the kernel route."""
+    from stgraph_tpu_torch.dataset import CoraDataLoader, STGraphDataset
+    from stgraph_tpu_torch.graph import StaticGraph
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_bwd
+    from stgraph_tpu_torch.utils import accuracy
+
+    STGraphDataset._offline = True  # no network here: the synthetic Cora, without a download attempt
+    cora = CoraDataLoader(cache_dir=os.path.join(workdir, "datasets"))
+    n = cora.gdata["num_nodes"]
+    graph = StaticGraph(cora.get_edges(), None, n, device=dev)
+    x = torch.from_numpy(cora.get_all_features()).to(dev)
+    y = torch.from_numpy(cora.get_all_targets()).to(dev)
+    model = build_model(graph, "kernel", dev, args.seed, dims=CORA_DIMS).train()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-2, weight_decay=5e-4)
+    spmm_rowmask.launches = spmm_rowmask_bwd.launches = 0
+    times = []
+    for epoch in range(CORA_EPOCHS):
+        t = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        if epoch >= 3:
+            times.append(time.perf_counter() - t)
+    counts = (spmm_rowmask.launches, spmm_rowmask_bwd.launches)
+    with torch.inference_mode():
+        acc = accuracy(model(x), y)
+    epoch_s = float(np.mean(times))
+    print(f"cora: synthetic={cora.synthetic} N={n} E={cora.gdata['num_edges']}, {CORA_EPOCHS} epochs, "
+          f"mean epoch (>=3) {epoch_s * 1e3:.3f} ms, final loss {loss.item():.4f}, train acc {acc:.4f}, "
+          f"launches (K1, K2) {counts}")
+    check(counts == (2 * CORA_EPOCHS, 2 * CORA_EPOCHS), f"Cora launched (K1, K2) {counts}")
+    check(acc > 0.9, f"Cora train accuracy {acc:.4f} is not above 0.9")
+    return {"synthetic": cora.synthetic, "epoch_s": epoch_s, "train_acc": acc, "loss": loss.item(),
+            "launches": {"K1": counts[0], "K2": counts[1]}}
+
+
+def phase_tgcn(dev, rng):
+    """TGCN, 3 timesteps forward and backward on a 200k-edge weighted graph
+    (K1 and K2 stream bf16), against the same run on the CPU's plain path."""
+    from stgraph_tpu_torch.graph import StaticGraph
+    from stgraph_tpu_torch.nn import TGCN
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_bwd
+
+    n, e, cin, cout, steps = 10_000, 200_000, 16, 32, 3
+    edges = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)], 1)
+    ew = rng.random(e).astype(np.float32)
+    xs = [rng.standard_normal((n, cin)).astype(np.float32) for _ in range(steps)]
+    target = rng.standard_normal((n, cout)).astype(np.float32)
+    ref_layer = TGCN(cin, cout, impl="kernel", device="cpu", generator=torch.Generator().manual_seed(5))
+    results = []  # the CPU's plain path, then the card's kernel path
+    for d in (torch.device("cpu"), dev):
+        layer = TGCN(cin, cout, impl="kernel", device=d)
+        layer.load_state_dict(ref_layer.state_dict())
+        graph = StaticGraph(edges, None, n, device=d)
+        w = torch.from_numpy(ew).to(d)
+        x = [torch.from_numpy(v).to(d).requires_grad_() for v in xs]
+        before = spmm_rowmask.launches, spmm_rowmask_bwd.launches
+        h = None
+        for xt in x:
+            h = layer(graph, xt, w, h)
+        ((h - torch.from_numpy(target).to(d)) ** 2).mean().backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            counts = (spmm_rowmask.launches - before[0], spmm_rowmask_bwd.launches - before[1])
+            check(counts == (3 * steps, 3 * steps), f"TGCN launched (K1, K2) {counts}, expected 9 each")
+        tensors = {"h": h.detach()}
+        tensors.update({f"grad {k}": p.grad for k, p in layer.named_parameters()})
+        tensors.update({f"grad x{i}": v.grad for i, v in enumerate(x)})
+        results.append({k: v.cpu() for k, v in tensors.items()})
+    worst = 0.0
+    for k, ref in results[0].items():
+        ratio = (results[1][k] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        worst = max(worst, ratio)
+    print(f"tgcn: N={n} E={e} {cin}->{cout}, {steps} timesteps fwd+bwd, CUDA kernel path vs CPU plain "
+          f"path: worst max_abs_err / max |ref| over h and {len(results[0]) - 1} gradients "
+          f"{worst:.2e} (tol {DEVICE_TOL:g}) {'ok' if worst <= DEVICE_TOL else 'FAIL'}")
+    check(worst <= DEVICE_TOL, "TGCN on the card disagrees with the CPU's plain path")
+    return {"n": n, "e": e, "worst_err_over_max": worst}
+
+
+def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch):
+    """One kernel's entry of the kernels line: launches summed over the main
+    paths' runs, times summed over the launches of one request (K1) or one
+    training step (K2) at the main path's shapes."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": sum(counts[key] for counts in by_path.values()),
+        "launches_by_path": {path: counts[key] for path, counts in by_path.items()},
+        "max_abs_err": max_abs_err,
+        "ms": sum(p["ms"] for p in per_launch),
+        "plain_ms": sum(p["plain_ms"] for p in per_launch),
+        "bound_ms": sum(p["bound_ms"] for p in per_launch),
+        "bound_by": "bytes" if all(p["bound_by"] == "bytes" for p in per_launch) else "operations",
+        "library_ms": (None if any(p["library_ms"] is None for p in per_launch)
+                       else sum(p["library_ms"] for p in per_launch)),
+        "per_launch": [{k: p[k] for k in ("F", "ms", "plain_ms", "bound_ms", "library_ms")} for p in per_launch],
+    }
 
 
 def main() -> int:
@@ -447,40 +896,42 @@ def main() -> int:
     try:
         record["environment"] = phase_environment(port)
         record["k1_checks"] = phase_k1_vs_plain(dev, rng)
+        record["k2_checks"] = phase_k2_vs_plain(dev, rng)
         with tempfile.TemporaryDirectory(dir=build_root) as workdir:
             served = phase_serving(dev, args, workdir)
             record["serving"] = served["record"]
-            per_launch, main_err = phase_k1_at_main_shapes(served)
-            record["k1_main"] = per_launch
-            try:
-                record["profile"] = phase_profile(served)
-            except Exception as exc:  # informational only: report and go on
-                print(f"profile: unavailable ({type(exc).__name__}: {exc})")
-            del served
+            k1_launch, k1_err = phase_k1_at_main_shapes(served)
+            record["k1_main"] = k1_launch
+            record["profile"] = phase_profile(lambda: served["predictor"](served["feats"]), "one request")
+            k2_launch, k2_err, record["k2_setup"] = phase_k2_at_main_shapes(served)
+            record["k2_main"] = k2_launch
+            trained = phase_training(dev, args, served)
+            record["training"] = trained["record"]
+            record["checkpoint_serve"] = phase_checkpoint_serve(dev, served, trained, workdir)
+            record["training_profile"] = phase_profile(trained["step"], "one training step")
+            record["unweighted_step"] = phase_unweighted_step(dev, args, served)
+            del served, trained
             torch.cuda.empty_cache()
             record["model_check"] = phase_model_vs_plain(dev, args, workdir)
+            record["grad_check"] = phase_grads_vs_plain(dev, args, workdir)
+            record["cora"] = phase_cora(dev, args, workdir)
+        record["tgcn"] = phase_tgcn(dev, rng)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
-    launches = record["serving"]["launches"]
-    check_err = max(record["k1_checks"]["max_abs_err"], main_err)
-    kernels = [{
-        "name": "spmm_rowmask (K1)",
-        "route": "cuda",
-        "source": "stgraph_tpu_torch/csrc/spmm_rowmask.cu",
-        "replaces": "stgraph_tpu/ops/segment_pallas.py:761",
-        "launches": launches,
-        "max_abs_err": check_err,
-        # one request's three launches (F = 128, 128, 47) at the main path's shapes
-        "ms": sum(p["ms"] for p in per_launch),
-        "plain_ms": sum(p["plain_ms"] for p in per_launch),
-        "bound_ms": sum(p["bound_ms"] for p in per_launch),
-        "bound_by": "bytes" if all(p["bound_by"] == "bytes" for p in per_launch) else "operations",
-        "library_ms": (None if any(p["library_ms"] is None for p in per_launch)
-                       else sum(p["library_ms"] for p in per_launch)),
-        "per_launch": [{k: p[k] for k in ("F", "ms", "plain_ms", "bound_ms", "library_ms")} for p in per_launch],
-    }]
+    by_path = {"serving": {"K1": record["serving"]["launches"], "K2": 0},
+               "training": record["training"]["launches"]}
+    kernels = [
+        kernel_entry("spmm_rowmask (K1)", "stgraph_tpu_torch/csrc/spmm_rowmask.cu",
+                     "stgraph_tpu/ops/segment_pallas.py:761", "K1", by_path,
+                     max(record["k1_checks"]["max_abs_err"], k1_err), k1_launch),
+        kernel_entry("spmm_sddmm_rowmask (K2)", "stgraph_tpu_torch/csrc/spmm_sddmm_rowmask.cu",
+                     "stgraph_tpu/ops/segment_pallas.py:1248", "K2", by_path,
+                     max(record["k2_checks"]["max_abs_err"], k2_err),
+                     # a training step's three launches: F = 128, 128, 47
+                     [p for f in (128, 128, 47) for p in k2_launch if p["F"] == f]),
+    ]
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_start
     if args.details:

@@ -8,9 +8,12 @@ Pallas TPU kernel on its path with a kernel written by hand for Hopper
 (``csrc/``), built at first use. Entry points take ``device=`` and run on
 CUDA unless the caller asks for the CPU.
 
-Ported so far (the serving slice): the CSR and static graph, the segment
+Ported so far: the serving slice (the CSR and static graph, the segment
 and message ops, the vertex compiler, ``GCNConv``, ``Predictor``, the OGB
-loader, and K1 (row-wise SpMM) as a CUDA kernel.
+loader, and K1, the row-wise SpMM, as a CUDA kernel) and the training
+slice (the SpMM backward through K1 on the transpose CSR and K2, the fused
+SpMM backward, as a CUDA kernel; ``TGCN``; checkpoints and
+``Predictor.from_checkpoint``; the training helpers; Cora).
 """
 
 from stgraph_tpu_torch import compiler, convert, dataset, graph, nn, ops, serve, utils

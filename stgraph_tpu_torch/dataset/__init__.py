@@ -1,6 +1,15 @@
-"""Datasets: the OGB node-property loader (the other loaders come with the
-temporal slice). Loaders are host numpy; models move data to their device."""
+"""Datasets: the static base class, Cora and the OGB node-property loader
+(the temporal loaders come with the temporal slice). Loaders are host
+numpy; models move data to their device."""
 
+from stgraph_tpu_torch.dataset.base import STGraphDataset, STGraphStaticDataset
+from stgraph_tpu_torch.dataset.cora_dataloader import CoraDataLoader
 from stgraph_tpu_torch.dataset.ogb_dataloader import OGBN_PRODUCTS_STATS, OgbNodeDataLoader
 
-__all__ = ["OGBN_PRODUCTS_STATS", "OgbNodeDataLoader"]
+__all__ = [
+    "CoraDataLoader",
+    "OGBN_PRODUCTS_STATS",
+    "OgbNodeDataLoader",
+    "STGraphDataset",
+    "STGraphStaticDataset",
+]

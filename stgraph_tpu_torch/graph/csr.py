@@ -134,20 +134,57 @@ class CSR:
         """The transposed CSR (rows<->cols), keeping ``eids``.
 
         Built on the host with a stable sort by (col, row), as the JAX
-        package does for a concrete CSR; padding (col == n) sorts last.
+        package does for a concrete CSR; padding (col == n) sorts last. The
+        native counting sort, where it builds, gives the same order as
+        numpy's ``lexsort``.
         """
 
         def make():
+            from stgraph_tpu_torch import native
+
             n = self.num_nodes
             _, rows, cols, eids = self._host
-            order = np.lexsort((rows, cols))
-            t_rows, t_cols, t_eids = cols[order], rows[order], eids[order]
-            counts = np.bincount(t_rows[t_rows < n], minlength=n)
-            indptr = np.zeros(n + 1, dtype=np.int32)
-            np.cumsum(counts, out=indptr[1:])
+            e = self.num_edges
+            built = native.build_csr_arrays(rows[:e], cols[:e], n, self.capacity)
+            if built is not None:
+                # build_csr_arrays labels each edge by its input position
+                indptr, t_rows, t_cols, t_eids = built
+                t_eids[:e] = eids[t_eids[:e]]
+            else:
+                order = np.lexsort((rows, cols))
+                t_rows, t_cols, t_eids = cols[order], rows[order], eids[order]
+                counts = np.bincount(t_rows[t_rows < n], minlength=n)
+                indptr = np.zeros(n + 1, dtype=np.int32)
+                np.cumsum(counts, out=indptr[1:])
             return CSR((indptr, t_rows, t_cols, t_eids), n, self.num_edges, self.device)
 
         return self.cached("transpose", make)
+
+    def edge_perms(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(perm_t, perm_f, emask)`` between this CSR's edge order and its
+        transpose's, as ``spmm_pallas._make_rowmask_spmm`` builds them.
+
+        ``w[perm_t]`` is forward-order ``w`` in transpose order and
+        ``dw_t[perm_f]`` the converse; both go through the shared ``eids``
+        with the sentinel clamped to ``capacity`` (padding maps to some
+        padding slot). ``emask`` is 1.0 on real edges, 0.0 on padding. The
+        perms are int32 (for ``index_select``), built on the host once.
+        """
+
+        def make():
+            n, cap = self.num_nodes, self.capacity
+            _, rows, _, eids = self._host
+            eids_t = self.transpose().host_arrays()[3]
+            pos_in_fwd = np.zeros(cap + 1, np.int32)
+            pos_in_fwd[np.minimum(eids, cap)] = np.arange(cap, dtype=np.int32)
+            perm_t = pos_in_fwd[np.minimum(eids_t, cap)]
+            pos_in_t = np.zeros(cap + 1, np.int32)
+            pos_in_t[np.minimum(eids_t, cap)] = np.arange(cap, dtype=np.int32)
+            perm_f = pos_in_t[np.minimum(eids, cap)]
+            emask = (rows < n).astype(np.float32)
+            return tuple(torch.from_numpy(a).to(self.device) for a in (perm_t, perm_f, emask))
+
+        return self.cached("edge_perms", make)
 
 
 def pad_edges(

@@ -7,7 +7,8 @@ one-liner
     ``sum([nb.h * nb.norm for nb in v.innbs]) * v.norm``
 
 which the lowering's SpMM peephole turns into one weighted SpMM (the dense
-adjacency on small graphs, the K1 kernel on large ones).
+adjacency on small graphs, the K1 kernel on large ones, with K2 for its
+backward).
 """
 
 from __future__ import annotations

@@ -23,7 +23,12 @@ from stgraph_tpu_torch.ops.segment import (
     segment_softmax,
     segment_sum,
 )
-from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_plain
+from stgraph_tpu_torch.ops.spmm_kernels import (
+    spmm_rowmask,
+    spmm_rowmask_bwd,
+    spmm_rowmask_bwd_plain,
+    spmm_rowmask_plain,
+)
 
 __all__ = [
     "aggregate",
@@ -40,5 +45,7 @@ __all__ = [
     "segment_sum",
     "spmm",
     "spmm_rowmask",
+    "spmm_rowmask_bwd",
+    "spmm_rowmask_bwd_plain",
     "spmm_rowmask_plain",
 ]

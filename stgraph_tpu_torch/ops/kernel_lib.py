@@ -23,7 +23,10 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build", "load"]
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 
 # kernel library name -> source file in csrc/
-SOURCES: Dict[str, str] = {"spmm_rowmask": "spmm_rowmask.cu"}
+SOURCES: Dict[str, str] = {
+    "spmm_rowmask": "spmm_rowmask.cu",  # K1
+    "spmm_sddmm_rowmask": "spmm_sddmm_rowmask.cu",  # K2
+}
 
 NVCC_FLAGS: List[str] = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,4 +1,5 @@
-"""K1: the row-wise SpMM kernel's wrapper and its plain PyTorch version.
+"""K1 and K2: the row-wise SpMM kernel and its fused backward, each with its
+wrapper and its plain PyTorch version.
 
 Replaces ``stgraph_tpu/ops/segment_pallas.py``'s ``spmm_rowmask``
 (``:913-1133``) and its Pallas kernel ``_spmm_rowmask_kernel`` (``:761``)
@@ -16,8 +17,19 @@ about 25 times more. The design (a warp per row, the gather inside the
 kernel, a bf16 table made once, hub rows split across warps) is described
 in the source.
 
-``spmm_rowmask`` takes the plain version only because the tensor it was
-given lies on the CPU. For a CUDA tensor it launches the kernel or raises;
+K2 (``spmm_rowmask_bwd``, ``csrc/spmm_sddmm_rowmask.cu``) replaces
+``segment_pallas.spmm_rowmask_bwd`` (``:1434-1618``) and its Pallas kernel
+``_spmm_sddmm_rowmask_kernel`` (``:1248``) for one head. On the transpose
+CSR, with the weights in transpose edge order, one pass gives
+
+    dh[s, :] = sum_{e in row s} w_t[e] * g[cols_t[e], :]            (f32)
+    dw_t[e]  = < fs[s, :], g[cols_t[e], :] >     (f32, 0 on padding slots)
+
+It shares K1's work items (on the transpose ``indptr``) and its bound is
+the same kind: memory, about 1.6 ms at ogbn-products size and F = 128.
+
+Each wrapper takes the plain version only because the tensor it was given
+lies on the CPU. For a CUDA tensor it launches the kernel or raises;
 nothing falls back.
 """
 
@@ -33,7 +45,14 @@ import torch.nn.functional as F
 from stgraph_tpu_torch.graph.csr import CSR
 from stgraph_tpu_torch.ops import kernel_lib
 
-__all__ = ["ROW_CHUNK", "k1_work_items", "spmm_rowmask", "spmm_rowmask_plain"]
+__all__ = [
+    "ROW_CHUNK",
+    "k1_work_items",
+    "spmm_rowmask",
+    "spmm_rowmask_bwd",
+    "spmm_rowmask_bwd_plain",
+    "spmm_rowmask_plain",
+]
 
 # Edges one warp takes from a row; longer rows are split into several work
 # items whose partial sums meet by atomicAdd.
@@ -43,6 +62,9 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "stg_spmm_rowmask": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP, _I, _I, _I, _VP],
+}
+_K2_SIGNATURES = {
+    "stg_spmm_sddmm_rowmask": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _VP],
 }
 
 _INT32_LIMIT = 2**31
@@ -134,6 +156,40 @@ def _work_items(csr: CSR):
     return csr.cached(f"k1_items_{ROW_CHUNK}", make)
 
 
+def _gathered_table(csr: CSR, feats: torch.Tensor, stream_dtype, kernel: str):
+    """The table a kernel gathers rows from, as ``(table, ld, bf16)``: the
+    features themselves for an f32 stream, or a bf16 copy whose row stride
+    ``ld`` is padded to a multiple of 8 (16 B: aligned vector loads at any
+    F). Checks device, type and the int32 index range."""
+    dev = feats.device
+    if dev.type != "cuda" or csr.device != dev:
+        raise ValueError(
+            f"{kernel} needs the CSR and the features on one CUDA device, got {csr.device} and {dev}"
+        )
+    if feats.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{kernel} takes f32 or bf16 features, got {feats.dtype}")
+    n, f = feats.shape
+    bf16 = _stream_is_bf16(feats, stream_dtype)
+    if bf16:
+        ld = -(-f // 8) * 8
+        table = feats.to(torch.bfloat16)
+        table = F.pad(table, (0, ld - f)) if ld != f else table.contiguous()
+    else:
+        if feats.dtype != torch.float32:
+            raise ValueError("an f32 stream needs f32 features")
+        ld = f
+        table = feats.contiguous()
+    if n * ld >= _INT32_LIMIT or csr.capacity + ROW_CHUNK >= _INT32_LIMIT:
+        raise ValueError(f"{kernel} indexes rows and edges with int32; the graph is too large")
+    return table, ld, bf16
+
+
+def _edge_weights(w: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    if w.device != dev:
+        raise ValueError("w must be on the features' device")
+    return w.reshape(-1).to(torch.float32).contiguous()
+
+
 def spmm_rowmask(
     csr: CSR,
     w: Optional[torch.Tensor],
@@ -164,28 +220,9 @@ def spmm_rowmask(
 
     lib = kernel_lib.load("spmm_rowmask", _SIGNATURES)
     dev = node_feats.device
-    if dev.type != "cuda" or csr.device != dev:
-        raise ValueError(f"K1 needs the CSR and the features on one CUDA device, got {csr.device} and {dev}")
-    if node_feats.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"K1 takes f32 or bf16 features, got {node_feats.dtype}")
+    table, ld, bf16 = _gathered_table(csr, node_feats, stream_dtype, "K1")
+    wt = None if w is None else _edge_weights(w, dev)
     n, f = node_feats.shape
-    bf16 = _stream_is_bf16(node_feats, stream_dtype)
-    if bf16:
-        ld = -(-f // 8) * 8  # 16 B row stride: aligned vector loads at any F
-        table = node_feats.to(torch.bfloat16)
-        table = F.pad(table, (0, ld - f)) if ld != f else table.contiguous()
-    else:
-        if node_feats.dtype != torch.float32:
-            raise ValueError("an f32 stream needs f32 features")
-        ld = f
-        table = node_feats.contiguous()
-    if n * ld >= _INT32_LIMIT or csr.capacity + ROW_CHUNK >= _INT32_LIMIT:
-        raise ValueError("K1 indexes rows and edges with int32; the graph is too large")
-    wt = None
-    if w is not None:
-        wt = w.reshape(-1).to(torch.float32).contiguous()
-        if wt.device != dev:
-            raise ValueError("w must be on the features' device")
     out = torch.empty(n, f, dtype=torch.float32, device=dev)
     if n == 0 or f == 0:
         return out, None
@@ -214,3 +251,103 @@ def spmm_rowmask(
 
 
 spmm_rowmask.launches = 0  # kernel launches since the count was last reset
+
+
+def spmm_rowmask_bwd_plain(
+    csr_t: CSR,
+    w_t: torch.Tensor,
+    g: torch.Tensor,
+    fs: torch.Tensor,
+    stream_dtype=None,
+    edge_block: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's plain version: ``dh`` by K1's plain version on ``csr_t``, and
+    ``dw_t`` by gathering ``fs[rows_t]`` and ``g[cols_t]`` per edge.
+
+    Rounds as the kernel rounds (bf16 stream: bf16 ``fs`` and ``g``, each
+    elementwise product rounded to bf16) and sums each dot product in f64,
+    rounded once to f32. Padding slots of ``dw_t`` are 0. ``edge_block``
+    bounds the (edges, F) temporaries, as for ``spmm_rowmask_plain``.
+    """
+    dh = spmm_rowmask_plain(csr_t, w_t, g, stream_dtype, edge_block)
+    e = int(csr_t.host_arrays()[0][-1])
+    bf16 = _stream_is_bf16(g, stream_dtype)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    dw = torch.zeros(csr_t.capacity, dtype=torch.float32, device=g.device)
+    block = max(e, 1) if edge_block is None else edge_block
+    for e0 in range(0, e, block):
+        e1 = min(e0 + block, e)
+        a = fs[csr_t.rows[e0:e1].long()].to(dt).float()
+        b = g[csr_t.cols[e0:e1].long()].to(dt).float()
+        prod = a * b
+        if bf16:
+            prod = prod.to(torch.bfloat16).float()
+        dw[e0:e1] = prod.double().sum(-1).float()
+    return dh, dw
+
+
+def spmm_rowmask_bwd(
+    csr_t: CSR,
+    w_t: torch.Tensor,
+    g: torch.Tensor,
+    fs: torch.Tensor,
+    stream_dtype=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: ``(dh, dw_t)`` of a weighted SpMM in one pass over ``csr_t``.
+
+    Call it on the TRANSPOSE CSR with the weights ``w_t`` in transpose edge
+    order, the output cotangent ``g`` and the forward's input features
+    ``fs`` (both (N, F)). ``dh`` is (N, F) f32; ``dw_t`` is (capacity,) f32
+    in transpose edge order, 0 on padding slots. ``stream_dtype`` as for
+    ``spmm_rowmask`` (it decides from ``g``'s dtype when None).
+    """
+    n = csr_t.num_nodes
+    if g.dim() != 2 or g.shape[0] != n or fs.shape != g.shape:
+        raise ValueError(
+            f"g and fs must both be (num_nodes={n}, F), got {tuple(g.shape)} and {tuple(fs.shape)}"
+        )
+    if w_t.numel() != csr_t.capacity:
+        raise ValueError(f"w_t must hold one weight per edge slot ({csr_t.capacity})")
+    if g.device.type == "cpu":
+        return spmm_rowmask_bwd_plain(csr_t, w_t, g, fs, stream_dtype)
+
+    lib = kernel_lib.load("spmm_sddmm_rowmask", _K2_SIGNATURES)
+    dev = g.device
+    table, ld, bf16 = _gathered_table(csr_t, g, stream_dtype, "K2")
+    if fs.device != dev:
+        raise ValueError("fs must be on g's device")
+    fs32 = fs.to(torch.float32).contiguous()  # rounded to the stream in the kernel
+    wt = _edge_weights(w_t, dev)
+    f = g.shape[1]
+    dh = torch.empty(n, f, dtype=torch.float32, device=dev)
+    dw = torch.empty(csr_t.capacity, dtype=torch.float32, device=dev)
+    dw[int(csr_t.host_arrays()[0][-1]):] = 0.0  # padding slots belong to no item
+    if n == 0 or f == 0:
+        return dh, dw.zero_()
+    item_row, item_beg, split_rows = _work_items(csr_t)
+    if split_rows.numel():
+        dh.index_fill_(0, split_rows, 0.0)
+    rc = lib.stg_spmm_sddmm_rowmask(
+        csr_t.indptr.data_ptr(),
+        csr_t.cols.data_ptr(),
+        wt.data_ptr(),
+        table.data_ptr(),
+        int(bf16),
+        fs32.data_ptr(),
+        item_row.data_ptr(),
+        item_beg.data_ptr(),
+        item_row.numel(),
+        dh.data_ptr(),
+        dw.data_ptr(),
+        f,
+        ld,
+        ROW_CHUNK,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"K2 (spmm_rowmask_bwd) launch failed with cudaError {rc}")
+    spmm_rowmask_bwd.launches += 1
+    return dh, dw
+
+
+spmm_rowmask_bwd.launches = 0  # kernel launches since the count was last reset

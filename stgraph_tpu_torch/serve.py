@@ -11,12 +11,15 @@ Usage::
     predictor = Predictor.build(model, dict(model.state_dict()), (x,))
     logits = predictor(x)
 
-``Predictor.from_checkpoint`` waits for the port of ``utils/checkpoint.py``.
+    # restore + serve
+    predictor = Predictor.from_checkpoint(
+        ckpt_dir, model, like=dict(model.state_dict()), example_inputs=(x,)
+    )
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -62,10 +65,24 @@ class Predictor:
         return predictor
 
     @classmethod
-    def from_checkpoint(cls, *args, **kwargs) -> "Predictor":
-        raise NotImplementedError(
-            "Predictor.from_checkpoint waits for the port of utils/checkpoint.py"
-        )
+    def from_checkpoint(
+        cls,
+        directory: str,
+        apply_fn,
+        like: Any,
+        example_inputs: Sequence[Any],
+        step: Optional[int] = None,
+        device=None,
+    ) -> "Predictor":
+        """Restore params with ``utils.Checkpointer`` (step ``step``, default
+        the latest, laid out like ``like``) and ``build`` on them. Raises
+        ``FileNotFoundError`` when the directory holds no checkpoint."""
+        from stgraph_tpu_torch.utils.checkpoint import Checkpointer
+
+        state = Checkpointer(directory).restore(step=step, like=like)
+        if state is None:
+            raise FileNotFoundError(f"no checkpoint found under {directory}")
+        return cls.build(apply_fn, state, example_inputs, device=device)
 
     def __call__(self, *inputs: Any):
         with torch.inference_mode():

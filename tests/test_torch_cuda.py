@@ -1,5 +1,5 @@
-"""K1 on the card against its plain version, and the GCN forward on CUDA
-against the CPU. Marked ``cuda``: they skip where no card is present. On a
+"""K1 and K2 on the card against their plain versions, and the GCN forward
+and a training step on CUDA against the CPU. Marked ``cuda``: they skip where no card is present. On a
 machine with a card and without jax they run without the suite's conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest``.
 
@@ -15,7 +15,13 @@ import torch
 from stgraph_tpu_torch.graph.csr import build_csr
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
 from stgraph_tpu_torch.nn import GCNConv
-from stgraph_tpu_torch.ops.spmm_kernels import ROW_CHUNK, spmm_rowmask, spmm_rowmask_plain
+from stgraph_tpu_torch.ops.spmm_kernels import (
+    ROW_CHUNK,
+    spmm_rowmask,
+    spmm_rowmask_bwd,
+    spmm_rowmask_bwd_plain,
+    spmm_rowmask_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -28,7 +34,7 @@ def rng():
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the K1 kernel has no CPU or interpret mode")
+        pytest.skip("needs an NVIDIA GPU: the K1 and K2 kernels have no CPU or interpret mode")
     return torch.device("cuda")
 
 
@@ -74,3 +80,53 @@ def test_gcn_forward_on_cuda_matches_cpu(cuda, rng):
     # h @ W sums in another order on the card, so a gathered value may round
     # to the neighbouring bf16 number: a bf16 ulp of one term, not 1e-4
     assert (out - ref).abs().max().item() <= 1e-2 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("f", [7, 47, 128, 130])
+@pytest.mark.parametrize("stream", [None, torch.bfloat16])
+def test_k2_matches_plain_on_the_card(cuda, rng, f, stream):
+    n, e = 3000, 60_000
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
+    src[-3 * ROW_CHUNK:] = 11  # a hub in the transpose too
+    csr_t = build_csr(src, dst, n, device=cuda).transpose()
+    g = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(cuda)
+    fs = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal(csr_t.capacity).astype(np.float32)).to(cuda)
+    before = spmm_rowmask_bwd.launches
+    dh, dw = spmm_rowmask_bwd(csr_t, w, g, fs, stream_dtype=stream)
+    torch.cuda.synchronize()
+    assert spmm_rowmask_bwd.launches == before + 1
+    ref_dh, ref_dw = spmm_rowmask_bwd_plain(csr_t, w, g, fs, stream)
+    for out, ref in ((dh, ref_dh), (dw, ref_dw)):
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-4 * max(1.0, ref.abs().max().item()), err
+    assert not dw[csr_t.num_edges:].any()
+
+
+def test_gcn_training_step_on_cuda_matches_cpu(cuda, rng):
+    n, e = 5000, 250_000  # K1 and K2 stream bf16
+    edges = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)], 1)
+    x = rng.standard_normal((n, 100)).astype(np.float32)
+    y = torch.from_numpy(rng.integers(0, 47, n))
+    gen = torch.Generator().manual_seed(0)
+    init = [GCNConv(100, 64, device="cpu", generator=gen).state_dict(),
+            GCNConv(64, 47, device="cpu", generator=gen).state_dict()]
+    grads = []
+    for dev in ("cpu", cuda):
+        convs = [GCNConv(100, 64, activation=torch.relu, impl="kernel", device=dev),
+                 GCNConv(64, 47, impl="kernel", device=dev)]
+        for conv, state in zip(convs, init):
+            conv.load_state_dict(state)
+        g = StaticGraph(edges, None, n, device=dev)
+        before = spmm_rowmask.launches, spmm_rowmask_bwd.launches
+        logits = convs[1](g, convs[0](g, torch.from_numpy(x).to(dev)))
+        torch.nn.functional.cross_entropy(logits, y.to(dev)).backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            # two layers: K1 twice forward, K2 twice backward
+            assert (spmm_rowmask.launches - before[0], spmm_rowmask_bwd.launches - before[1]) == (2, 2)
+        grads.append([p.grad.cpu() for c in convs for p in c.parameters()])
+    for ref, out in zip(*grads):
+        # h @ W and its gradient sum in another order on the card, so a
+        # streamed value may round to the neighbouring bf16 number
+        assert (out - ref).abs().max().item() <= 1e-2 * max(1e-6, ref.abs().max().item())

@@ -128,14 +128,14 @@ def test_three_layer_gcn_and_predictor_match_jax(rng, impl, jimpl):
     assert not served.requires_grad and predictor.cost_analysis is None
 
 
-def test_predictor_takes_a_plain_function():
+def test_predictor_takes_a_plain_function(tmp_path):
     def apply_fn(p, x):
         return x @ p["w"]
 
     pred = Predictor.build(apply_fn, {"w": torch.eye(3)}, (torch.ones(2, 3),), device="cpu")
     assert torch.equal(pred(torch.ones(2, 3)), torch.ones(2, 3))
-    with pytest.raises(NotImplementedError):
-        Predictor.from_checkpoint("nowhere")
+    with pytest.raises(FileNotFoundError):  # an empty checkpoint directory, as in JAX
+        Predictor.from_checkpoint(str(tmp_path), apply_fn, {"w": torch.eye(3)}, (torch.ones(2, 3),), device="cpu")
 
 
 def test_convert_rejects_other_trees():

@@ -89,17 +89,20 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch, tmp_path):
     monkeypatch.setattr(kernel_lib, "_loaded", {})
     monkeypatch.setattr(kernel_lib, "_paths", lambda names: {n: str(tmp_path / f"{n}.so") for n in names})
     monkeypatch.setattr(spmm_kernels, "spmm_rowmask_plain", plain)
+    monkeypatch.setattr(spmm_kernels, "spmm_rowmask_bwd_plain", plain)
     feats = torch.empty(3, 8, device="meta")
-    before = spmm_kernels.spmm_rowmask.launches
+    before = spmm_kernels.spmm_rowmask.launches, spmm_kernels.spmm_rowmask_bwd.launches
     with pytest.raises(RuntimeError, match="nvcc not found"):
         spmm_kernels.spmm_rowmask(csr, None, feats)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         spmm_cuda.spmm(csr, feats, torch.ones(csr.capacity, device="meta"))
-    assert spmm_kernels.spmm_rowmask.launches == before
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        spmm_kernels.spmm_rowmask_bwd(csr.transpose(), torch.ones(csr.capacity, device="meta"), feats, feats)
+    assert (spmm_kernels.spmm_rowmask.launches, spmm_kernels.spmm_rowmask_bwd.launches) == before
 
 
 def test_kernel_build_starts_nothing_at_import():
-    assert set(kernel_lib.SOURCES) == {"spmm_rowmask"}
+    assert set(kernel_lib.SOURCES) == {"spmm_rowmask", "spmm_sddmm_rowmask"}
     for name in kernel_lib.SOURCES.values():
         assert (ROOT / "stgraph_tpu_torch" / "csrc" / name).exists()
     assert "arch=compute_90a,code=sm_90a" in kernel_lib.NVCC_FLAGS
