@@ -46,7 +46,33 @@ Phases (any failure exits nonzero and prints no result line):
 14. Cora as ``benchmarking/gcn/train.py`` runs it (2 layers, hidden 16,
     AdamW, 200 epochs, the kernel route): train accuracy above 0.9;
 15. TGCN on a 200k-edge weighted graph, 3 timesteps forward and backward,
-    against the same run on the CPU's plain path.
+    against the same run on the CPU's plain path;
+16. K4, K8 (with and without its aux outputs) and K9 against their plain
+    versions on the card, on K2's check graph, at (H, F) in {(8, 32),
+    (1, 47), (8, 8), (4, 16)}, f32 and bf16 streams;
+17. GAT serving, the third main path, on the graph the GCN phases built
+    (their models and optimizer states released first): the GAT of
+    ``benchmarking/gat/train.py`` at ``benchmarking/micro/ogbn_gat_bench.py``'s
+    widths (GATConv(100, 32, 8 heads, ELU), heads concatenated to 256,
+    GATConv(256, 47, 1 head), mean over the output heads; random weights
+    from ``--seed`` through ``convert.py``) behind a ``Predictor`` answers
+    3 requests, each launching K4 and K8 twice and K9 never;
+18. K4, K8 and K9 at the main path's shapes (both layers' own scores and
+    features, a random cotangent for K9): each kernel, its plain version (in
+    edge blocks) and a library yardstick timed, full outputs compared;
+19. GAT training, the fourth main path: ``F.cross_entropy`` and
+    ``torch.optim.Adam(lr=5e-3)``, 1 warm step and 5 timed ones, each
+    launching K4, K8 and K9 twice; the loss must be finite and fall;
+20. a profile of one GAT training step;
+21. the GAT model and its gradients at ``--scale 0.01`` against the plain
+    torch path (the vertex program);
+22. Pubmed as ``benchmarking/gat/train.py --dataset pubmed`` runs it (8 heads
+    x 8 hidden, 1 output head, Adam 5e-3, 200 epochs, the flash route on an
+    f32 stream): train accuracy at least ``PUBMED_ACC_FLOOR``.
+
+Every path of the kernels line (serving, training, gat-serving,
+gat-training) is driven with every launch count set to 0 just before it
+and read just after.
 
 The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 ``--details PATH`` also writes every measurement of the run as JSON.
@@ -59,6 +85,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -101,6 +128,15 @@ PLAIN_EDGE_BLOCK = 1 << 24  # bounds the plain version's temporaries (~25 GB)
 K2_PLAIN_EDGE_BLOCK = 1 << 22  # K2's plain version also gathers fs: ~12 GB
 TRAIN_STEPS = 5
 CORA_DIMS, CORA_EPOCHS = (1433, 16, 7), 200
+GAT_DIMS, GAT_HEADS = (100, 32, 47), (8, 1)  # in, hidden a head, classes; heads a layer
+GAT_SLOPE = 0.2
+GAT_CHECKS = ((8, 32), (1, 47), (8, 8), (4, 16))  # (H, F) held against the plain versions
+GAT_PLAIN_EDGE_BLOCK = 1 << 21  # the plain K8/K9 gather (edges, H*F) planes: ~16 GB
+PUBMED_DIMS, PUBMED_HEADS, PUBMED_EPOCHS = (500, 8, 3), (8, 1), 200
+# ``benchmarking/gat/train.py --dataset pubmed --cpu`` (the JAX package on
+# the CPU, synthetic Pubmed, 200 epochs) reaches train accuracy 0.6322; the
+# port must reach it less 0.05 (PERF.md, section 4, Pubmed).
+PUBMED_ACC_FLOOR = 0.6322 - 0.05
 
 
 class SmokeFailure(Exception):
@@ -110,6 +146,24 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def _counters():
+    from stgraph_tpu_torch.ops import flash_gat, segment_kernels, spmm_kernels
+
+    return {"K1": spmm_kernels.spmm_rowmask, "K2": spmm_kernels.spmm_rowmask_bwd,
+            "K4": segment_kernels.segment_max_narrow, "K8": flash_gat.flash_gat_fwd,
+            "K9": flash_gat.flash_gat_bwd}
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in _counters().items()}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -201,11 +255,15 @@ def phase_environment(port):
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, nvcc: {nvcc}")
     print(smi)
     print(f"build: kernels {sorted(kernel_lib.SOURCES)} + native CSR builder in {build_s:.2f} s")
+    ptxas = {}
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
-    return {"nvidia_smi": smi, "nvcc": nvcc, "build_s": build_s}
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", log)]
+        ptxas[name] = {"kernels": len(regs), "max_registers": max(regs, default=0),
+                       "spilling": sum(b > 0 for b in spills), "max_spill_stores": max(spills, default=0)}
+        print(f"  ptxas[{name}]: {len(regs)} kernels, registers {min(regs, default=0)}-{max(regs, default=0)}, "
+              f"{ptxas[name]['spilling']} with spill stores (at most {ptxas[name]['max_spill_stores']} B)")
+    return {"nvidia_smi": smi, "nvcc": nvcc, "build_s": build_s, "ptxas": ptxas}
 
 
 def phase_k1_vs_plain(dev, rng):
@@ -381,7 +439,7 @@ def phase_serving(dev, args, workdir):
     ]
     torch.cuda.synchronize()
     times = []
-    spmm_rowmask.launches = spmm_rowmask_bwd.launches = 0
+    reset_counts()
     for r, x in enumerate(requests):
         before = spmm_rowmask.launches
         t = time.perf_counter()
@@ -395,8 +453,10 @@ def phase_serving(dev, args, workdir):
               f"request {r}: K1 launched {spmm_rowmask.launches - before} times, expected 3")
         check(tuple(logits.shape) == (n, GCN_DIMS[-1]), f"logits shape {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all().item()), f"request {r}: non-finite logits")
-    launches = spmm_rowmask.launches
-    check(spmm_rowmask_bwd.launches == 0, f"serving launched K2 {spmm_rowmask_bwd.launches} times")
+    counts = read_counts()
+    launches = counts["K1"]
+    check(counts == {"K1": 3 * REQUESTS, "K2": 0, "K4": 0, "K8": 0, "K9": 0},
+          f"serving launched {counts}, expected K1 only")
     print(f"serve: {REQUESTS} requests, K1 launches {launches}, K2 launches 0, per-request s "
           f"{[round(t, 4) for t in times]}, logits finite, shape {tuple(logits.shape)}")
 
@@ -418,7 +478,7 @@ def phase_serving(dev, args, workdir):
     return {
         "graph": graph, "model": model, "predictor": predictor, "feats": feats,
         "labels": torch.from_numpy(data.get_all_targets()).to(dev),
-        "inputs": [h for h, _ in captured], "launches": launches,
+        "inputs": [h for h, _ in captured], "launches": launches, "counts": counts,
         "record": {
             "n": n, "e": e, "synthetic": data.synthetic, "scale": args.scale,
             "data_s": t1 - t0, "graph_s": t2 - t1, "build_s": t3 - t2,
@@ -610,14 +670,15 @@ def phase_training(dev, args, served):
     warm_loss = step()
     warm_s = time.perf_counter() - t
     losses, times, per_step = [], [], []
-    spmm_rowmask.launches = spmm_rowmask_bwd.launches = 0
+    reset_counts()
     for _ in range(TRAIN_STEPS):
         before = spmm_rowmask.launches, spmm_rowmask_bwd.launches
         t = time.perf_counter()
         losses.append(step())
         times.append(time.perf_counter() - t)
         per_step.append((spmm_rowmask.launches - before[0], spmm_rowmask_bwd.launches - before[1]))
-    launches = {"K1": spmm_rowmask.launches, "K2": spmm_rowmask_bwd.launches}
+    launches = read_counts()
+    check(launches["K4"] == launches["K8"] == launches["K9"] == 0, f"GCN training launched {launches}")
     print(f"train: warm step {warm_s:.3f} s (loss {warm_loss:.4f}); {TRAIN_STEPS} AdamW steps, "
           f"s per step {[round(t, 4) for t in times]}, losses {[round(v, 4) for v in losses]}, "
           f"launches per step (K1, K2) {per_step}")
@@ -846,10 +907,508 @@ def phase_tgcn(dev, rng):
     return {"n": n, "e": e, "worst_err_over_max": worst}
 
 
-def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch):
+def k4_bound(n: int, e: int, h: int):
+    """Least time for one K4 call (index form): indptr, cols and the (N, H)
+    f32 table read once, the (N, H) output written once; or one compare per
+    edge and head over the f32 peak."""
+    nbytes = (n + 1) * 4 + e * 4 + 2 * n * h * 4
+    ops = e * h
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def k8_bound(n: int, e: int, h: int, f: int, aux: bool):
+    """Least time for one K8 call: indptr, cols, el, er, m and the f32 fs
+    table read once, out and den (and u, p) written once; or, per edge, ~7
+    operations a head (9 with aux: add, leaky, subtract, min, exp, sums)
+    and 2 a column (4 with aux) over the f32 peak."""
+    hf = h * f
+    nbytes = (n + 1) * 4 + e * 4 + 3 * n * h * 4 + n * hf * 4 + (n * hf + n * h) * 4 * (2 if aux else 1)
+    ops = e * h * (9 if aux else 7) + e * hf * (4 if aux else 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def k9_bound(n: int, e: int, h: int, f: int):
+    """Least time for one K9 call: the transpose's indptr and cols, el, er,
+    m, c and the f32 gu and fs tables read once, dfs and dl written once;
+    or ~10 operations per edge and head and 4 per edge and column."""
+    hf = h * f
+    nbytes = (n + 1) * 4 + e * 4 + 4 * n * h * 4 + 3 * n * hf * 4 + n * h * 4
+    ops = e * h * 10 + e * hf * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def _stats(outs, refs, masses):
+    """Per output: (max_abs_err, worst err / sum|terms|, max |plain|)."""
+    rows = []
+    for out, ref, mass in zip(outs, refs, masses):
+        err = (out - ref).abs()
+        rows.append((err.max().item(), _err_over_mass(err, mass), ref.abs().max().item()))
+    return rows
+
+
+def k8_agreement(outs, csr, el, er, m, fs, h, stream, edge_block=None):
+    """Hold K8's (out, den[, u, p]) against its plain version. The sums of
+    absolute terms come from the plain version on |fs| (the weights are
+    positive): sum w|fs| / den for out, sum w lp |fs| for u, and den and p
+    themselves."""
+    from stgraph_tpu_torch.ops.flash_gat import flash_gat_fwd_plain
+
+    aux = outs[2] is not None
+    refs = flash_gat_fwd_plain(csr, el, er, m, fs, h, GAT_SLOPE, stream, aux, edge_block)
+    masses = flash_gat_fwd_plain(csr, el, er, m, fs.abs(), h, GAT_SLOPE, stream, aux, edge_block)
+    keep = [i for i, r in enumerate(refs) if r is not None]
+    return _stats([outs[i] for i in keep], [refs[i] for i in keep], [masses[i] for i in keep])
+
+
+def k9_agreement(dfs, dl, csr_t, el, er, m, c, gu, fs, h, stream, edge_block=None):
+    """Hold K9's (dfs, dl) against its plain version. Sums of absolute
+    terms: sum w |gu| for dfs; sum w lp (sum_f |fs gu| + |c|) for dl, the
+    plain version on |fs|, |gu| and -|c|."""
+    from stgraph_tpu_torch.ops.flash_gat import flash_gat_bwd_plain
+
+    refs = flash_gat_bwd_plain(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, stream, edge_block)
+    masses = flash_gat_bwd_plain(csr_t, el, er, m, -c.abs(), gu.abs(), fs.abs(), h, GAT_SLOPE, stream,
+                                 edge_block)
+    return _stats((dfs, dl), refs, masses)
+
+
+def _node_cotangents(g, out, den, h):
+    """K9's node-level inputs from a cotangent g of the normalised output:
+    gu = g / den and c = sum_f g * out / den, as the backward forms them."""
+    n, hf = g.shape
+    denom = den.clamp(min=torch.finfo(torch.float32).tiny)
+    gu = (g.reshape(n, h, -1) / denom[:, :, None]).reshape(n, hf)
+    c = (g * out).reshape(n, h, -1).sum(-1) / denom
+    return gu, c
+
+
+def phase_gat_kernels_vs_plain(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000):
+    """K4, K8 (with and without aux) and K9 against their plain versions on
+    K2's check graph: 1000 empty rows, a 300k-edge hub in each direction."""
+    from stgraph_tpu_torch.graph.csr import build_csr
+    from stgraph_tpu_torch.ops.flash_gat import flash_gat_bwd, flash_gat_fwd, stability_max
+    from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow, segment_max_narrow_plain
+
+    empty, hub = 1000, 12_345
+    src = rng.integers(0, n - empty, e)
+    dst = rng.integers(0, n - empty, e)
+    dst[:hub_deg] = hub
+    src[-hub_deg:] = hub + 1
+    csr = build_csr(src, dst, n, device=dev)
+    csr_t = csr.transpose()
+    results, worst = [], {"K4": 0.0, "K8": 0.0, "K9": 0.0}
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    for h, f in GAT_CHECKS:
+        el, er = randn(n, h), randn(n, h)
+        fs, g = randn(n, h * f), randn(n, h * f)
+        elmax = segment_max_narrow(csr, el, index=csr.cols)
+        torch.cuda.synchronize()
+        k4_err = (elmax - segment_max_narrow_plain(csr, el, index=csr.cols)).abs().max().item()
+        check(k4_err == 0.0, f"K4 disagrees with its plain version at H={h}: {k4_err}")
+        m = stability_max(csr, el, er, GAT_SLOPE)
+        for stream in (torch.float32, torch.bfloat16):
+            tag = f"H={h} F={f} {str(stream)[6:]} stream"
+            fwd = {}
+            for aux in (False, True):
+                outs = flash_gat_fwd(csr, el, er, m, fs, h, GAT_SLOPE, stream, aux=aux)
+                torch.cuda.synchronize()
+                fwd[aux] = outs
+                stats = k8_agreement(outs, csr, el, er, m, fs, h, stream, GAT_PLAIN_EDGE_BLOCK)
+                ok = (all(r <= KERNEL_TOL for _, r, _ in stats)
+                      and not outs[0][n - empty:].any().item() and not outs[1][n - empty:].any().item())
+                names = ("out", "den", "u", "p")
+                print(f"k8-check {tag} aux={aux}: " + "; ".join(
+                    f"{nm} max_abs_err {a:.3e} (err/sum|terms| {r:.2e})" for nm, (a, r, _) in zip(names, stats))
+                    + f" (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"K8 disagrees with its plain version at {tag}, aux={aux}")
+                worst["K8"] = max(worst["K8"], *(a for a, _, _ in stats))
+                results.append({"kernel": "K8", "case": tag, "aux": aux,
+                                "stats": [{"output": nm, "max_abs_err": a, "err_over_mass": r, "max_abs_plain": mx}
+                                          for nm, (a, r, mx) in zip(names, stats)]})
+            gu, c = _node_cotangents(g, fwd[True][0], fwd[True][1], h)
+            dfs, dl = flash_gat_bwd(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, stream)
+            torch.cuda.synchronize()
+            (dfs_a, dfs_r, _), (dl_a, dl_r, _) = k9_agreement(dfs, dl, csr_t, el, er, m, c, gu, fs, h, stream,
+                                                               GAT_PLAIN_EDGE_BLOCK)
+            ok = (dfs_r <= KERNEL_TOL and dl_r <= KERNEL_TOL
+                  and not dfs[n - empty:].any().item() and not dl[n - empty:].any().item())
+            print(f"k9-check {tag}: dfs max_abs_err {dfs_a:.3e} (err/sum|terms| {dfs_r:.2e}); dl max_abs_err "
+                  f"{dl_a:.3e} (err/sum|terms| {dl_r:.2e}) (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"K9 disagrees with its plain version at {tag}")
+            worst["K9"] = max(worst["K9"], dfs_a, dl_a)
+            results.append({"kernel": "K9", "case": tag, "dfs_max_abs_err": dfs_a, "dfs_err_over_mass": dfs_r,
+                            "dl_max_abs_err": dl_a, "dl_err_over_mass": dl_r})
+        print(f"k4-check H={h}: bit-equal to its plain version (max_abs_err {k4_err})")
+        results.append({"kernel": "K4", "case": f"H={h}", "max_abs_err": k4_err})
+    return {"graph": {"n": n, "e": e, "empty_rows": empty, "hub_deg": hub_deg},
+            "cases": results, "max_abs_err": worst}
+
+
+class GAT(torch.nn.Module):
+    """``benchmarking/gat/train.py``'s model: GATConv with ELU, the heads
+    concatenated, GATConv, the mean over the output heads."""
+
+    def __init__(self, graph, dims, heads, impl, device, generator=None):
+        super().__init__()
+        from stgraph_tpu_torch.nn import GATConv
+
+        fin, hidden, classes = dims
+        self.graph = graph
+        self.layers = torch.nn.ModuleList([
+            GATConv(fin, hidden, heads[0], negative_slope=GAT_SLOPE, activation=torch.nn.functional.elu,
+                    impl=impl, device=device, generator=generator),
+            GATConv(hidden * heads[0], classes, heads[1], negative_slope=GAT_SLOPE, impl=impl, device=device,
+                    generator=generator),
+        ])
+
+    def forward(self, h):
+        h = self.layers[0](self.graph, h).reshape(h.shape[0], -1)
+        return self.layers[1](self.graph, h).mean(1)
+
+
+def numpy_gat_params(dims, heads, seed):
+    """A flax-shaped GAT parameter tree made with numpy from ``seed``: the
+    JAX layer's initialiser, variance_scaling(2.0, fan_avg, normal), on
+    ``fc.kernel`` (in, H*F) and on the (H, F) attention vectors."""
+    rng = np.random.default_rng(seed)
+    fin, hidden, classes = dims
+    tree = {}
+    for i, (a, f, h) in enumerate(((fin, hidden, heads[0]), (hidden * heads[0], classes, heads[1]))):
+        def normal(shape):
+            return (rng.standard_normal(shape) * np.sqrt(4.0 / sum(shape))).astype(np.float32)
+
+        tree[f"GATConv_{i}"] = {"fc": {"kernel": normal((a, h * f))}, "attn_l": normal((h, f)),
+                                "attn_r": normal((h, f))}
+    return {"params": tree}
+
+
+def build_gat(graph, impl, dev, seed, dims=GAT_DIMS, heads=GAT_HEADS):
+    from stgraph_tpu_torch.convert import gat_params_from_jax
+
+    model = GAT(graph, dims, heads, impl, dev)
+    model.load_state_dict(gat_params_from_jax(numpy_gat_params(dims, heads, seed)))
+    return model.eval()
+
+
+def phase_gat_serving(dev, args, base):
+    """The GAT behind a ``Predictor`` on the full graph: 3 requests, each
+    launching K4 and K8 twice (no aux outputs) and nothing else."""
+    from stgraph_tpu_torch.serve import Predictor
+
+    graph, feats = base["graph"], base["feats"]
+    n = graph.get_num_nodes()
+    t = time.perf_counter()
+    model = build_gat(graph, "auto", dev, args.seed)
+    predictor = Predictor.build(model, dict(model.state_dict()), (feats,), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    captured = []
+    hooks = [layer.register_forward_hook(lambda mod, inp, out: captured.append(inp[1]))
+             for layer in model.layers]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    requests = [feats] + [
+        feats + 0.1 * torch.randn(feats.shape, device=dev, generator=gen) for _ in range(REQUESTS - 1)
+    ]
+    torch.cuda.synchronize()
+    times, per_request = [], []
+    reset_counts()
+    for r, x in enumerate(requests):
+        before = read_counts()
+        t = time.perf_counter()
+        logits = predictor(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if r == 0:
+            for hk in hooks:
+                hk.remove()
+        delta = {k: v - before[k] for k, v in read_counts().items()}
+        per_request.append(delta)
+        check(delta == {"K1": 0, "K2": 0, "K4": 2, "K8": 2, "K9": 0},
+              f"GAT request {r} launched {delta}, expected K4 and K8 twice each")
+        check(tuple(logits.shape) == (n, GAT_DIMS[-1]), f"GAT logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all().item()), f"GAT request {r}: non-finite logits")
+    counts = read_counts()
+    print(f"gat-serve: model+Predictor.build (warm call) {build_s:.2f} s; {REQUESTS} requests, launches "
+          f"{counts}, per-request s {[round(v, 4) for v in times]}, logits finite, shape {tuple(logits.shape)}")
+    return {"model": model, "predictor": predictor, "inputs": captured, "counts": counts,
+            "record": {"build_s": build_s, "request_s": times, "launches": counts,
+                       "launches_per_request": per_request}}
+
+
+def _library_k4_ms(csr, el, e):
+    """``torch.segment_reduce(max)`` over the gathered (E, H) plane (the
+    gather itself not timed): a timed yardstick only."""
+    try:
+        plane = el.index_select(0, csr.cols[:e].long())
+        offsets = csr.indptr.long()
+        ms = cuda_ms(lambda: torch.segment_reduce(plane, "max", offsets=offsets, unsafe=True), iters=5)
+        del plane
+        return ms
+    except (RuntimeError, TypeError) as exc:
+        print(f"library yardstick segment_reduce unavailable: {exc}")
+        return None
+
+
+def _library_k8_ms(csr, el, er, fs, h, e):
+    """Per head, ``torch.sparse.softmax`` of the scores over the CSR's
+    pattern and ``torch.sparse.mm`` of the result with that head's features:
+    two timed calls a head, summed; a timed yardstick only."""
+    try:
+        rows, cols = csr.rows[:e].long(), csr.cols[:e].long()
+        idx = torch.stack([rows, cols])
+        n = csr.num_nodes
+        f = fs.shape[1] // h
+        total = 0.0
+        for k in range(h):
+            s = el[cols, k] + er[rows, k]
+            s = torch.where(s >= 0, s, GAT_SLOPE * s)
+            # the CSR's edge order is row-major sorted, as a coalesced COO's
+            a = torch.sparse_coo_tensor(idx, s, (n, n), is_coalesced=True)
+            alpha = torch.sparse.softmax(a, dim=1)
+            x = fs[:, k * f:(k + 1) * f].contiguous()
+            total += cuda_ms(lambda: torch.sparse.softmax(a, dim=1), iters=3)
+            total += cuda_ms(lambda: torch.sparse.mm(alpha, x), iters=3)
+            del a, alpha, x, s
+        return total
+    except (RuntimeError, TypeError) as exc:
+        print(f"library yardstick sparse.softmax + sparse.mm unavailable: {exc}")
+        return None
+
+
+def phase_gat_kernels_at_main_shapes(dev, gat):
+    """K4, K8 and K9 on the full graph with each GAT layer's own scores and
+    features (captured from the first request) and a random cotangent."""
+    from stgraph_tpu_torch.ops.flash_gat import (flash_gat_bwd, flash_gat_bwd_plain, flash_gat_fwd,
+                                                 flash_gat_fwd_plain, stability_max)
+    from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow, segment_max_narrow_plain
+
+    graph = gat["model"].graph
+    csr = graph.fwd_csr
+    csr_t = csr.transpose()
+    n = csr.num_nodes
+    e = int(csr.host_arrays()[0][-1])
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {"K4": [], "K8": [], "K8_serving": [], "K9": []}
+    worst = {"K4": 0.0, "K8": 0.0, "K9": 0.0}
+    with torch.inference_mode():
+        for layer, h_in in zip(gat["model"].layers, gat["inputs"]):
+            h, f = layer.num_heads, layer.out_feats
+            feat_src = layer.fc(h_in).reshape(n, h, f)
+            el = (feat_src * layer.attn_l).sum(-1)
+            er = (feat_src * layer.attn_r).sum(-1)
+            fs = feat_src.reshape(n, h * f)
+            del feat_src
+            # K4: exact, so its plain version must agree bit for bit
+            elmax = segment_max_narrow(csr, el, index=csr.cols)
+            torch.cuda.synchronize()
+            k4_err = (elmax - segment_max_narrow_plain(csr, el, index=csr.cols, edge_block=1 << 24)).abs().max().item()
+            check(k4_err == 0.0, f"K4 at H={h} (full graph) disagrees: {k4_err}")
+            k4_ms = cuda_ms(lambda: segment_max_narrow(csr, el, index=csr.cols), iters=10, warmup=2)
+            k4_plain = cuda_ms(lambda: segment_max_narrow_plain(csr, el, index=csr.cols, edge_block=1 << 24),
+                               iters=1, warmup=1)
+            k4_lib = _library_k4_ms(csr, el, e)
+            bound = k4_bound(n, e, h)
+            print(f"k4-main H={h}: {k4_ms:.3f} ms (plain {k4_plain:.1f} ms, segment_reduce {k4_lib} ms, "
+                  f"bound {bound[0]:.3f} ms by {bound[1]}); bit-equal to its plain version")
+            out["K4"].append({"H": h, "F": h, "E": e, "N": n, "ms": k4_ms, "plain_ms": k4_plain,
+                              "library_ms": k4_lib, "bound_ms": bound[0], "bound_by": bound[1],
+                              "bytes": bound[2], "ops": bound[3], "max_abs_err": k4_err})
+            m = stability_max(csr, el, er, GAT_SLOPE)
+            # K8 with the aux outputs (a training step's) and without (a request's)
+            outs = flash_gat_fwd(csr, el, er, m, fs, h, GAT_SLOPE, bf16, aux=True)
+            plain_outs = flash_gat_fwd(csr, el, er, m, fs, h, GAT_SLOPE, bf16)
+            torch.cuda.synchronize()
+            stats = k8_agreement(outs, csr, el, er, m, fs, h, bf16, GAT_PLAIN_EDGE_BLOCK)
+            stats_na = k8_agreement(plain_outs, csr, el, er, m, fs, h, bf16, GAT_PLAIN_EDGE_BLOCK)
+            del plain_outs
+            check(all(r <= KERNEL_TOL for _, r, _ in stats + stats_na),
+                  f"K8 at H={h}, F={f} (full graph) disagrees: {stats}, {stats_na}")
+            k8_err = max(a for a, _, _ in stats + stats_na)
+            ms_aux = cuda_ms(lambda: flash_gat_fwd(csr, el, er, m, fs, h, GAT_SLOPE, bf16, aux=True),
+                             iters=10, warmup=2)
+            ms_na = cuda_ms(lambda: flash_gat_fwd(csr, el, er, m, fs, h, GAT_SLOPE, bf16), iters=10, warmup=2)
+            plain_aux = cuda_ms(lambda: flash_gat_fwd_plain(csr, el, er, m, fs, h, GAT_SLOPE, bf16, True,
+                                                            GAT_PLAIN_EDGE_BLOCK), iters=1, warmup=1)
+            plain_na = cuda_ms(lambda: flash_gat_fwd_plain(csr, el, er, m, fs, h, GAT_SLOPE, bf16, False,
+                                                           GAT_PLAIN_EDGE_BLOCK), iters=1, warmup=1)
+            k8_lib = _library_k8_ms(csr, el, er, fs, h, e)
+            b_aux, b_na = k8_bound(n, e, h, f, True), k8_bound(n, e, h, f, False)
+            print(f"k8-main H={h} F={f}: aux {ms_aux:.3f} ms / no aux {ms_na:.3f} ms (plain {plain_aux:.1f} / "
+                  f"{plain_na:.1f} ms, sparse.softmax + sparse.mm {k8_lib} ms, bound {b_aux[0]:.3f} / "
+                  f"{b_na[0]:.3f} ms by {b_aux[1]}); full-graph " + "; ".join(
+                      f"{nm} max_abs_err {a:.3e} (err/sum|terms| {r:.2e})"
+                      for nm, (a, r, _) in zip(("out", "den", "u", "p"), stats)))
+            for key, ms, plain_ms, b, aux in (("K8", ms_aux, plain_aux, b_aux, True),
+                                              ("K8_serving", ms_na, plain_na, b_na, False)):
+                out[key].append({"H": h, "F": f, "E": e, "N": n, "aux": aux, "ms": ms, "plain_ms": plain_ms,
+                                 "library_ms": k8_lib, "bound_ms": b[0], "bound_by": b[1], "bytes": b[2],
+                                 "ops": b[3], "max_abs_err": k8_err,
+                                 "err_over_mass": max(r for _, r, _ in stats)})
+            # K9 on the transpose, with a random cotangent of the output
+            g = torch.randn(fs.shape, device=dev, generator=gen)
+            gu, c = _node_cotangents(g, outs[0], outs[1], h)
+            del g, outs
+            dfs, dl = flash_gat_bwd(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, bf16)
+            torch.cuda.synchronize()
+            (dfs_a, dfs_r, _), (dl_a, dl_r, _) = k9_agreement(dfs, dl, csr_t, el, er, m, c, gu, fs, h, bf16,
+                                                               GAT_PLAIN_EDGE_BLOCK)
+            check(dfs_r <= KERNEL_TOL and dl_r <= KERNEL_TOL,
+                  f"K9 at H={h}, F={f} (full graph) disagrees: dfs {dfs_r}, dl {dl_r}")
+            del dfs, dl
+            k9_ms = cuda_ms(lambda: flash_gat_bwd(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, bf16),
+                            iters=10, warmup=2)
+            k9_plain = cuda_ms(lambda: flash_gat_bwd_plain(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, bf16,
+                                                           GAT_PLAIN_EDGE_BLOCK), iters=1, warmup=1)
+            b9 = k9_bound(n, e, h, f)
+            print(f"k9-main H={h} F={f}: {k9_ms:.3f} ms (plain {k9_plain:.1f} ms, no library call, bound "
+                  f"{b9[0]:.3f} ms by {b9[1]}); full-graph dfs max_abs_err {dfs_a:.3e} (err/sum|terms| "
+                  f"{dfs_r:.2e}), dl max_abs_err {dl_a:.3e} (err/sum|terms| {dl_r:.2e})")
+            out["K9"].append({"H": h, "F": f, "E": e, "N": n, "ms": k9_ms, "plain_ms": k9_plain,
+                              "library_ms": None, "bound_ms": b9[0], "bound_by": b9[1], "bytes": b9[2],
+                              "ops": b9[3], "dfs_max_abs_err": dfs_a, "dfs_err_over_mass": dfs_r,
+                              "dl_max_abs_err": dl_a, "dl_err_over_mass": dl_r})
+            worst["K4"] = max(worst["K4"], k4_err)
+            worst["K8"] = max(worst["K8"], k8_err)
+            worst["K9"] = max(worst["K9"], dfs_a, dl_a)
+            del el, er, m, fs, gu, c, elmax
+            torch.cuda.empty_cache()
+    return out, worst
+
+
+def phase_gat_training(dev, args, base):
+    """The GAT trained on the full graph with Adam(5e-3): the fourth main
+    path. Every step launches K4, K8 (with aux) and K9 twice each."""
+    graph, feats, labels = base["graph"], base["feats"], base["labels"]
+    model = build_gat(graph, "auto", dev, args.seed).train()
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(model(feats), labels)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return loss.item()
+
+    t = time.perf_counter()
+    warm_loss = step()
+    warm_s = time.perf_counter() - t
+    losses, times, per_step = [], [], []
+    reset_counts()
+    for _ in range(TRAIN_STEPS):
+        before = read_counts()
+        t = time.perf_counter()
+        losses.append(step())
+        times.append(time.perf_counter() - t)
+        per_step.append({k: v - before[k] for k, v in read_counts().items()})
+    counts = read_counts()
+    print(f"gat-train: warm step {warm_s:.3f} s (loss {warm_loss:.4f}); {TRAIN_STEPS} Adam steps, s per step "
+          f"{[round(v, 4) for v in times]}, losses {[round(v, 4) for v in losses]}, launches {counts}")
+    check(all(c == {"K1": 0, "K2": 0, "K4": 2, "K8": 2, "K9": 2} for c in per_step),
+          f"a GAT training step launched {per_step}, expected K4, K8 and K9 twice each")
+    check(all(np.isfinite(losses)) and np.isfinite(warm_loss), "non-finite GAT training loss")
+    check(losses[-1] < losses[0], f"the GAT loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    return {"model": model, "optimizer": opt, "step": step, "counts": counts,
+            "record": {"warm_s": warm_s, "warm_loss": warm_loss, "step_s": times, "losses": losses,
+                       "launches_per_step": per_step, "launches": counts}}
+
+
+def phase_gat_vs_plain(dev, args, workdir):
+    """The GAT at ``--scale 0.01``: logits and every parameter's gradient on
+    the flash route (bf16 stream) against the vertex program (f32)."""
+    from stgraph_tpu_torch.dataset import OgbNodeDataLoader
+    from stgraph_tpu_torch.graph import StaticGraph
+
+    data = OgbNodeDataLoader(root=workdir, scale=0.01, seed=args.seed)
+    n = data.gdata["num_nodes"]
+    graph = StaticGraph(data.get_edges(), None, n, device=dev)
+    x = torch.from_numpy(data.get_all_features()).to(dev)
+    y = torch.from_numpy(data.get_all_targets()).to(dev)
+    logits, grads = {}, {}
+    for impl in ("auto", "torch"):
+        model = build_gat(graph, impl, dev, args.seed)
+        out = model(x)
+        torch.nn.functional.cross_entropy(out, y).backward()
+        logits[impl] = out.detach()
+        grads[impl] = {k: p.grad for k, p in model.named_parameters()}
+        del model, out
+    err = (logits["auto"] - logits["torch"]).abs().max().item()
+    scale = logits["torch"].abs().max().item()
+    ok = err <= MODEL_TOL * scale
+    print(f"gat-model-check scale 0.01 (N={n}, E={graph.get_num_edges()}): flash route vs the vertex program "
+          f"max_abs_err {err:.3e} (max |plain| {scale:.3f}, tol {MODEL_TOL:g} x that) {'ok' if ok else 'FAIL'}")
+    check(ok, "the GAT's logits on the flash route disagree with the plain path at scale 0.01")
+    worst, rows = 0.0, []
+    for k, ref in grads["torch"].items():
+        gerr = (grads["auto"][k] - ref).abs().max().item()
+        ratio = gerr / max(ref.abs().max().item(), 1e-30)
+        worst = max(worst, ratio)
+        rows.append({"tensor": k, "max_abs_err": gerr, "err_over_max": ratio})
+        print(f"gat-grad-check {k}: flash route vs plain path max_abs_err {gerr:.3e}, {ratio:.2e} of the "
+              f"largest (tol {GRAD_TOL:g}) {'ok' if ratio <= GRAD_TOL else 'FAIL'}")
+    check(worst <= GRAD_TOL, "a GAT gradient on the flash route disagrees with the plain path at scale 0.01")
+    return {"n": n, "e": graph.get_num_edges(), "max_abs_err": err, "max_abs_plain": scale, "grads": rows,
+            "worst_grad_err_over_max": worst}
+
+
+def phase_pubmed_gat(dev, args, workdir):
+    """``benchmarking/gat/train.py --dataset pubmed`` on the port: 8 heads x
+    8 hidden, 1 output head, Adam(5e-3), 200 full-graph epochs, the flash
+    route (88,648 edges: an f32 stream)."""
+    from stgraph_tpu_torch.dataset import PubmedDataLoader, STGraphDataset
+    from stgraph_tpu_torch.graph import StaticGraph
+    from stgraph_tpu_torch.utils import accuracy
+
+    STGraphDataset._offline = True  # no network here: the synthetic Pubmed, without a download attempt
+    t = time.perf_counter()
+    pubmed = PubmedDataLoader(cache_dir=os.path.join(workdir, "datasets"))
+    data_s = time.perf_counter() - t
+    n = pubmed.gdata["num_nodes"]
+    graph = StaticGraph(pubmed.get_edges(), None, n, device=dev)
+    x = torch.from_numpy(pubmed.get_all_features()).to(dev)
+    y = torch.from_numpy(pubmed.get_all_targets()).to(dev)
+    # The layers' own initialiser, as train.py uses its package's, drawn on
+    # the CPU from --seed so that the draw does not depend on the device
+    gen = torch.Generator().manual_seed(args.seed)
+    model = GAT(graph, PUBMED_DIMS, PUBMED_HEADS, "auto", torch.device("cpu"), gen).to(dev).train()
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    reset_counts()
+    times = []
+    for epoch in range(PUBMED_EPOCHS):
+        t = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        if epoch >= 3:
+            times.append(time.perf_counter() - t)
+    counts = read_counts()
+    with torch.inference_mode():
+        acc = accuracy(model(x), y)
+    epoch_s = float(np.mean(times))
+    print(f"pubmed-gat: synthetic={pubmed.synthetic} N={n} E={pubmed.gdata['num_edges']} (data {data_s:.1f} s), "
+          f"{PUBMED_EPOCHS} epochs, mean epoch (>=3) {epoch_s * 1e3:.3f} ms, final loss {loss.item():.4f}, "
+          f"train acc {acc:.4f} (floor {PUBMED_ACC_FLOOR:.4f}), launches {counts}")
+    check(counts == {"K1": 0, "K2": 0, "K4": 2 * PUBMED_EPOCHS, "K8": 2 * PUBMED_EPOCHS, "K9": 2 * PUBMED_EPOCHS},
+          f"Pubmed GAT launched {counts}")
+    check(acc >= PUBMED_ACC_FLOOR, f"Pubmed GAT train accuracy {acc:.4f} is below {PUBMED_ACC_FLOOR:.4f}")
+    return {"synthetic": pubmed.synthetic, "epoch_s": epoch_s, "train_acc": acc, "loss": loss.item(),
+            "launches": counts, "data_s": data_s}
+
+
+def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, library=None):
     """One kernel's entry of the kernels line: launches summed over the main
-    paths' runs, times summed over the launches of one request (K1) or one
-    training step (K2) at the main path's shapes."""
+    paths' runs, times summed over the launches of one request (K1, K4) or
+    one training step (K2, K8 with its aux outputs, K9) at the main path's
+    shapes."""
     return {
         "name": name,
         "route": "cuda",
@@ -864,7 +1423,9 @@ def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch):
         "bound_by": "bytes" if all(p["bound_by"] == "bytes" for p in per_launch) else "operations",
         "library_ms": (None if any(p["library_ms"] is None for p in per_launch)
                        else sum(p["library_ms"] for p in per_launch)),
-        "per_launch": [{k: p[k] for k in ("F", "ms", "plain_ms", "bound_ms", "library_ms")} for p in per_launch],
+        "library": library,
+        "per_launch": [{k: p[k] for k in ("H", "F", "aux", "ms", "plain_ms", "bound_ms", "library_ms") if k in p}
+                       for p in per_launch],
     }
 
 
@@ -897,6 +1458,7 @@ def main() -> int:
         record["environment"] = phase_environment(port)
         record["k1_checks"] = phase_k1_vs_plain(dev, rng)
         record["k2_checks"] = phase_k2_vs_plain(dev, rng)
+        record["gat_checks"] = phase_gat_kernels_vs_plain(dev, rng)
         with tempfile.TemporaryDirectory(dir=build_root) as workdir:
             served = phase_serving(dev, args, workdir)
             record["serving"] = served["record"]
@@ -910,18 +1472,36 @@ def main() -> int:
             record["checkpoint_serve"] = phase_checkpoint_serve(dev, served, trained, workdir)
             record["training_profile"] = phase_profile(trained["step"], "one training step")
             record["unweighted_step"] = phase_unweighted_step(dev, args, served)
+            # The GAT phases run on the graph the GCN phases built; the GCN
+            # models, predictors and optimizer states go first.
+            base = {k: served[k] for k in ("graph", "feats", "labels")}
+            gcn_counts = served["counts"]
             del served, trained
+            torch.cuda.empty_cache()
+            gat = phase_gat_serving(dev, args, base)
+            record["gat_serving"] = gat["record"]
+            gat_launch, gat_err = phase_gat_kernels_at_main_shapes(dev, gat)
+            record["gat_main"] = gat_launch
+            del gat
+            torch.cuda.empty_cache()
+            gat_trained = phase_gat_training(dev, args, base)
+            record["gat_training"] = gat_trained["record"]
+            record["gat_training_profile"] = phase_profile(gat_trained["step"], "one GAT training step")
+            gat_train_counts = gat_trained["counts"]
+            del base, gat_trained
             torch.cuda.empty_cache()
             record["model_check"] = phase_model_vs_plain(dev, args, workdir)
             record["grad_check"] = phase_grads_vs_plain(dev, args, workdir)
+            record["gat_check"] = phase_gat_vs_plain(dev, args, workdir)
             record["cora"] = phase_cora(dev, args, workdir)
+            record["pubmed_gat"] = phase_pubmed_gat(dev, args, workdir)
         record["tgcn"] = phase_tgcn(dev, rng)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
-    by_path = {"serving": {"K1": record["serving"]["launches"], "K2": 0},
-               "training": record["training"]["launches"]}
+    by_path = {"serving": gcn_counts, "training": record["training"]["launches"],
+               "gat-serving": record["gat_serving"]["launches"], "gat-training": gat_train_counts}
     kernels = [
         kernel_entry("spmm_rowmask (K1)", "stgraph_tpu_torch/csrc/spmm_rowmask.cu",
                      "stgraph_tpu/ops/segment_pallas.py:761", "K1", by_path,
@@ -931,6 +1511,17 @@ def main() -> int:
                      max(record["k2_checks"]["max_abs_err"], k2_err),
                      # a training step's three launches: F = 128, 128, 47
                      [p for f in (128, 128, 47) for p in k2_launch if p["F"] == f]),
+        kernel_entry("segment_max_narrow (K4)", "stgraph_tpu_torch/csrc/segment_max_narrow.cu",
+                     "stgraph_tpu/ops/segment_pallas.py:235", "K4", by_path,
+                     max(record["gat_checks"]["max_abs_err"]["K4"], gat_err["K4"]), gat_launch["K4"],
+                     "torch.segment_reduce(max) over the gathered (E, H) plane"),
+        kernel_entry("flash_gat_fwd (K8)", "stgraph_tpu_torch/csrc/flash_gat_fwd.cu",
+                     "stgraph_tpu/ops/flash_gat.py:191", "K8", by_path,
+                     max(record["gat_checks"]["max_abs_err"]["K8"], gat_err["K8"]), gat_launch["K8"],
+                     "torch.sparse.softmax + torch.sparse.mm, per head"),
+        kernel_entry("flash_gat_bwd (K9)", "stgraph_tpu_torch/csrc/flash_gat_bwd.cu",
+                     "stgraph_tpu/ops/flash_gat.py:365", "K9", by_path,
+                     max(record["gat_checks"]["max_abs_err"]["K9"], gat_err["K9"]), gat_launch["K9"]),
     ]
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_start

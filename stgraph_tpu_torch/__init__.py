@@ -13,7 +13,10 @@ and message ops, the vertex compiler, ``GCNConv``, ``Predictor``, the OGB
 loader, and K1, the row-wise SpMM, as a CUDA kernel) and the training
 slice (the SpMM backward through K1 on the transpose CSR and K2, the fused
 SpMM backward, as a CUDA kernel; ``TGCN``; checkpoints and
-``Predictor.from_checkpoint``; the training helpers; Cora).
+``Predictor.from_checkpoint``; the training helpers; Cora) and GAT
+(``GATConv`` and flash-GAT's attention, with K4, the narrow segment max,
+K8, the fused attention forward, and K9, its backward, as CUDA kernels;
+Pubmed).
 """
 
 from stgraph_tpu_torch import compiler, convert, dataset, graph, nn, ops, serve, utils

@@ -26,6 +26,9 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES: Dict[str, str] = {
     "spmm_rowmask": "spmm_rowmask.cu",  # K1
     "spmm_sddmm_rowmask": "spmm_sddmm_rowmask.cu",  # K2
+    "segment_max_narrow": "segment_max_narrow.cu",  # K4
+    "flash_gat_fwd": "flash_gat_fwd.cu",  # K8
+    "flash_gat_bwd": "flash_gat_bwd.cu",  # K9
 }
 
 NVCC_FLAGS: List[str] = [

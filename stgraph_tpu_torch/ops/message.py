@@ -12,13 +12,15 @@ compiler's lowering. Three execution paths share one semantics:
 
 ``impl='auto'`` picks dense when the adjacency fits a 64 MB budget; else
 the kernel for a sum on CUDA tensors, and torch on CPU tensors. Max, min
-and mean SpMM have a kernel in neither package and run the torch ops.
+and mean SpMM have a kernel in neither package and run the torch ops;
+``aggregate`` sends a narrow max on CUDA to K4.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from stgraph_tpu_torch.graph.csr import CSR
@@ -37,6 +39,10 @@ __all__ = [
 # Dense-path budget: adjacency bytes we are willing to spend (the JAX
 # package's value: 64 MB of f32 covers N = 4096).
 _DENSE_BUDGET_BYTES = 64 * 1024 * 1024
+
+# Minimum edge capacity for the narrow-max kernel route (the JAX package's
+# ``_PALLAS_MIN_EDGES``).
+_KERNEL_MIN_EDGES = 50_000
 
 
 def gather_src(csr: CSR, node_feat: torch.Tensor) -> torch.Tensor:
@@ -64,10 +70,22 @@ def aggregate(
 ) -> torch.Tensor:
     """Segment-reduce per-edge values into per-destination rows.
 
-    The JAX package sends large-graph reductions on the TPU to its narrow
-    and wide segment kernels (K3-K5); those are ported with GAT, and until
-    then this runs the torch segment ops on every device.
+    A max over a CUDA tensor whose trailing width is at most
+    ``MAX_NARROW_K`` (16), on a graph of at least ``_KERNEL_MIN_EDGES``
+    edge slots, goes to the narrow segment-max kernel K4
+    (``ops.segment_kernels``), as the JAX package sends it to its Pallas
+    kernel on the TPU (``stgraph_tpu/ops/message.py:94-105``; the port's
+    CSR is always concrete). Every other reduction runs the torch segment
+    ops: the sum and wide-max kernels (K3, K5) are not ported yet.
     """
+    if reduce == "max" and edge_vals.device.type != "cpu" and csr.capacity >= _KERNEL_MIN_EDGES:
+        from stgraph_tpu_torch.ops.segment_kernels import MAX_NARROW_K, SegmentMaxNarrow
+
+        trailing = tuple(edge_vals.shape[1:])
+        k = int(np.prod(trailing)) if trailing else 1
+        if k <= MAX_NARROW_K:
+            out = SegmentMaxNarrow.apply(edge_vals.reshape(csr.capacity, k).float(), csr)
+            return out.reshape((csr.num_nodes,) + trailing).to(edge_vals.dtype)
     mask = csr.edge_mask if masked else None
     fn = {
         "sum": seg.segment_sum,

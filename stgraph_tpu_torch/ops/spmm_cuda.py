@@ -77,12 +77,12 @@ def spmm(
 
     Sums over (N, F) features go through K1 (and K1/K2 backward);
     max/min/mean and 3-D features take the torch path as in the JAX
-    package, except multi-head weighted sums on CUDA, which wait for the
-    GAT slice's K1 modes.
+    package, except multi-head weighted sums on CUDA, which wait for K1's
+    multi-head mode (the composed GAT route's).
     """
     if reduce == "sum" and node_feat.dim() == 3 and edge_weight is not None:
         if node_feat.device.type != "cpu":
-            raise NotImplementedError("multi-head K1 comes with the GAT slice")
+            raise NotImplementedError("multi-head K1 comes with the composed GAT route (ROADMAP.md)")
         return _msg.spmm(csr, node_feat, edge_weight, reduce=reduce, impl="torch")
     if reduce != "sum" or node_feat.dim() != 2:
         return _msg.spmm(csr, node_feat, edge_weight, reduce=reduce, impl="torch")

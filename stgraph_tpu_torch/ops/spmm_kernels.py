@@ -203,11 +203,12 @@ def spmm_rowmask(
     ``w`` is (capacity,) or (capacity, 1) in CSR order, or None for the
     unweighted path. ``stream_dtype=torch.bfloat16`` streams the features
     as bf16 with f32 sums (the JAX package's rule for large graphs).
-    ``heads > 1`` and ``with_denom`` (GAT) are not ported yet.
+    ``heads > 1`` and ``with_denom`` (the composed GAT route's modes) are
+    not ported yet.
     """
     if heads != 1 or with_denom:
         raise NotImplementedError(
-            "multi-head K1 and its denominator come with the GAT slice"
+            "multi-head K1 and its denominator come with the composed GAT route (ROADMAP.md)"
         )
     if node_feats.dim() != 2 or node_feats.shape[0] != csr.num_nodes:
         raise ValueError(

@@ -13,8 +13,8 @@ import torch
 
 from stgraph_tpu_torch.graph.csr import build_csr
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
-from stgraph_tpu_torch.nn import GCNConv
-from stgraph_tpu_torch.ops import kernel_lib, spmm_cuda, spmm_kernels
+from stgraph_tpu_torch.nn import GATConv, GCNConv
+from stgraph_tpu_torch.ops import flash_gat, kernel_lib, segment_kernels, spmm_cuda, spmm_kernels
 from stgraph_tpu_torch.serve import Predictor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -71,6 +71,8 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GCNConv(4, 4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GATConv(4, 4, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         Predictor.build(lambda p, x: x, {}, (torch.ones(1),))
 
 
@@ -101,8 +103,48 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch, tmp_path):
     assert (spmm_kernels.spmm_rowmask.launches, spmm_kernels.spmm_rowmask_bwd.launches) == before
 
 
+def test_non_cpu_tensor_never_takes_the_plain_gat_kernels(monkeypatch, tmp_path):
+    """K4, K8 and K9 as K1 and K2: a tensor that is not on the CPU goes to
+    the kernel or raises, through the wrappers and through the flash route."""
+    csr = build_csr([0, 1, 2, 2], [1, 2, 0, 1], 3, device="cpu")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(kernel_lib, "_nvcc", no_nvcc)
+    monkeypatch.setattr(kernel_lib, "_loaded", {})
+    monkeypatch.setattr(kernel_lib, "_paths", lambda names: {n: str(tmp_path / f"{n}.so") for n in names})
+    monkeypatch.setattr(segment_kernels, "segment_max_narrow_plain", plain)
+    monkeypatch.setattr(flash_gat, "flash_gat_fwd_plain", plain)
+    monkeypatch.setattr(flash_gat, "flash_gat_bwd_plain", plain)
+    h, f = 2, 4
+    el = torch.empty(3, h, device="meta")
+    fs = torch.empty(3, h * f, device="meta")
+    counts = [segment_kernels.segment_max_narrow.launches, flash_gat.flash_gat_fwd.launches,
+              flash_gat.flash_gat_bwd.launches]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        segment_kernels.segment_max_narrow(csr, el, index=csr.cols)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        flash_gat.flash_gat_fwd(csr, el, el, el, fs, h, aux=True)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        flash_gat.flash_gat_bwd(csr.transpose(), el, el, el, el, fs, fs, h)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        flash_gat.flash_gat_attention(csr, el, el, fs, h)
+    assert counts == [segment_kernels.segment_max_narrow.launches, flash_gat.flash_gat_fwd.launches,
+                      flash_gat.flash_gat_bwd.launches]
+
+
 def test_kernel_build_starts_nothing_at_import():
-    assert set(kernel_lib.SOURCES) == {"spmm_rowmask", "spmm_sddmm_rowmask"}
+    assert set(kernel_lib.SOURCES) == {
+        "spmm_rowmask",  # K1
+        "spmm_sddmm_rowmask",  # K2
+        "segment_max_narrow",  # K4
+        "flash_gat_fwd",  # K8
+        "flash_gat_bwd",  # K9
+    }
     for name in kernel_lib.SOURCES.values():
         assert (ROOT / "stgraph_tpu_torch" / "csrc" / name).exists()
     assert "arch=compute_90a,code=sm_90a" in kernel_lib.NVCC_FLAGS
