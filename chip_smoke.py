@@ -68,11 +68,32 @@ Phases (any failure exits nonzero and prints no result line):
     torch path (the vertex program);
 22. Pubmed as ``benchmarking/gat/train.py --dataset pubmed`` runs it (8 heads
     x 8 hidden, 1 output head, Adam 5e-3, 200 epochs, the flash route on an
-    f32 stream): train accuracy at least ``PUBMED_ACC_FLOOR``.
+    f32 stream): train accuracy at least ``PUBMED_ACC_FLOOR``;
+23. K6 and K7 against their plain versions on a flat store with sentinel
+    slots spread through it, tombstones, empty rows and a 150k-slot hub row,
+    weighted, unweighted and w = None, K6 at F in {8, 32, 128};
+24. dyn-step, the fifth main path: ``bench.py``'s ``bench_dyn`` on the
+    port (the lazy store pair at 1.1M nodes, capacity 2.2M, 64 steps of 10k
+    adds and 10k deletes, ``lazy_spmm`` at F = 128): one K6 a step; per-step
+    times of update + aggregation, update alone, aggregation alone and K1 on
+    the initial edges; after the 64 steps the live sets of both stores must
+    equal the generator's;
+25. K6 and K7 at that path's shapes: each kernel, its plain version and a
+    library call timed, full outputs compared;
+26. dtdg-training, the sixth main path, on England-COVID (weighted, 53
+    timesteps) and the wiki-talk-shaped stream (unweighted, 4): the
+    lazy-scan epoch of ``benchmarking/dynamic-temporal-tgcn/train.py``
+    (TGCN 8 -> 32, link loss, Adam 1e-2), 1 warm and 4 timed epochs, each
+    launching 6T K6 and 3T K7, the loss finite and falling; a profile of one
+    epoch; K6 on both stores of the pair and K7 with ``lazy_norm``'s weights
+    at the path's shapes against their plain versions; the hidden state at
+    every timestep, the loss and one epoch's parameter gradients against the
+    same TGCN over ``NaiveGraph`` snapshot CSRs (K1), to ``HIDDEN_TOL`` and
+    ``DTDG_GRAD_TOL`` of the largest.
 
 Every path of the kernels line (serving, training, gat-serving,
-gat-training) is driven with every launch count set to 0 just before it
-and read just after.
+gat-training, dyn-step, and dtdg-training on each dataset) is driven with
+every launch count set to 0 just before it and read just after.
 
 The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 ``--details PATH`` also writes every measurement of the run as JSON.
@@ -137,6 +158,25 @@ PUBMED_DIMS, PUBMED_HEADS, PUBMED_EPOCHS = (500, 8, 3), (8, 1), 200
 # the CPU, synthetic Pubmed, 200 epochs) reaches train accuracy 0.6322; the
 # port must reach it less 0.05 (PERF.md, section 4, Pubmed).
 PUBMED_ACC_FLOOR = 0.6322 - 0.05
+# bench.py's bench_dyn: the lazy store at the wiki-talk scale
+DYN_NODES, DYN_CAP, DYN_SLIDE, DYN_STEPS, DYN_F = 1_100_000, 2_200_000, 10_000, 64, 128
+DYN_TCAP = 16 * DYN_SLIDE
+ROWID_CHECK_F = (8, 32, 128)
+ROWID_PLAIN_EDGE_BLOCK = 1 << 20  # bounds the plain K6's (slots, F) temporaries
+# benchmarking/dynamic-temporal-tgcn/train.py's defaults: lags = feat_size 8,
+# num_hidden 32, Adam 1e-2; 1 warm epoch and 4 timed ones
+DTDG_LAGS, DTDG_HIDDEN, DTDG_LR, DTDG_EPOCHS = 8, 32, 1e-2, 4
+DTDG_DATASETS = ("england-covid", "wiki-shape")
+# benchmarking/results/dynamic-temporal/README.md's wiki-talk-shaped stream:
+# dataset_builder.py --sparse -N 20000 -M 10 -A 0.05 -D 0.05 -T 12
+WIKI_SHAPE = dict(num_nodes=20_000, edge_multiplier=10, add_coeff=0.05, delete_coeff=0.05, timestamps=12)
+# Hidden states, lazy pair (K6, f32 sums in one order) vs NaiveGraph
+# snapshots (K1, another order), over up to 53 timesteps of three gates
+HIDDEN_TOL = 1e-3
+# One epoch's parameter gradients, lazy pair vs NaiveGraph snapshots, each
+# tensor against its largest element: the same f32 arithmetic as the hidden
+# states, carried back through every timestep
+DTDG_GRAD_TOL = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -149,11 +189,17 @@ def check(cond: bool, msg: str) -> None:
 
 
 def _counters():
-    from stgraph_tpu_torch.ops import flash_gat, segment_kernels, spmm_kernels
+    from stgraph_tpu_torch.ops import flash_gat, rowid_kernels, segment_kernels, spmm_kernels
 
     return {"K1": spmm_kernels.spmm_rowmask, "K2": spmm_kernels.spmm_rowmask_bwd,
-            "K4": segment_kernels.segment_max_narrow, "K8": flash_gat.flash_gat_fwd,
+            "K4": segment_kernels.segment_max_narrow, "K6": rowid_kernels.spmm_rowid,
+            "K7": rowid_kernels.dyn_degree, "K8": flash_gat.flash_gat_fwd,
             "K9": flash_gat.flash_gat_bwd}
+
+
+def only(**launched) -> dict:
+    """The launch counts of a path that launched ``launched`` and nothing else."""
+    return {k: launched.get(k, 0) for k in _counters()}
 
 
 def reset_counts() -> None:
@@ -455,7 +501,7 @@ def phase_serving(dev, args, workdir):
         check(bool(torch.isfinite(logits).all().item()), f"request {r}: non-finite logits")
     counts = read_counts()
     launches = counts["K1"]
-    check(counts == {"K1": 3 * REQUESTS, "K2": 0, "K4": 0, "K8": 0, "K9": 0},
+    check(counts == only(K1=3 * REQUESTS),
           f"serving launched {counts}, expected K1 only")
     print(f"serve: {REQUESTS} requests, K1 launches {launches}, K2 launches 0, per-request s "
           f"{[round(t, 4) for t in times]}, logits finite, shape {tuple(logits.shape)}")
@@ -678,7 +724,7 @@ def phase_training(dev, args, served):
         times.append(time.perf_counter() - t)
         per_step.append((spmm_rowmask.launches - before[0], spmm_rowmask_bwd.launches - before[1]))
     launches = read_counts()
-    check(launches["K4"] == launches["K8"] == launches["K9"] == 0, f"GCN training launched {launches}")
+    check(launches == only(K1=launches["K1"], K2=launches["K2"]), f"GCN training launched {launches}")
     print(f"train: warm step {warm_s:.3f} s (loss {warm_loss:.4f}); {TRAIN_STEPS} AdamW steps, "
           f"s per step {[round(t, 4) for t in times]}, losses {[round(v, 4) for v in losses]}, "
           f"launches per step (K1, K2) {per_step}")
@@ -1129,7 +1175,7 @@ def phase_gat_serving(dev, args, base):
                 hk.remove()
         delta = {k: v - before[k] for k, v in read_counts().items()}
         per_request.append(delta)
-        check(delta == {"K1": 0, "K2": 0, "K4": 2, "K8": 2, "K9": 0},
+        check(delta == only(K4=2, K8=2),
               f"GAT request {r} launched {delta}, expected K4 and K8 twice each")
         check(tuple(logits.shape) == (n, GAT_DIMS[-1]), f"GAT logits shape {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all().item()), f"GAT request {r}: non-finite logits")
@@ -1311,7 +1357,7 @@ def phase_gat_training(dev, args, base):
     counts = read_counts()
     print(f"gat-train: warm step {warm_s:.3f} s (loss {warm_loss:.4f}); {TRAIN_STEPS} Adam steps, s per step "
           f"{[round(v, 4) for v in times]}, losses {[round(v, 4) for v in losses]}, launches {counts}")
-    check(all(c == {"K1": 0, "K2": 0, "K4": 2, "K8": 2, "K9": 2} for c in per_step),
+    check(all(c == only(K4=2, K8=2, K9=2) for c in per_step),
           f"a GAT training step launched {per_step}, expected K4, K8 and K9 twice each")
     check(all(np.isfinite(losses)) and np.isfinite(warm_loss), "non-finite GAT training loss")
     check(losses[-1] < losses[0], f"the GAT loss did not fall over {TRAIN_STEPS} steps: {losses}")
@@ -1397,11 +1443,528 @@ def phase_pubmed_gat(dev, args, workdir):
     print(f"pubmed-gat: synthetic={pubmed.synthetic} N={n} E={pubmed.gdata['num_edges']} (data {data_s:.1f} s), "
           f"{PUBMED_EPOCHS} epochs, mean epoch (>=3) {epoch_s * 1e3:.3f} ms, final loss {loss.item():.4f}, "
           f"train acc {acc:.4f} (floor {PUBMED_ACC_FLOOR:.4f}), launches {counts}")
-    check(counts == {"K1": 0, "K2": 0, "K4": 2 * PUBMED_EPOCHS, "K8": 2 * PUBMED_EPOCHS, "K9": 2 * PUBMED_EPOCHS},
+    check(counts == only(K4=2 * PUBMED_EPOCHS, K8=2 * PUBMED_EPOCHS, K9=2 * PUBMED_EPOCHS),
           f"Pubmed GAT launched {counts}")
     check(acc >= PUBMED_ACC_FLOOR, f"Pubmed GAT train accuracy {acc:.4f} is below {PUBMED_ACC_FLOOR:.4f}")
     return {"synthetic": pubmed.synthetic, "epoch_s": epoch_s, "train_acc": acc, "loss": loss.item(),
             "launches": counts, "data_s": data_s}
+
+
+# -- dynamic graphs: the lazy store pair, K6 and K7 --------------------------
+
+
+def gen_delta_stream(rng, keys0, nodes, steps, slide):
+    """``benchmarking/micro/_workload.py``'s delta stream (a copy): every
+    delete names a live edge, every add is absent, the live set is kept on
+    the host with a swap-remove pool. Returns (adds, dels) of shape
+    (steps, slide, 2) int32 in (src, dst) order, and the final live set of
+    keys ``src * nodes + dst``."""
+    pool = np.empty((len(keys0) + steps * slide + 1,), np.int64)
+    pool[: len(keys0)] = keys0
+    count = len(keys0)
+    live = set(keys0.tolist())
+    adds = np.full((steps, slide, 2), nodes, np.int32)
+    dels = np.full((steps, slide, 2), nodes, np.int32)
+    for t in range(steps):
+        taken = 0
+        while taken < slide:  # deletes: swap-remove live keys (skip stale ones)
+            j = int(rng.integers(0, count))
+            k = int(pool[j])
+            count -= 1
+            pool[j] = pool[count]
+            if k in live:
+                live.discard(k)
+                dels[t, taken] = (k // nodes, k % nodes)
+                taken += 1
+        taken = 0
+        while taken < slide:  # adds: fresh keys not live now
+            k = int(rng.integers(0, nodes)) * nodes + int(rng.integers(0, nodes))
+            if k not in live:
+                live.add(k)
+                pool[count] = k
+                count += 1
+                adds[t, taken] = (k // nodes, k % nodes)
+                taken += 1
+    return adds, dels, live
+
+
+def rowid_bounds(cap: int, n: int, f: int, live: int):
+    """Least times for one K6 call (rows, cols and w read once, the f32
+    table read once, the f32 output written once; or 2 f32 operations per
+    live slot and column) and one K7 call (rows and w read, den written; or
+    one add per slot)."""
+    k6_bytes, k6_ops = cap * 12 + 2 * n * f * 4, 2 * live * f
+    k7_bytes, k7_ops = cap * 8 + n * 4, cap
+    out = []
+    for nbytes, ops in ((k6_bytes, k6_ops), (k7_bytes, k7_ops)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+        out.append((max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, ops))
+    return out
+
+
+def phase_rowid_kernels_vs_plain(dev, rng, n=200_000, slots=2_000_000, hub_slots=150_000):
+    """K6 and K7 against their plain versions on a live-sorted flat store with
+    sentinel slots spread through it (5 %), tombstones (10 %, w = 0), 1000
+    empty rows and a hub row of ``hub_slots`` slots; weighted, unweighted
+    (w in {0, 1}, the lazy store's) and w = None, at F in {8, 32, 128}."""
+    from stgraph_tpu_torch.ops.rowid_kernels import dyn_degree, dyn_degree_plain, spmm_rowid, spmm_rowid_plain
+
+    empty = 1000
+    rows = rng.integers(0, n - empty, slots)
+    rows[:hub_slots] = 12_345
+    rows = np.sort(rows)
+    cols = rng.integers(0, n, slots)
+    sentinel = rng.random(slots) < 0.05
+    rows[sentinel], cols[sentinel] = n, n
+    w = (rng.random(slots) + 0.1).astype(np.float32)
+    w[sentinel] = 0.0
+    w[rng.random(slots) < 0.1] = 0.0
+    rows_t, cols_t = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (rows, cols))
+    w_t = torch.from_numpy(w).to(dev)
+    modes = {"weighted": w_t, "unweighted": (w_t > 0).float(), "w=None": None}
+    results, worst = [], {"K6": 0.0, "K7": 0.0}
+    for f in ROWID_CHECK_F:
+        x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(dev)
+        for mode, ww in modes.items():
+            out = spmm_rowid(rows_t, cols_t, ww, x, n)
+            torch.cuda.synchronize()
+            ref = spmm_rowid_plain(rows_t, cols_t, ww, x, n, ROWID_PLAIN_EDGE_BLOCK)
+            mass = spmm_rowid_plain(rows_t, cols_t, None if ww is None else ww.abs(), x.abs(), n,
+                                    ROWID_PLAIN_EDGE_BLOCK)
+            err = (out - ref).abs()
+            ratio = _err_over_mass(err, mass)
+            ok = ratio <= KERNEL_TOL and not out[n - empty:].any().item()
+            print(f"k6-check F={f} {mode}: max_abs_err {err.max().item():.3e} (max |plain| "
+                  f"{ref.abs().max().item():.1f}), worst err/sum|terms| {ratio:.2e} (tol {KERNEL_TOL:g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"K6 disagrees with its plain version at F={f} {mode}")
+            worst["K6"] = max(worst["K6"], err.max().item())
+            results.append({"kernel": "K6", "F": f, "mode": mode, "max_abs_err": err.max().item(),
+                            "err_over_mass": ratio})
+            del out, ref, mass, err
+    for mode, ww in modes.items():
+        den = dyn_degree(rows_t, ww, n)
+        torch.cuda.synchronize()
+        ref = dyn_degree_plain(rows_t, ww, n)
+        err = (den - ref).abs()
+        # counts are exact; a weight sum (w > 0) is its own sum of |terms|
+        ok = (torch.equal(den, ref) if mode != "weighted" else _err_over_mass(err, ref) <= KERNEL_TOL)
+        ok = ok and not den[n - empty:].any().item()
+        print(f"k7-check {mode}: max_abs_err {err.max().item():.3e} (max |plain| {ref.max().item():.1f}), "
+              f"{'bit-equal' if torch.equal(den, ref) else 'err/sum|terms| %.2e' % _err_over_mass(err, ref)} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"K7 disagrees with its plain version ({mode})")
+        worst["K7"] = max(worst["K7"], err.max().item())
+        results.append({"kernel": "K7", "mode": mode, "max_abs_err": err.max().item()})
+    return {"store": {"n": n, "slots": slots, "empty_rows": empty, "hub_slots": hub_slots,
+                      "sentinel_share": 0.05, "tombstone_share": 0.1},
+            "cases": results, "max_abs_err": worst}
+
+
+def live_keys(store, key):
+    """The live edge set of a lazy store as sorted keys: live main slots and
+    live tail entries, less one per anti entry. Fails unless every anti entry
+    cancels a positive entry and no key is live twice."""
+    n = store.num_nodes
+    r, c, w = (t.cpu().numpy() for t in (store.rows, store.cols, store.w))
+    tr, tc, tw = (t.cpu().numpy() for t in (store.tail_rows, store.tail_cols, store.tail_w))
+    ar, ac = store.anti_rows.cpu().numpy(), store.anti_cols.cpu().numpy()
+    main, tail, anti = (r < n) & (w > 0), (tr < n) & (tw > 0), ar < n
+    pos = np.concatenate([key(r[main], c[main]), key(tr[tail], tc[tail])])
+    keys, counts = np.unique(pos, return_counts=True)
+    neg, neg_counts = np.unique(key(ar[anti], ac[anti]), return_counts=True)
+    idx = np.searchsorted(keys, neg)
+    check(bool(np.all(idx < len(keys))) and bool(np.all(keys[np.minimum(idx, len(keys) - 1)] == neg)),
+          "an anti-log entry cancels no live edge")
+    counts[idx] -= neg_counts
+    check(bool(np.all((counts == 0) | (counts == 1))), "a key is live twice in the lazy store")
+    return keys[counts == 1]
+
+
+def phase_dyn_step(dev, seed):
+    """``bench.py``'s ``bench_dyn`` on the port: the lazy store pair at the
+    wiki-talk scale (1.1M nodes, capacity 2.2M, tail 160k, ~2.0M initial
+    edges), 64 steps of 10k adds and 10k deletes; per step the update and
+    ``lazy_spmm`` at F = 128, then the update alone, the aggregation alone
+    and K1 on a static CSR of the initial edges. One K6 a step."""
+    from stgraph_tpu_torch.graph.csr import build_csr
+    from stgraph_tpu_torch.ops.dyn_spmm import apply_delta_lazy_pair, lazy_pair_from_edges, lazy_spmm
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask
+
+    rng = np.random.default_rng(seed)
+    nodes, cap, slide, steps, f, tcap = DYN_NODES, DYN_CAP, DYN_SLIDE, DYN_STEPS, DYN_F, DYN_TCAP
+    t0 = time.perf_counter()
+    e0 = cap - tcap - 40_000
+    keys = np.unique(rng.integers(0, nodes, e0 * 2).astype(np.int64) * nodes + rng.integers(0, nodes, e0 * 2))[:e0]
+    rows0, cols0 = (keys // nodes).astype(np.int32), (keys % nodes).astype(np.int32)
+    adds, dels, live = gen_delta_stream(rng, cols0.astype(np.int64) * nodes + rows0, nodes, steps, slide)
+    t1 = time.perf_counter()
+    pair0 = lazy_pair_from_edges(cols0, rows0, nodes, capacity=cap, tail_capacity=tcap, device=dev)
+    feats = torch.from_numpy(rng.standard_normal((nodes, f)).astype(np.float32)).to(dev)
+    adds_t, dels_t = torch.from_numpy(adds).to(dev), torch.from_numpy(dels).to(dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"dyn-step setup: {e0} initial edges on {nodes} nodes, capacity {cap}, tail {tcap}, {steps} steps of "
+          f"{slide} adds + {slide} deletes: stream {t1 - t0:.2f} s, pair build + upload {t2 - t1:.2f} s")
+
+    def update(pair, s):
+        return apply_delta_lazy_pair(pair, adds_t[s, :, 0], adds_t[s, :, 1], dels_t[s, :, 0], dels_t[s, :, 1])
+
+    def run(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) / steps
+
+    # Each loop reduces every output to a sum and keeps nothing, as
+    # bench_dyn's scans do: holding 64 outputs of 563 MB would time the
+    # allocator.
+    def step_loop():
+        pair, compactions = pair0, 0
+        for s in range(steps):
+            nxt = update(pair, s)
+            compactions += nxt.fwd.tail_count < pair.fwd.tail_count
+            pair = nxt
+            lazy_spmm(pair, feats).sum()
+        return pair, compactions
+
+    def update_loop():
+        pair = pair0
+        for s in range(steps):
+            pair = update(pair, s)
+        return pair
+
+    def repeat(fn):
+        for _ in range(steps):
+            fn().sum()
+
+    csr = build_csr(cols0, rows0, nodes, device=dev)
+    with torch.no_grad():
+        run(step_loop)  # warm
+        reset_counts()
+        (pair, compactions), step_s = run(step_loop)
+        counts = read_counts()
+        _, update_s = run(update_loop)
+        _, agg_s = run(lambda: repeat(lambda: lazy_spmm(pair0, feats)))
+        spmm_rowmask(csr, None, feats)  # warm
+        _, static_s = run(lambda: repeat(lambda: spmm_rowmask(csr, None, feats)[0]))
+    print(f"dyn-step: update + lazy_spmm {step_s * 1e3:.3f} ms a step, update only {update_s * 1e3:.3f} ms, "
+          f"aggregation only {agg_s * 1e3:.3f} ms, static K1 (f32 stream) {static_s * 1e3:.3f} ms; "
+          f"{compactions} compactions per store; launches {counts}")
+    check(counts == only(K6=steps), f"the dyn-step run launched {counts}, expected one K6 a step")
+    want = np.array(sorted(live), np.int64)
+    fwd = live_keys(pair.fwd, lambda r, c: c.astype(np.int64) * nodes + r)
+    bwd = live_keys(pair.bwd, lambda r, c: r.astype(np.int64) * nodes + c)
+    ok = (np.array_equal(fwd, want) and np.array_equal(bwd, want)
+          and int(pair.fwd.num_edges) == int(pair.bwd.num_edges) == len(want))
+    print(f"dyn-step live set after {steps} steps: fwd {len(fwd)}, bwd {len(bwd)}, generator {len(want)} "
+          f"edges, equal {ok}")
+    check(ok, "the lazy pair's live set differs from the generator's after the dyn-step run")
+    return {"pair": pair, "feats": feats,
+            "record": {"nodes": nodes, "capacity": cap, "tail_capacity": tcap, "initial_edges": int(e0),
+                       "steps": steps, "slide": slide, "F": f, "compactions_per_store": int(compactions),
+                       "stream_s": t1 - t0, "build_s": t2 - t1, "step_s": step_s, "update_s": update_s,
+                       "agg_s": agg_s, "static_k1_s": static_s, "launches": counts,
+                       "live_edges": len(want)}}
+
+
+def phase_rowid_at_main_shapes(dyn):
+    """K6 and K7 on the dyn-step store after its 64 steps (tombstones and
+    logs in use), F = 128: each kernel, its plain version and a library call
+    timed, full outputs compared."""
+    from stgraph_tpu_torch.ops.rowid_kernels import dyn_degree, dyn_degree_plain, spmm_rowid, spmm_rowid_plain
+
+    st, feats = dyn["pair"].fwd, dyn["feats"]
+    n, f = feats.shape
+    rows, cols, w = st.rows, st.cols, st.w
+    cap = rows.numel()
+    live = int(((rows < n) & (w > 0)).sum())
+    (b6, by6, bytes6, ops6), (b7, by7, bytes7, ops7) = rowid_bounds(cap, n, f, live)
+    out = {}
+    with torch.no_grad():
+        res = spmm_rowid(rows, cols, w, feats, n)
+        torch.cuda.synchronize()
+        ref = spmm_rowid_plain(rows, cols, w, feats, n, ROWID_PLAIN_EDGE_BLOCK)
+        err = (res - ref).abs()
+        k6_err = err.max().item()
+        ratio = _err_over_mass(err, spmm_rowid_plain(rows, cols, w.abs(), feats.abs(), n, ROWID_PLAIN_EDGE_BLOCK))
+        check(ratio <= KERNEL_TOL, f"K6 at the dyn-step shape disagrees: err/sum|terms| {ratio}")
+        ms = cuda_ms(lambda: spmm_rowid(rows, cols, w, feats, n), iters=10, warmup=2)
+        plain_ms = cuda_ms(lambda: spmm_rowid_plain(rows, cols, w, feats, n, ROWID_PLAIN_EDGE_BLOCK), iters=1)
+        t = time.perf_counter()
+        sel = (rows < n) & (w > 0)
+        crow = torch.zeros(n + 1, dtype=torch.int64, device=feats.device)
+        crow[1:] = torch.cumsum(torch.bincount(rows[sel].long(), minlength=n), 0)
+        lib_a = torch.sparse_csr_tensor(crow, cols[sel].long(), w[sel], size=(n, n), check_invariants=False)
+        torch.cuda.synchronize()
+        lib_build_s = time.perf_counter() - t
+        try:  # a timed yardstick only; the port never calls it
+            lib_err = (torch.sparse.mm(lib_a, feats) - ref).abs().max().item()
+            lib_ms = cuda_ms(lambda: torch.sparse.mm(lib_a, feats), iters=5)
+        except RuntimeError as exc:
+            print(f"library yardstick sparse.mm unavailable: {exc}")
+            lib_err, lib_ms = None, None
+        del res, ref, err, lib_a
+        print(f"k6-main F={f}: {ms:.3f} ms (plain {plain_ms:.1f} ms, torch.sparse.mm {lib_ms} ms + CSR build "
+              f"{lib_build_s * 1e3:.1f} ms, bound {b6:.3f} ms by {by6}); {live} live of {cap} slots; max_abs_err "
+              f"{k6_err:.3e}, worst err/sum|terms| {ratio:.2e}; sparse.mm vs plain max_abs_err {lib_err}")
+        out["K6"] = [{"F": f, "N": n, "slots": cap, "live": live, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "library_build_s": lib_build_s, "library_max_abs_err": lib_err,
+                      "bound_ms": b6, "bound_by": by6, "bytes": bytes6, "ops": ops6,
+                      "max_abs_err": k6_err, "err_over_mass": ratio}]
+        ind = (w > 0).float()  # lazy_norm's call
+        den = dyn_degree(rows, ind, n)
+        ref = dyn_degree_plain(rows, ind, n)
+        check(torch.equal(den, ref), "K7 at the dyn-step shape is not bit-equal to its plain version")
+        k7_ms = cuda_ms(lambda: dyn_degree(rows, ind, n), iters=20, warmup=2)
+        k7_plain = cuda_ms(lambda: dyn_degree_plain(rows, ind, n), iters=3)
+        try:  # a timed yardstick only; the port never calls it
+            lib_den = torch.bincount(rows, weights=ind, minlength=n + 1)[:n]
+            k7_lib_equal = torch.equal(lib_den.float(), den)
+            k7_lib = cuda_ms(lambda: torch.bincount(rows, weights=ind, minlength=n + 1), iters=20)
+        except RuntimeError as exc:
+            print(f"library yardstick bincount unavailable: {exc}")
+            k7_lib, k7_lib_equal = None, None
+        print(f"k7-main: {k7_ms * 1e3:.1f} us (plain {k7_plain * 1e3:.1f} us, torch.bincount {k7_lib} ms, bound "
+              f"{b7 * 1e3:.1f} us by {by7}); bit-equal to its plain version, bincount equal {k7_lib_equal}")
+        out["K7"] = [{"N": n, "slots": cap, "ms": k7_ms, "plain_ms": k7_plain, "library_ms": k7_lib,
+                      "library_equal": k7_lib_equal, "bound_ms": b7, "bound_by": by7, "bytes": bytes7,
+                      "ops": ops7, "max_abs_err": 0.0}]
+    return out, {"K6": out["K6"][0]["max_abs_err"], "K7": 0.0}
+
+
+def wiki_shape_edges(num_nodes, edge_multiplier, add_coeff, delete_coeff, timestamps, seed=0):
+    """``benchmarking/dataset/dataset_builder.py``'s ``build(..., sparse=True)``
+    (a copy, edge lists only): a random sparse graph of ``N * M`` edges, then
+    per timestamp ``D`` of the edges deleted and ``A * E`` new ones added."""
+    rng = np.random.default_rng(seed)
+    target = max(int(num_nodes * edge_multiplier), 1)
+
+    def sample(k):
+        e = rng.integers(0, num_nodes, (int(k * 1.2) + 8, 2), dtype=np.int64)
+        e = e[e[:, 0] != e[:, 1]]
+        _, idx = np.unique(e[:, 0] * num_nodes + e[:, 1], return_index=True)
+        return e[np.sort(idx)][:k]
+
+    current, lists = sample(target), []
+    for t in range(timestamps):
+        if t > 0:
+            keep = rng.permutation(len(current))[int(len(current) * delete_coeff):]
+            current = np.concatenate([current[keep], sample(int(target * add_coeff))])
+            _, idx = np.unique(current[:, 0] * num_nodes + current[:, 1], return_index=True)
+            current = current[np.sort(idx)]
+        lists.append(current)
+    return lists
+
+
+def dtdg_dataset(name, workdir):
+    """(edge lists, weight lists or None, per-step (N, lags) features) of the
+    lazy-scan script's two datasets: England-COVID (weighted) and the
+    wiki-talk-shaped stream with ``_SyntheticDTDG``'s out-degree features
+    (unweighted, so the store takes the anti-log path)."""
+    from stgraph_tpu_torch.dataset import EnglandCovidDataLoader, STGraphDataset
+
+    if name == "england-covid":
+        STGraphDataset._offline = True  # no network here: the synthetic England-COVID
+        d = EnglandCovidDataLoader(lags=DTDG_LAGS, cache_dir=os.path.join(workdir, "datasets"))
+        return d.get_edges(), d.get_edge_weights(), d.get_all_features()
+    lists = wiki_shape_edges(**WIKI_SHAPE)
+    n = 1 + max(int(e.max()) for e in lists)
+    deg = np.zeros((len(lists), n), np.float32)
+    for t, e in enumerate(lists):
+        np.add.at(deg[t], e[:, 0], 1.0)
+    deg /= max(deg.max(), 1.0)
+    return lists, None, [deg[t:t + DTDG_LAGS].T for t in range(len(lists) - DTDG_LAGS)]
+
+
+def link_loss(h, store, gen):
+    """The lazy-scan script's loss: BCE of dot-product scores on the fwd
+    store's main and tail slots (live ones counted) against as many uniform
+    negatives."""
+    n = h.shape[0]
+    rows = torch.cat([store.rows, store.tail_rows]).long().clamp(max=n - 1)
+    cols = torch.cat([store.cols, store.tail_cols]).long().clamp(max=n - 1)
+    mask = torch.cat([store.w, store.tail_w]) > 0
+    neg_s, neg_d = (torch.randint(0, n, rows.shape, device=h.device, generator=gen) for _ in range(2))
+    # index_select, whose backward is an index_add: indexing's backward
+    # (a sort-based accumulate) took most of an epoch on the H100 (PERF.md)
+    pos = (h.index_select(0, cols) * h.index_select(0, rows)).sum(-1)
+    neg = (h.index_select(0, neg_s) * h.index_select(0, neg_d)).sum(-1)
+    bce = torch.nn.functional.binary_cross_entropy_with_logits
+    loss = bce(pos, torch.ones_like(pos), reduction="none") + bce(neg, torch.zeros_like(neg), reduction="none")
+    return torch.where(mask, loss, 0.0).sum() / mask.sum().clamp(min=1)
+
+
+def phase_dtdg_training(dev, args, workdir, name):
+    """``benchmarking/dynamic-temporal-tgcn/train.py --type lazy-scan`` on the
+    port: the pair seeded from ``DeltaGraph.snapshot_store(lags - 1)``, the
+    staged deltas trimmed to the window's largest batch, tail logs 8 batches
+    wide; TGCN(8 -> 32), the link loss, Adam(1e-2), the whole epoch's
+    backward through every timestep. 1 warm and 4 timed epochs, each
+    launching 6T K6 and 3T K7; then K6 on pair.fwd and pair.bwd and K7 at
+    the path's shapes against their plain versions, and the hidden states,
+    loss and parameter gradients of one epoch against the same TGCN over
+    ``NaiveGraph`` snapshot CSRs (K1)."""
+    from stgraph_tpu_torch.graph import DeltaGraph, NaiveGraph
+    from stgraph_tpu_torch.nn import TGCN
+    from stgraph_tpu_torch.ops import spmm_cuda
+    from stgraph_tpu_torch.ops.dyn_spmm import apply_delta_lazy_pair, lazy_pair_from_edges
+    from stgraph_tpu_torch.ops.rowid_kernels import dyn_degree, dyn_degree_plain, spmm_rowid, spmm_rowid_plain
+
+    lags, hidden = DTDG_LAGS, DTDG_HIDDEN
+    t0 = time.perf_counter()
+    edge_lists, weight_lists, feats = dtdg_dataset(name, workdir)
+    g = DeltaGraph(edge_lists, weight_lists, device=dev)
+    n, steps = g.get_num_nodes(), len(feats)
+    add, dele = (x[lags:lags + steps] for x in g.staged_deltas())
+    add_w = g.staged_add_weights()
+    add_w = None if add_w is None else add_w[lags:lags + steps]
+    # one read at set-up, as train.py does: the window's largest real batch
+    width = int(max((add[:, :, 0] < n).sum(1).max(), (dele[:, :, 0] < n).sum(1).max()))
+    width = min(max(width, 16), add.shape[1])
+    add, dele = add[:, :width], dele[:, :width]
+    add_w = None if add_w is None else add_w[:, :width]
+    tcap = max(8 * width, 128)
+    init = g.snapshot_store(lags - 1)
+    live = init.rows < n
+    pair0 = lazy_pair_from_edges(init.cols[live], init.rows[live], n, capacity=g._capacity + tcap,
+                                 tail_capacity=tcap, weights=None if init.weights is None else init.weights[live],
+                                 device=dev)
+    xs = [torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in feats]
+    gen_init = torch.Generator().manual_seed(args.seed)
+    model = TGCN(lags, hidden, impl="kernel", device="cpu", generator=gen_init).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=DTDG_LR)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def update(pair, t):
+        return apply_delta_lazy_pair(pair, add[t, :, 0], add[t, :, 1], dele[t, :, 0], dele[t, :, 1],
+                                     add_weights=None if add_w is None else add_w[t])
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        pair, h, losses = pair0, torch.zeros(n, hidden, device=dev), []
+        for t in range(steps):
+            pair = update(pair, t)
+            h = model(pair, xs[t], hidden=h)
+            losses.append(link_loss(h, pair.fwd, gen))
+        loss = torch.stack(losses).mean()
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return loss.item()
+
+    t = time.perf_counter()
+    warm_loss = step()
+    warm_s = time.perf_counter() - t
+    reset_counts()
+    losses, times, per_epoch = [], [], []
+    for _ in range(DTDG_EPOCHS):
+        before = read_counts()
+        t = time.perf_counter()
+        losses.append(step())
+        times.append(time.perf_counter() - t)
+        per_epoch.append({k: v - before[k] for k, v in read_counts().items()})
+    counts = read_counts()
+
+    def updates_only():
+        pair = pair0
+        for t in range(steps):
+            pair = update(pair, t)
+        torch.cuda.synchronize()
+
+    updates_only()
+    t = time.perf_counter()
+    updates_only()
+    update_s = time.perf_counter() - t
+    print(f"dtdg-training {name}: N={n}, T={steps}, up to {max(len(e) for e in edge_lists)} edges a snapshot, "
+          f"batches of {width}, capacity {g._capacity + tcap}, tail {tcap}, weighted {weight_lists is not None} "
+          f"(set-up {setup_s:.2f} s); warm epoch {warm_s:.3f} s (loss {warm_loss:.4f}); {DTDG_EPOCHS} Adam epochs, "
+          f"s per epoch {[round(v, 4) for v in times]}, losses {[round(v, 4) for v in losses]}, updates alone "
+          f"{update_s:.4f} s an epoch; launches {counts}")
+    check(all(c == only(K6=6 * steps, K7=3 * steps) for c in per_epoch),
+          f"a {name} epoch launched {per_epoch}, expected 6T K6 and 3T K7 (T = {steps})")
+    check(all(np.isfinite(losses)) and np.isfinite(warm_loss), f"non-finite {name} loss")
+    check(losses[-1] < warm_loss, f"the {name} loss did not fall: {warm_loss} then {losses}")
+    profile = phase_profile(step, f"one {name} epoch")
+
+    # K6 on pair.fwd and pair.bwd, and K7 with lazy_norm's weights, at this
+    # path's shapes (the stores after the last timestep, (N, hidden) f32
+    # operands), against their plain versions.
+    pair = pair0
+    for t in range(steps):
+        pair = update(pair, t)
+    kernel_worst = {"K6": 0.0, "K7": 0.0}
+    with torch.no_grad():
+        for side, st in (("fwd", pair.fwd), ("bwd", pair.bwd)):
+            x = torch.randn(n, hidden, device=dev, generator=gen)
+            out = spmm_rowid(st.rows, st.cols, st.w, x, n)
+            ref = spmm_rowid_plain(st.rows, st.cols, st.w, x, n)
+            err = (out - ref).abs()
+            ratio = _err_over_mass(err, spmm_rowid_plain(st.rows, st.cols, st.w.abs(), x.abs(), n))
+            print(f"dtdg-k6 {name} pair.{side} (N={n}, {st.rows.numel()} slots, F={hidden}): max_abs_err "
+                  f"{err.max().item():.3e}, worst err/sum|terms| {ratio:.2e} (tol {KERNEL_TOL:g}) "
+                  f"{'ok' if ratio <= KERNEL_TOL else 'FAIL'}")
+            check(ratio <= KERNEL_TOL, f"{name}: K6 on pair.{side} disagrees with its plain version")
+            kernel_worst["K6"] = max(kernel_worst["K6"], err.max().item())
+        ind = torch.where(pair.fwd.w > 0, 1.0, 0.0)  # lazy_norm's call
+        den, den_ref = dyn_degree(pair.fwd.rows, ind, n), dyn_degree_plain(pair.fwd.rows, ind, n)
+        print(f"dtdg-k7 {name} (N={n}, {pair.fwd.rows.numel()} slots): bit-equal to its plain version "
+              f"{torch.equal(den, den_ref)}")
+        check(torch.equal(den, den_ref), f"{name}: K7 with lazy_norm's weights is not bit-equal to its plain version")
+
+    # The same TGCN over NaiveGraph snapshot CSRs (impl="kernel": K1 and its
+    # backward, an f32 stream like the pair's), the same negatives: the
+    # hidden state at every timestep, the loss and every parameter gradient
+    # of one epoch against the lazy pair's.
+    naive = NaiveGraph(edge_lists, weight_lists, device=dev)
+
+    def epoch_grads(route):
+        model.zero_grad(set_to_none=True)
+        neg_gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+        pair, h, losses, hs = pair0, torch.zeros(n, hidden, device=dev), [], []
+        for t in range(steps):
+            pair = update(pair, t)
+            if route == "pair":
+                h = model(pair, xs[t], hidden=h)
+            else:
+                h = model(naive.get_graph(t + lags), xs[t], edge_weight=naive.get_edge_weights(t + lags), hidden=h)
+            hs.append(h.detach())
+            losses.append(link_loss(h, pair.fwd, neg_gen))
+        loss = torch.stack(losses).mean()
+        forward = read_counts()
+        loss.backward()
+        return loss.item(), hs, {k: p.grad.clone() for k, p in model.named_parameters()}, forward
+
+    limit = spmm_cuda._BF16_STREAM_MIN_EDGES
+    spmm_cuda._BF16_STREAM_MIN_EDGES = 1 << 62
+    try:
+        reset_counts()
+        loss_pair, hs_pair, grads_pair, _ = epoch_grads("pair")
+        reset_counts()
+        loss_naive, hs_naive, grads_naive, naive_fwd = epoch_grads("naive")
+    finally:
+        spmm_cuda._BF16_STREAM_MIN_EDGES = limit
+    worst = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30) for a, b in zip(hs_pair, hs_naive))
+    grad_rows = {k: (grads_pair[k] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+                 for k, ref in grads_naive.items()}
+    grad_worst = max(grad_rows.values())
+    loss_err = abs(loss_pair - loss_naive) / abs(loss_naive)
+    print(f"dtdg-check {name}: over {steps} timesteps, lazy pair (K6, K7) vs NaiveGraph snapshots "
+          f"(K1 x {naive_fwd['K1']} forward): hidden worst max_abs_err / max |naive| {worst:.2e} (tol "
+          f"{HIDDEN_TOL:g}); loss {loss_pair:.6f} vs {loss_naive:.6f}; parameter gradients worst max_abs_err / "
+          f"max |naive| {grad_worst:.2e} (tol {DTDG_GRAD_TOL:g}) "
+          f"{'ok' if worst <= HIDDEN_TOL and grad_worst <= DTDG_GRAD_TOL else 'FAIL'}")
+    check(naive_fwd["K1"] == 3 * steps and worst <= HIDDEN_TOL, f"{name}: the lazy pair's hidden states disagree")
+    check(loss_err <= HIDDEN_TOL and grad_worst <= DTDG_GRAD_TOL,
+          f"{name}: the lazy pair's loss or gradients disagree with the snapshot path's: {grad_rows}")
+    return {"n": n, "timesteps": steps, "batch_width": width, "capacity": g._capacity + tcap,
+            "tail_capacity": tcap, "weighted": weight_lists is not None, "setup_s": setup_s,
+            "warm_s": warm_s, "warm_loss": warm_loss, "epoch_s": times, "losses": losses,
+            "update_s": update_s, "launches": counts, "launches_per_epoch": per_epoch,
+            "kernel_max_abs_err": kernel_worst, "hidden_worst_err_over_max": worst,
+            "loss_vs_naive": [loss_pair, loss_naive], "grad_err_over_max": grad_rows, "profile": profile}
 
 
 def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, library=None):
@@ -1496,12 +2059,25 @@ def main() -> int:
             record["cora"] = phase_cora(dev, args, workdir)
             record["pubmed_gat"] = phase_pubmed_gat(dev, args, workdir)
         record["tgcn"] = phase_tgcn(dev, rng)
+        # The dynamic-graph phases, the ogbn graph and models released
+        record["rowid_checks"] = phase_rowid_kernels_vs_plain(dev, rng)
+        dyn = phase_dyn_step(dev, args.seed)
+        record["dyn_step"] = dyn["record"]
+        rowid_launch, rowid_err = phase_rowid_at_main_shapes(dyn)
+        record["rowid_main"] = rowid_launch
+        del dyn
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(dir=build_root) as workdir:
+            record["dtdg_training"] = {name: phase_dtdg_training(dev, args, workdir, name)
+                                       for name in DTDG_DATASETS}
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     by_path = {"serving": gcn_counts, "training": record["training"]["launches"],
-               "gat-serving": record["gat_serving"]["launches"], "gat-training": gat_train_counts}
+               "gat-serving": record["gat_serving"]["launches"], "gat-training": gat_train_counts,
+               "dyn-step": record["dyn_step"]["launches"]}
+    by_path.update({f"dtdg-training:{name}": r["launches"] for name, r in record["dtdg_training"].items()})
     kernels = [
         kernel_entry("spmm_rowmask (K1)", "stgraph_tpu_torch/csrc/spmm_rowmask.cu",
                      "stgraph_tpu/ops/segment_pallas.py:761", "K1", by_path,
@@ -1515,6 +2091,16 @@ def main() -> int:
                      "stgraph_tpu/ops/segment_pallas.py:235", "K4", by_path,
                      max(record["gat_checks"]["max_abs_err"]["K4"], gat_err["K4"]), gat_launch["K4"],
                      "torch.segment_reduce(max) over the gathered (E, H) plane"),
+        kernel_entry("spmm_rowid (K6)", "stgraph_tpu_torch/csrc/spmm_rowid.cu",
+                     "stgraph_tpu/ops/segment_pallas.py:1673", "K6", by_path,
+                     max(record["rowid_checks"]["max_abs_err"]["K6"], rowid_err["K6"],
+                         *(r["kernel_max_abs_err"]["K6"] for r in record["dtdg_training"].values())),
+                     rowid_launch["K6"],
+                     "torch.sparse.mm on a CSR built from the store (the build timed apart)"),
+        kernel_entry("rowid_denom (K7)", "stgraph_tpu_torch/csrc/rowid_denom.cu",
+                     "stgraph_tpu/ops/dyn_spmm.py:382", "K7", by_path,
+                     max(record["rowid_checks"]["max_abs_err"]["K7"], rowid_err["K7"]), rowid_launch["K7"],
+                     "torch.bincount(rows, weights, minlength=n + 1)"),
         kernel_entry("flash_gat_fwd (K8)", "stgraph_tpu_torch/csrc/flash_gat_fwd.cu",
                      "stgraph_tpu/ops/flash_gat.py:191", "K8", by_path,
                      max(record["gat_checks"]["max_abs_err"]["K8"], gat_err["K8"]), gat_launch["K8"],

@@ -25,6 +25,11 @@ vectors carry over as they are.
 ``bias``}), loadable into ``stgraph_tpu_torch.nn.TGCN``. A flax ``Dense``
 kernel is (in, out) and an ``nn.Linear`` weight (out, in): it is
 transposed.
+
+``lazy_pair_from_jax`` carries a JAX ``LazyPair`` (its two ``LazyStore``s,
+leaves as numpy: ``jax.tree_util.tree_map(np.asarray, pair)``) into the
+port's ``LazyPair`` on ``device``, so that both packages start from the same
+dynamic-graph state.
 """
 
 from __future__ import annotations
@@ -35,7 +40,12 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["gat_params_from_jax", "gcn_params_from_jax", "tgcn_params_from_jax"]
+from stgraph_tpu_torch.graph.delta_graph import pack_keys
+from stgraph_tpu_torch.graph.lazy_store import LazyStore
+from stgraph_tpu_torch.ops.dyn_spmm import LazyPair
+from stgraph_tpu_torch.utils.device import resolve_device
+
+__all__ = ["gat_params_from_jax", "gcn_params_from_jax", "lazy_pair_from_jax", "tgcn_params_from_jax"]
 
 _LAYER = re.compile(r"^GCNConv_(\d+)$")
 _GAT_LAYER = re.compile(r"^GATConv_(\d+)$")
@@ -105,3 +115,27 @@ def tgcn_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out[f"linear_{gate}.weight"] = _tensor(dense["kernel"]).T.contiguous()
         out[f"linear_{gate}.bias"] = _tensor(dense["bias"])
     return out
+
+
+def _lazy_store_from_jax(store, device):
+    def t(name, dtype):
+        return torch.from_numpy(np.array(getattr(store, name), dtype)).to(device)
+
+    n = int(store.num_nodes)
+    rows, cols = t("rows", np.int32), t("cols", np.int32)
+    return LazyStore(
+        rows=rows, cols=cols, w=t("w", np.float32), keys=pack_keys(rows, cols, n),
+        tail_rows=t("tail_rows", np.int32), tail_cols=t("tail_cols", np.int32),
+        tail_w=t("tail_w", np.float32), tail_count=int(store.tail_count),
+        anti_rows=t("anti_rows", np.int32), anti_cols=t("anti_cols", np.int32),
+        anti_count=int(store.anti_count),
+        num_edges=torch.tensor(int(store.num_edges), dtype=torch.int64, device=device),
+        num_nodes=n, weighted=bool(store.weighted),
+    )
+
+
+def lazy_pair_from_jax(pair, device=None):
+    """A JAX ``LazyPair`` (numpy leaves) as the port's ``LazyPair`` on
+    ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return LazyPair(fwd=_lazy_store_from_jax(pair.fwd, dev), bwd=_lazy_store_from_jax(pair.bwd, dev))

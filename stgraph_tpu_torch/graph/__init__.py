@@ -1,10 +1,32 @@
 """Graph storage layer: CSR core and the static graph class.
 
-Counterpart of ``stgraph_tpu/graph/`` for the serving slice; the dynamic
-stores (naive, delta, PMA, lazy) and the reorder pass are later slices.
+Counterpart of ``stgraph_tpu/graph/``: the CSR core, the static graph, and
+the dynamic graphs (naive snapshots, the delta store, the lazy store); the
+PMA store and the reorder pass are later slices.
 """
 
 from stgraph_tpu_torch.graph.csr import CSR, build_csr, pad_edges, round_up
+from stgraph_tpu_torch.graph.delta_graph import DeltaGraph, EdgeStore, apply_delta, edge_store_to_csr
+from stgraph_tpu_torch.graph.dynamic_graph import DynamicGraph, preprocess_deltas
+from stgraph_tpu_torch.graph.lazy_store import LazyStore, apply_delta_lazy, compact, lazy_from_edges
+from stgraph_tpu_torch.graph.naive_graph import NaiveGraph
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
 
-__all__ = ["CSR", "StaticGraph", "build_csr", "pad_edges", "round_up"]
+__all__ = [
+    "CSR",
+    "DeltaGraph",
+    "DynamicGraph",
+    "EdgeStore",
+    "LazyStore",
+    "NaiveGraph",
+    "StaticGraph",
+    "apply_delta",
+    "apply_delta_lazy",
+    "build_csr",
+    "compact",
+    "edge_store_to_csr",
+    "lazy_from_edges",
+    "pad_edges",
+    "preprocess_deltas",
+    "round_up",
+]

@@ -8,7 +8,9 @@ one-liner
 
 which the lowering's SpMM peephole turns into one weighted SpMM (the dense
 adjacency on small graphs, the K1 kernel on large ones, with K2 for its
-backward).
+backward). On a dynamic ``LazyPair`` the layer computes
+``lazy_spmm(pair, (h W) * norm) * norm`` with ``norm = lazy_norm(pair)``,
+as the JAX layer's pair branch does (the row-id kernels K6 and K7).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from torch import nn
 from stgraph_tpu_torch.compiler import STGraph
 from stgraph_tpu_torch.compiler.lowering import GraphView
 from stgraph_tpu_torch.graph.csr import CSR
+from stgraph_tpu_torch.ops.dyn_spmm import LazyPair, lazy_norm, lazy_spmm
 from stgraph_tpu_torch.utils.device import resolve_device
 from stgraph_tpu_torch.utils.norm import symmetric_norm
 
@@ -68,10 +71,12 @@ class GCNConv(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, graph, h: torch.Tensor, edge_weight=None) -> torch.Tensor:
+        if isinstance(graph, LazyPair):
+            return self._forward_pair(graph, h, edge_weight)
         if not isinstance(graph, (CSR, GraphView)) and not hasattr(graph, "fwd_csr"):
             raise NotImplementedError(
-                "GCNConv over the dynamic graph stores (PMA, lazy) comes with "
-                "the dynamic-graph slice"
+                f"GCNConv over {type(graph).__name__}: of the dynamic stores, "
+                "only the lazy pair is ported (the PMA pair is not yet)"
             )
         norm = _get_norm(graph)
         if self.dtype is not None:
@@ -114,6 +119,23 @@ class GCNConv(nn.Module):
                 e_feats={"edge_weight": edge_weight},
             )
 
+        return self._finish(h)
+
+    def _forward_pair(self, pair: LazyPair, h: torch.Tensor, edge_weight) -> torch.Tensor:
+        """The dynamic-store path: the row-id kernels aggregate straight
+        from the lazy pair (K6 in ``lazy_spmm``, K7 for the per-timestep
+        norm). The pair carries its edge weights, so an ``edge_weight``
+        argument would apply them twice and is refused."""
+        if edge_weight is not None:
+            raise ValueError(
+                "dynamic graph pairs carry edge weights in the store; "
+                "pass them at lazy_pair_from_edges/apply_delta_lazy_pair time"
+            )
+        norm = lazy_norm(pair)
+        h = (h.float() @ self.weight).to(h.dtype)  # f32 sums, as the JAX pair branch
+        return self._finish(lazy_spmm(pair, h * norm) * norm)
+
+    def _finish(self, h: torch.Tensor) -> torch.Tensor:
         if self.bias is not None:
             h = h + self.bias.to(h.dtype)
         if self.activation is not None:

@@ -2,7 +2,8 @@
 
 Counterpart of ``stgraph_tpu/ops/``: plain torch paths (the port's oracle),
 the dense-adjacency path, GAT's attention (``attention``, ``flash_gat``),
-and the hand-written CUDA kernels behind one functional API. Kernels are
+the lazy dynamic store's SpMM and norm (``dyn_spmm``), and the hand-written
+CUDA kernels behind one functional API. Kernels are
 built and loaded only when a CUDA tensor first reaches them, never at
 import.
 """
@@ -11,6 +12,13 @@ from stgraph_tpu_torch.ops.attention import (
     dense_gat_attention,
     flash_path_available,
     sparse_gat_attention,
+)
+from stgraph_tpu_torch.ops.dyn_spmm import (
+    LazyPair,
+    apply_delta_lazy_pair,
+    lazy_norm,
+    lazy_pair_from_edges,
+    lazy_spmm,
 )
 from stgraph_tpu_torch.ops.flash_gat import (
     flash_gat_attention,
@@ -28,6 +36,12 @@ from stgraph_tpu_torch.ops.message import (
     gather_src,
     sddmm,
     spmm,
+)
+from stgraph_tpu_torch.ops.rowid_kernels import (
+    dyn_degree,
+    dyn_degree_plain,
+    spmm_rowid,
+    spmm_rowid_plain,
 )
 from stgraph_tpu_torch.ops.segment import (
     broadcast_to_edges,
@@ -50,11 +64,15 @@ from stgraph_tpu_torch.ops.spmm_kernels import (
 )
 
 __all__ = [
+    "LazyPair",
     "SegmentMaxNarrow",
     "aggregate",
+    "apply_delta_lazy_pair",
     "broadcast_to_edges",
     "csr_to_dense",
     "dense_gat_attention",
+    "dyn_degree",
+    "dyn_degree_plain",
     "edge_data_to_csr_order",
     "flash_gat_attention",
     "flash_gat_bwd",
@@ -65,6 +83,9 @@ __all__ = [
     "flash_supported",
     "gather_dst",
     "gather_src",
+    "lazy_norm",
+    "lazy_pair_from_edges",
+    "lazy_spmm",
     "sddmm",
     "segment_max",
     "segment_max_narrow",
@@ -75,6 +96,8 @@ __all__ = [
     "segment_sum",
     "sparse_gat_attention",
     "spmm",
+    "spmm_rowid",
+    "spmm_rowid_plain",
     "spmm_rowmask",
     "spmm_rowmask_bwd",
     "spmm_rowmask_bwd_plain",

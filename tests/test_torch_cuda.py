@@ -1,6 +1,6 @@
-"""K1, K2, K4, K8 and K9 on the card against their plain versions, and the
-GCN forward, a GCN training step and a GAT training step on CUDA against
-the CPU. Marked ``cuda``: they skip where no card is present. On a
+"""K1, K2, K4, K6, K7, K8 and K9 on the card against their plain versions,
+and the GCN forward, a GCN training step, a GAT training step and TGCN on a
+lazy dynamic store pair on CUDA against the CPU. Marked ``cuda``: they skip where no card is present. On a
 machine with a card and without jax they run without the suite's conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest``.
 
@@ -15,8 +15,10 @@ import torch
 
 from stgraph_tpu_torch.graph.csr import build_csr
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
-from stgraph_tpu_torch.nn import GATConv, GCNConv
+from stgraph_tpu_torch.nn import TGCN, GATConv, GCNConv
+from stgraph_tpu_torch.ops import dyn_spmm as DS
 from stgraph_tpu_torch.ops import flash_gat as FG
+from stgraph_tpu_torch.ops import rowid_kernels as RK
 from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow, segment_max_narrow_plain
 from stgraph_tpu_torch.ops.spmm_kernels import (
     ROW_CHUNK,
@@ -220,3 +222,89 @@ def test_gat_training_step_on_cuda_matches_cpu(cuda, rng):
         # the projections sum in another order on the card, so a streamed
         # value may round to the neighbouring bf16 number
         assert (out - ref).abs().max().item() <= 2e-2 * max(1e-6, ref.abs().max().item())
+
+
+def _rowid_store(rng, n, slots, hub_slots, weighted):
+    """A live-sorted flat store: sentinels spread through it, tombstones
+    (w = 0), 50 empty rows and a hub row of ``hub_slots`` slots."""
+    rows = rng.integers(0, n - 50, slots)
+    rows[:hub_slots] = 7
+    rows = np.sort(rows)
+    cols = rng.integers(0, n, slots)
+    sentinel = rng.random(slots) < 0.05
+    rows[sentinel], cols[sentinel] = n, n
+    w = (rng.random(slots) + 0.1 if weighted else np.ones(slots)).astype(np.float32)
+    w[sentinel] = 0.0
+    w[rng.random(slots) < 0.1] = 0.0  # tombstones
+    return rows.astype(np.int32), cols.astype(np.int32), w
+
+
+@pytest.mark.parametrize("f", [8, 32, 47, 128, 130])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_k6_matches_plain_on_the_card(cuda, rng, f, weighted):
+    n = 3000
+    rows, cols, w = _rowid_store(rng, n, 80_000, 20_000, weighted)
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    x = t(rng.standard_normal((n, f)).astype(np.float32))
+    ww = t(w) if weighted else None
+    before = RK.spmm_rowid.launches
+    out = RK.spmm_rowid(t(rows), t(cols), ww, x, n)
+    torch.cuda.synchronize()
+    assert RK.spmm_rowid.launches == before + 1
+    ref = RK.spmm_rowid_plain(t(rows), t(cols), ww, x, n)
+    mass = RK.spmm_rowid_plain(t(rows), t(cols), None if ww is None else ww.abs(), x.abs(), n)
+    # f32 sums in another order (atomics across chunks): 2e-4 of the terms' mass
+    assert ((out - ref).abs() <= 2e-4 * mass + 1e-6).all()
+    assert not out[n - 50:].any()
+
+
+def test_k7_matches_plain_on_the_card(cuda, rng):
+    n = 3000
+    rows, _, w = _rowid_store(rng, n, 80_000, 20_000, True)
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    before = RK.dyn_degree.launches
+    counts = RK.dyn_degree(t(rows), None, n)
+    live = RK.dyn_degree(t(rows), t((w > 0).astype(np.float32)), n)
+    wsum = RK.dyn_degree(t(rows), t(w), n)
+    torch.cuda.synchronize()
+    assert RK.dyn_degree.launches == before + 3
+    assert torch.equal(counts, RK.dyn_degree_plain(t(rows), None, n))  # counts are exact
+    assert torch.equal(live, RK.dyn_degree_plain(t(rows), t((w > 0).astype(np.float32)), n))
+    ref = RK.dyn_degree_plain(t(rows), t(w), n)
+    assert ((wsum - ref).abs() <= 2e-4 * ref.abs() + 1e-6).all()  # w > 0: the sum is its own mass
+    assert not counts[n - 50:].any()
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_tgcn_on_a_lazy_pair_on_cuda_matches_cpu(cuda, rng, weighted):
+    """Three timesteps of updates and TGCN on the pair, backward through all
+    of them: 3 K7, 3 K6 forward and 3 K6 backward a timestep."""
+    n, e, d, steps = 2000, 30_000, 500, 3
+    keys = rng.choice(n * n, e + steps * d, replace=False)
+    src, dst = keys[:e] // n, keys[:e] % n
+    w0 = (rng.random(e) + 0.1).astype(np.float32) if weighted else None
+    adds = [np.stack([k // n, k % n], 1).astype(np.int32) for k in np.split(keys[e:], steps)]
+    dels = [np.stack([src[i * d:(i + 1) * d], dst[i * d:(i + 1) * d]], 1).astype(np.int32) for i in range(steps)]
+    aw = [(rng.random(d) + 0.1).astype(np.float32) for _ in range(steps)] if weighted else [None] * steps
+    xs = [rng.standard_normal((n, 8)).astype(np.float32) for _ in range(steps)]
+    ref_layer = TGCN(8, 32, device="cpu", generator=torch.Generator().manual_seed(2))
+    results = []
+    for dev in ("cpu", cuda):
+        layer = TGCN(8, 32, device=dev)
+        layer.load_state_dict(ref_layer.state_dict())
+        pair = DS.lazy_pair_from_edges(src, dst, n, e + 2048, 2 * d, weights=w0, device=dev)
+        t = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+        x = [t(v).requires_grad_() for v in xs]
+        counts = RK.spmm_rowid.launches, RK.dyn_degree.launches
+        h = None
+        for i in range(steps):
+            pair = DS.apply_delta_lazy_pair(pair, t(adds[i][:, 0]), t(adds[i][:, 1]), t(dels[i][:, 0]),
+                                            t(dels[i][:, 1]), add_weights=t(aw[i]))
+            h = layer(pair, x[i], hidden=h)
+        (h ** 2).mean().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (RK.spmm_rowid.launches - counts[0], RK.dyn_degree.launches - counts[1]) == (6 * steps, 3 * steps)
+        results.append([h.detach()] + [p.grad for p in layer.parameters()] + [v.grad for v in x])
+    for ref, out in zip(*results):
+        _close(out.cpu(), ref, tol=1e-4)

@@ -14,7 +14,7 @@ import torch
 from stgraph_tpu_torch.graph.csr import build_csr
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
 from stgraph_tpu_torch.nn import GATConv, GCNConv
-from stgraph_tpu_torch.ops import flash_gat, kernel_lib, segment_kernels, spmm_cuda, spmm_kernels
+from stgraph_tpu_torch.ops import dyn_spmm, flash_gat, kernel_lib, rowid_kernels, segment_kernels, spmm_cuda, spmm_kernels
 from stgraph_tpu_torch.serve import Predictor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -137,11 +137,42 @@ def test_non_cpu_tensor_never_takes_the_plain_gat_kernels(monkeypatch, tmp_path)
                       flash_gat.flash_gat_bwd.launches]
 
 
+def test_non_cpu_tensor_never_takes_the_plain_rowid_kernels(monkeypatch, tmp_path):
+    """K6 and K7 as K1 and K2: a tensor that is not on the CPU goes to the
+    kernel or raises, through the wrappers, ``lazy_spmm`` and ``lazy_norm``."""
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(kernel_lib, "_nvcc", no_nvcc)
+    monkeypatch.setattr(kernel_lib, "_loaded", {})
+    monkeypatch.setattr(kernel_lib, "_paths", lambda names: {n: str(tmp_path / f"{n}.so") for n in names})
+    monkeypatch.setattr(rowid_kernels, "spmm_rowid_plain", plain)
+    monkeypatch.setattr(rowid_kernels, "dyn_degree_plain", plain)
+    pair = dyn_spmm.lazy_pair_from_edges([0, 1, 2], [1, 2, 0], 3, capacity=8, tail_capacity=4, device="meta")
+    feats = torch.empty(3, 8, device="meta")
+    counts = rowid_kernels.spmm_rowid.launches, rowid_kernels.dyn_degree.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        rowid_kernels.spmm_rowid(pair.fwd.rows, pair.fwd.cols, pair.fwd.w, feats, 3)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        rowid_kernels.dyn_degree(pair.fwd.rows, None, 3)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        dyn_spmm.lazy_spmm(pair, feats)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        dyn_spmm.lazy_norm(pair)
+    assert counts == (rowid_kernels.spmm_rowid.launches, rowid_kernels.dyn_degree.launches)
+
+
 def test_kernel_build_starts_nothing_at_import():
     assert set(kernel_lib.SOURCES) == {
         "spmm_rowmask",  # K1
         "spmm_sddmm_rowmask",  # K2
         "segment_max_narrow",  # K4
+        "spmm_rowid",  # K6
+        "rowid_denom",  # K7
         "flash_gat_fwd",  # K8
         "flash_gat_bwd",  # K9
     }
