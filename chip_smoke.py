@@ -65,7 +65,7 @@ Phases (any failure exits nonzero and prints no result line):
     launching K4, K8 and K9 twice; the loss must be finite and fall;
 20. a profile of one GAT training step;
 21. the GAT model and its gradients at ``--scale 0.01`` against the plain
-    torch path (the vertex program);
+    torch path (the vertex program, with K3's and K4's plain versions);
 22. Pubmed as ``benchmarking/gat/train.py --dataset pubmed`` runs it (8 heads
     x 8 hidden, 1 output head, Adam 5e-3, 200 epochs, the flash route on an
     f32 stream): train accuracy at least ``PUBMED_ACC_FLOOR``;
@@ -91,9 +91,36 @@ Phases (any failure exits nonzero and prints no result line):
     same TGCN over ``NaiveGraph`` snapshot CSRs (K1), to ``HIDDEN_TOL`` and
     ``DTDG_GRAD_TOL`` of the largest.
 
+27. composed-serving, the seventh main path, on the ogbn graph after the
+    GAT phases (run between 20 and 21): the GAT of ``benchmarking/gat/train.py``
+    at the GAT paper's PPI widths (``--num_layers 3 --num_hidden 256
+    --num_heads 4 --num_out_heads 6``: 100 -> 4x256 -> 4x256 -> 6x47, the
+    heads of the last averaged), which misses the flash tilings and takes the
+    composed route; 3 requests, each launching K4, K3 and K10 three times;
+    each layer's output in the first request held against an f64
+    recomputation on 1024 sampled rows and the largest hub; the peak device
+    memory; a profile of one request; K3 and K10 at the first layer's shapes
+    with its own weights and features (kernel, plain version, library call,
+    full outputs compared);
+28. K3 and K10 against their plain versions (run after 15): K3 at K in
+    {1, 4, 6, 16} on the forward and transpose CSRs of a graph with a
+    150k-edge hub in each direction, empty rows, empty row blocks and padding
+    slots; K10 at (H, F) in {(4, 256), (6, 121), (3, 20)} on both blocked
+    layouts (a block of over 10^5 slots in each);
+29. ppi-serving and ppi-training, the eighth and ninth main paths: the same
+    model at the PPI widths (50 -> 4x256 -> 4x256 -> 6x121) on a synthetic
+    graph of PPI's size (56,944 nodes, 818,716 edges; Chung-Lu degrees as in
+    the ogbn synthesis): 3 requests (3 K4, 3 K3, 3 K10 each), 1 + 5
+    Adam(5e-3) steps (3 K4, 9 K3, 6 K10 each), a profile of a step, and the
+    logits and one step's gradients against the vertex program with K3's
+    and K4's plain versions;
+30. K3 and K10 at a PPI training step's shapes: kernel, plain version and
+    library call timed, full outputs compared.
+
 Every path of the kernels line (serving, training, gat-serving,
-gat-training, dyn-step, and dtdg-training on each dataset) is driven with
-every launch count set to 0 just before it and read just after.
+gat-training, composed-serving, ppi-serving, ppi-training, dyn-step, and
+dtdg-training on each dataset) is driven with every launch count set to 0
+just before it and read just after.
 
 The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 ``--details PATH`` also writes every measurement of the run as JSON.
@@ -104,6 +131,7 @@ The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -170,6 +198,24 @@ DTDG_DATASETS = ("england-covid", "wiki-shape")
 # benchmarking/results/dynamic-temporal/README.md's wiki-talk-shaped stream:
 # dataset_builder.py --sparse -N 20000 -M 10 -A 0.05 -D 0.05 -T 12
 WIKI_SHAPE = dict(num_nodes=20_000, edge_multiplier=10, add_coeff=0.05, delete_coeff=0.05, timestamps=12)
+# The composed GAT route at the GAT paper's PPI widths (Velickovic et al.
+# 2018, section 3.3; benchmarking/gat/train.py --num_layers 3 --num_hidden
+# 256 --num_heads 4 --num_out_heads 6) on a graph of PPI's size (the paper's
+# Table 1) and on the synthetic ogbn-products graph (100 features, 47 classes)
+PPI_NODES, PPI_EDGES, PPI_FEATS, PPI_CLASSES = 56_944, 818_716, 50, 121
+PPI_HIDDEN, PPI_HEADS = 256, (4, 4, 6)
+PPI_DIMS = (PPI_FEATS, PPI_HIDDEN, PPI_CLASSES)
+OGBN_FEATS, OGBN_CLASSES = 100, 47
+K3_CHECK_K = (1, 4, 6, 16)
+COMPOSED_CHECKS = ((4, 256), (6, 121), (3, 20))  # (H, F) of K10's checks
+COMPOSED_SAMPLE_ROWS = 1024
+COMPOSED_PLAIN_EDGE_BLOCK = 1 << 18  # bounds the plain K10's (slots, H*F) temporaries (~5 GB)
+# The composed route (f32, its kernels' atomics in run-dependent order) vs
+# the vertex program with K3's and K4's plain versions (f32, f64 sums):
+# logits to 1e-4 of the largest, one step's gradients to 1e-3 of each
+# tensor's largest
+COMPOSED_LOGIT_TOL = 1e-4
+COMPOSED_GRAD_TOL = 1e-3
 # Hidden states, lazy pair (K6, f32 sums in one order) vs NaiveGraph
 # snapshots (K1, another order), over up to 53 timesteps of three gates
 HIDDEN_TOL = 1e-3
@@ -189,12 +235,12 @@ def check(cond: bool, msg: str) -> None:
 
 
 def _counters():
-    from stgraph_tpu_torch.ops import flash_gat, rowid_kernels, segment_kernels, spmm_kernels
+    from stgraph_tpu_torch.ops import flash_gat, rowid_kernels, segment_kernels, spmm_blocked, spmm_kernels
 
     return {"K1": spmm_kernels.spmm_rowmask, "K2": spmm_kernels.spmm_rowmask_bwd,
-            "K4": segment_kernels.segment_max_narrow, "K6": rowid_kernels.spmm_rowid,
-            "K7": rowid_kernels.dyn_degree, "K8": flash_gat.flash_gat_fwd,
-            "K9": flash_gat.flash_gat_bwd}
+            "K3": segment_kernels.segment_sum_narrow, "K4": segment_kernels.segment_max_narrow,
+            "K6": rowid_kernels.spmm_rowid, "K7": rowid_kernels.dyn_degree, "K8": flash_gat.flash_gat_fwd,
+            "K9": flash_gat.flash_gat_bwd, "K10": spmm_blocked.segment_sum_blocked}
 
 
 def only(**launched) -> dict:
@@ -1096,26 +1142,36 @@ def phase_gat_kernels_vs_plain(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000
             "cases": results, "max_abs_err": worst}
 
 
+def gat_shapes(dims, heads):
+    """(in, F, H) of each layer of ``benchmarking/gat/train.py``'s stack:
+    ``len(heads) - 1`` hidden layers of ``hidden`` features a head, their
+    heads concatenated, then the output layer."""
+    fin, hidden, classes = dims
+    ins = [fin] + [hidden * h for h in heads[:-1]]
+    outs = [hidden] * (len(heads) - 1) + [classes]
+    return list(zip(ins, outs, heads))
+
+
 class GAT(torch.nn.Module):
-    """``benchmarking/gat/train.py``'s model: GATConv with ELU, the heads
-    concatenated, GATConv, the mean over the output heads."""
+    """``benchmarking/gat/train.py``'s model: GATConv layers with ELU, the
+    heads concatenated, then a GATConv whose heads are averaged."""
 
     def __init__(self, graph, dims, heads, impl, device, generator=None):
         super().__init__()
         from stgraph_tpu_torch.nn import GATConv
 
-        fin, hidden, classes = dims
+        shapes = gat_shapes(dims, heads)
         self.graph = graph
-        self.layers = torch.nn.ModuleList([
-            GATConv(fin, hidden, heads[0], negative_slope=GAT_SLOPE, activation=torch.nn.functional.elu,
-                    impl=impl, device=device, generator=generator),
-            GATConv(hidden * heads[0], classes, heads[1], negative_slope=GAT_SLOPE, impl=impl, device=device,
-                    generator=generator),
-        ])
+        self.layers = torch.nn.ModuleList(
+            GATConv(a, f, h, negative_slope=GAT_SLOPE, impl=impl, device=device, generator=generator,
+                    activation=torch.nn.functional.elu if i < len(shapes) - 1 else None)
+            for i, (a, f, h) in enumerate(shapes)
+        )
 
     def forward(self, h):
-        h = self.layers[0](self.graph, h).reshape(h.shape[0], -1)
-        return self.layers[1](self.graph, h).mean(1)
+        for layer in self.layers[:-1]:
+            h = layer(self.graph, h).reshape(h.shape[0], -1)
+        return self.layers[-1](self.graph, h).mean(1)
 
 
 def numpy_gat_params(dims, heads, seed):
@@ -1123,9 +1179,8 @@ def numpy_gat_params(dims, heads, seed):
     JAX layer's initialiser, variance_scaling(2.0, fan_avg, normal), on
     ``fc.kernel`` (in, H*F) and on the (H, F) attention vectors."""
     rng = np.random.default_rng(seed)
-    fin, hidden, classes = dims
     tree = {}
-    for i, (a, f, h) in enumerate(((fin, hidden, heads[0]), (hidden * heads[0], classes, heads[1]))):
+    for i, (a, f, h) in enumerate(gat_shapes(dims, heads)):
         def normal(shape):
             return (rng.standard_normal(shape) * np.sqrt(4.0 / sum(shape))).astype(np.float32)
 
@@ -1380,8 +1435,9 @@ def phase_gat_vs_plain(dev, args, workdir):
     logits, grads = {}, {}
     for impl in ("auto", "torch"):
         model = build_gat(graph, impl, dev, args.seed)
-        out = model(x)
-        torch.nn.functional.cross_entropy(out, y).backward()
+        with plain_narrow_kernels() if impl == "torch" else contextlib.nullcontext():
+            out = model(x)
+            torch.nn.functional.cross_entropy(out, y).backward()
         logits[impl] = out.detach()
         grads[impl] = {k: p.grad for k, p in model.named_parameters()}
         del model, out
@@ -1448,6 +1504,506 @@ def phase_pubmed_gat(dev, args, workdir):
     check(acc >= PUBMED_ACC_FLOOR, f"Pubmed GAT train accuracy {acc:.4f} is below {PUBMED_ACC_FLOOR:.4f}")
     return {"synthetic": pubmed.synthetic, "epoch_s": epoch_s, "train_acc": acc, "loss": loss.item(),
             "launches": counts, "data_s": data_s}
+
+
+# -- the composed GAT route: K3 and K10 ---------------------------------------
+
+
+@contextlib.contextmanager
+def plain_narrow_kernels():
+    """Inside, K3's and K4's wrappers run their plain versions on any device,
+    so that a reference run of the vertex program (whose narrow sums and
+    maxima reach them through ``aggregate``) launches no kernel."""
+    from stgraph_tpu_torch.ops import segment_kernels as SK
+
+    saved = SK.segment_max_narrow, SK.segment_sum_narrow
+    SK.segment_max_narrow = lambda csr, vals, index=None: SK.segment_max_narrow_plain(csr, vals, index, 1 << 24)
+    SK.segment_sum_narrow = lambda csr, vals: SK.segment_sum_narrow_plain(csr, vals, 1 << 24)
+    try:
+        yield
+    finally:
+        SK.segment_max_narrow, SK.segment_sum_narrow = saved
+
+
+def k3_bound(n: int, e: int, k: int):
+    """Least time for one K3 call: indptr and the (E, K) f32 plane read once,
+    the (N, K) output written once; or one add per edge and column."""
+    nbytes = (n + 1) * 4 + e * k * 4 + n * k * 4
+    ops = e * k
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def k10_bound(n: int, e: int, cb: int, h: int, f: int):
+    """Least time for one K10 call: the dst of every slot (sentinels too, to
+    skip them), the cols and (H,) weights of the e real slots, the f32 table
+    once and the f32 output once; or 2 operations per real slot and column."""
+    hf = h * f
+    nbytes = cb * 4 + e * 4 + e * h * 4 + 2 * n * hf * 4
+    ops = 2 * e * hf
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def k3_agreement(out, csr, vals, edge_block=None):
+    """K3 against its plain version: (max_abs_err, worst err / sum|terms|,
+    max |plain|)."""
+    from stgraph_tpu_torch.ops.segment_kernels import segment_sum_narrow_plain
+
+    ref = segment_sum_narrow_plain(csr, vals, edge_block)
+    mass = segment_sum_narrow_plain(csr, vals.abs(), edge_block)
+    return _stats([out], [ref], [mass])[0]
+
+
+def k10_agreement(out, blk, w, x, h, edge_block=COMPOSED_PLAIN_EDGE_BLOCK):
+    """K10 against its plain version, as ``k3_agreement``."""
+    from stgraph_tpu_torch.ops.spmm_blocked import segment_sum_blocked_plain
+
+    ref = segment_sum_blocked_plain(blk, w, x, h, edge_block)
+    err = (out - ref).abs()
+    max_err, max_ref = err.max().item(), ref.abs().max().item()
+    del out, ref  # the caller passes the kernel's output without keeping it
+    mass = segment_sum_blocked_plain(blk, w.abs(), x.abs(), h, edge_block)
+    return max_err, _err_over_mass(err, mass), max_ref
+
+
+def phase_composed_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=150_000):
+    """K3 and K10 against their plain versions on a graph with a hub of
+    ``hub_deg`` edges in each direction (so a 128-row block of each blocked
+    layout holds more than 10^5 slots), 1000 empty rows, ten empty row
+    blocks and padding slots: K3 at K in {1, 4, 6, 16} on the forward and
+    transpose CSRs, K10 at (H, F) in {(4, 256), (6, 121), (3, 20)} on both
+    blocked layouts."""
+    from stgraph_tpu_torch.graph.blocked import build_blocked
+    from stgraph_tpu_torch.graph.csr import build_csr
+    from stgraph_tpu_torch.ops.segment_kernels import segment_sum_narrow
+    from stgraph_tpu_torch.ops.spmm_blocked import segment_sum_blocked
+
+    empty, hub = 1000, 12_345
+    src = rng.integers(0, n - empty, e)
+    dst = rng.integers(0, n - empty, e)
+    b0 = n // 2 // 128 * 128
+    dst = np.where((dst >= b0) & (dst < b0 + 10 * 128), 0, dst)  # ten empty row blocks
+    dst[:hub_deg] = hub
+    src[-hub_deg:] = hub + 1
+    csr = build_csr(src, dst, n, capacity=e + 5, device=dev)
+    csr_t = csr.transpose()
+    results, worst = [], {"K3": 0.0, "K10": 0.0}
+    for name, c in (("forward", csr), ("transpose", csr_t)):
+        for k in K3_CHECK_K:
+            vals = torch.from_numpy(rng.standard_normal((c.capacity, k)).astype(np.float32)).to(dev)
+            out = segment_sum_narrow(c, vals)
+            torch.cuda.synchronize()
+            a, r, mx = k3_agreement(out, c, vals)
+            ok = r <= KERNEL_TOL and (name == "transpose" or not out[n - empty:].any().item())
+            print(f"k3-check {name} CSR K={k}: max_abs_err {a:.3e} (err/sum|terms| {r:.2e}, max |plain| "
+                  f"{mx:.2f}) (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"K3 disagrees with its plain version on the {name} CSR at K={k}")
+            worst["K3"] = max(worst["K3"], a)
+            results.append({"kernel": "K3", "csr": name, "K": k, "max_abs_err": a, "err_over_mass": r})
+        blk = build_blocked(c)
+        slots = int(blk.counts.max().item())
+        for h, f in COMPOSED_CHECKS:
+            x = torch.from_numpy(rng.standard_normal((n, h * f)).astype(np.float32)).to(dev)
+            w = torch.from_numpy(rng.random((blk.capacity, h)).astype(np.float32)).to(dev)
+            out = segment_sum_blocked(blk, w, x, h)
+            torch.cuda.synchronize()
+            a, r, mx = k10_agreement(out, blk, w, x, h)
+            ok = r <= KERNEL_TOL and (name == "transpose" or not out[n - empty:].any().item())
+            print(f"k10-check {name} layout H={h} F={f} (largest block {slots} slots): max_abs_err {a:.3e} "
+                  f"(err/sum|terms| {r:.2e}, max |plain| {mx:.2f}) (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"K10 disagrees with its plain version on the {name} layout at H={h}, F={f}")
+            worst["K10"] = max(worst["K10"], a)
+            results.append({"kernel": "K10", "layout": name, "H": h, "F": f, "largest_block_slots": slots,
+                            "max_abs_err": a, "err_over_mass": r})
+            del x, w, out
+        del blk
+    return {"graph": {"n": n, "e": e, "empty_rows": empty, "hub_deg": hub_deg}, "cases": results,
+            "max_abs_err": worst}
+
+
+def gat_sampled_check(csr, layer, h_in, y, rows, elu, block=1 << 17):
+    """Hold one composed GAT layer's output on ``rows`` against the softmax
+    attention recomputed in f64 from the layer's input and weights: el and er
+    from folded weights, the stability max, the weights and their sums, and
+    the weighted rows gathered and projected in edge blocks. Returns
+    (max_abs_err, worst err / sum|terms| (the softmax-weighted |rows|), max
+    |ref|, edges checked)."""
+    dev = y.device
+    h, f = layer.num_heads, layer.out_feats
+    wt = layer.fc.weight.double()  # (H*F, in)
+    fold = wt.reshape(h, f, -1)
+    al = (fold * layer.attn_l.double()[:, :, None]).sum(1)  # (H, in)
+    ar = (fold * layer.attn_r.double()[:, :, None]).sum(1)
+    indptr = csr.host_arrays()[0].astype(np.int64)
+    deg = indptr[rows + 1] - indptr[rows]
+    local_np = np.repeat(np.arange(len(rows)), deg)
+    first = np.cumsum(deg) - deg
+    eidx = indptr[rows][local_np] + (np.arange(deg.sum()) - first[local_np])
+    cols = csr.cols[torch.from_numpy(eidx).to(dev)].long()
+    local = torch.from_numpy(local_np).to(dev)
+    rows_t = torch.from_numpy(rows).to(dev)
+    er = h_in[rows_t].double() @ ar.T
+    el = torch.cat([h_in[cols[b:b + block]].double() @ al.T for b in range(0, len(cols), block)])
+    s = el + er[local]
+    s = torch.where(s >= 0, s, GAT_SLOPE * s)
+    m = torch.full((len(rows), h), float("-inf"), dtype=torch.float64, device=dev)
+    m.scatter_reduce_(0, local[:, None].expand(-1, h), s, "amax")
+    w = torch.exp(s - m[local])
+    den = torch.zeros(len(rows), h, dtype=torch.float64, device=dev).index_add_(0, local, w)
+    num = torch.zeros(len(rows), h * f, dtype=torch.float64, device=dev)
+    mass = torch.zeros_like(num)
+    for b in range(0, len(cols), block):
+        fs = h_in[cols[b:b + block]].double() @ wt.T
+        wb = w[b:b + block].repeat_interleave(f, 1)
+        num.index_add_(0, local[b:b + block], fs * wb)
+        mass.index_add_(0, local[b:b + block], fs.abs() * wb)
+    scale = den.clamp(min=1e-300).repeat_interleave(f, 1)
+    ref, mass = num / scale, mass / scale
+    if elu:
+        ref = torch.nn.functional.elu(ref)
+    got = y[rows_t].reshape(len(rows), h * f).double()
+    err = (got - ref).abs()
+    ratio = (err / mass.clamp(min=1e-300)).masked_fill(err == 0, 0.0).max().item()
+    return err.max().item(), ratio, ref.abs().max().item(), int(deg.sum())
+
+
+def phase_composed_ogbn_serving(dev, args, base):
+    """The GAT at the GAT paper's PPI widths behind a ``Predictor`` on the
+    full graph: 3 requests, each launching K4, K3 and K10 three times; each
+    layer's output in the first request held against an f64 recomputation
+    on sampled destination rows and the largest hub; then K3 and K10 at the
+    first layer's shapes, with its own weights and features."""
+    from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow, segment_sum_narrow, segment_sum_narrow_plain
+    from stgraph_tpu_torch.ops.spmm_blocked import _to_blocked_w_mh, segment_sum_blocked, segment_sum_blocked_plain
+    from stgraph_tpu_torch.serve import Predictor
+
+    graph, feats = base["graph"], base["feats"]
+    csr = graph.fwd_csr
+    n = csr.num_nodes
+    e = int(csr.host_arrays()[0][-1])
+    dims = (OGBN_FEATS, PPI_HIDDEN, OGBN_CLASSES)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = build_gat(graph, "auto", dev, args.seed, dims, PPI_HEADS)
+    predictor = Predictor.build(model, dict(model.state_dict()), (feats,), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    rng = np.random.default_rng(args.seed + 7)
+    deg = graph.in_degrees()
+    rows = np.unique(np.concatenate([rng.choice(n, COMPOSED_SAMPLE_ROWS, replace=False), [int(deg.argmax())]]))
+    checks = []
+
+    def hook(layer, inp, out):
+        i = len(checks)
+        a, r, mx, edges = gat_sampled_check(csr, layer, inp[1], out, rows, elu=i < len(PPI_HEADS) - 1)
+        ok = r <= KERNEL_TOL
+        print(f"composed-serve-check layer {i} (H={layer.num_heads} F={layer.out_feats}): {len(rows)} rows incl. "
+              f"hub of degree {int(deg.max())}, {edges} edges: max_abs_err {a:.3e} (max |ref| {mx:.2f}), "
+              f"worst err/sum|terms| {r:.2e} (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+        checks.append({"layer": i, "max_abs_err": a, "err_over_mass": r, "max_abs_ref": mx, "ok": ok,
+                       "rows": len(rows), "edges": edges})
+
+    hooks = [layer.register_forward_hook(hook) for layer in model.layers]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    requests = [feats] + [
+        feats + 0.1 * torch.randn(feats.shape, device=dev, generator=gen) for _ in range(REQUESTS - 1)
+    ]
+    torch.cuda.synchronize()
+    times, per_request = [], []
+    reset_counts()
+    for r, x in enumerate(requests):
+        before = read_counts()
+        t = time.perf_counter()
+        logits = predictor(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if r == 0:
+            for hk in hooks:
+                hk.remove()
+        delta = {k: v - before[k] for k, v in read_counts().items()}
+        per_request.append(delta)
+        check(delta == only(K3=3, K4=3, K10=3),
+              f"composed GAT request {r} launched {delta}, expected K3, K4 and K10 three times each")
+        check(tuple(logits.shape) == (n, OGBN_CLASSES), f"composed GAT logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all().item()), f"composed GAT request {r}: non-finite logits")
+    counts = read_counts()
+    check(all(c["ok"] for c in checks) and len(checks) == len(PPI_HEADS),
+          "a composed GAT layer disagrees with its f64 recomputation")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"composed-serve: GAT {dims[0]} -> {PPI_HEADS[0]}x{PPI_HIDDEN} -> {PPI_HEADS[1]}x{PPI_HIDDEN} -> "
+          f"{PPI_HEADS[2]}x{OGBN_CLASSES} (mean) on N={n} E={e}: model+Predictor.build (warm call, blocked "
+          f"layouts) {build_s:.2f} s; {REQUESTS} requests, launches {counts}, per-request s "
+          f"{[round(v, 4) for v in times]}, peak device memory {peak_gb:.2f} GB")
+    del requests, logits
+    profile = phase_profile(lambda: predictor(feats), "one composed GAT request")
+    del predictor
+
+    # K3 and K10 at the first layer's shapes, with its own weights and features
+    blocked = graph.blocked_fwd
+    layer = model.layers[0]
+    h, f = layer.num_heads, layer.out_feats
+    main = {}
+    with torch.inference_mode():
+        fs = layer.fc(feats)
+        el = (fs.reshape(n, h, f) * layer.attn_l).sum(-1)
+        er = (fs.reshape(n, h, f) * layer.attn_r).sum(-1)
+        rows_c, cols_c = csr.rows_clamped.long(), csr.cols_clamped.long()
+        s0 = el[cols_c] + er[rows_c]
+        del el, er
+        s = torch.where(s0 >= 0, s0, GAT_SLOPE * s0)
+        del s0
+        m = segment_max_narrow(csr, s)
+        w = torch.where(csr.edge_mask[:, None], torch.exp(s - m[rows_c]), torch.zeros((), device=dev))
+        del s, m, rows_c, cols_c
+        a3, r3, _ = k3_agreement(segment_sum_narrow(csr, w), csr, w, 1 << 24)
+        check(r3 <= KERNEL_TOL, f"K3 at ogbn-products shape disagrees: {r3}")
+        k3_ms = cuda_ms(lambda: segment_sum_narrow(csr, w), iters=10, warmup=2)
+        k3_plain = cuda_ms(lambda: segment_sum_narrow_plain(csr, w, 1 << 24), iters=1, warmup=1)
+        k3_lib = _library_segment_sum_ms(csr, w, e)
+        b3 = k3_bound(n, e, h)
+        print(f"k3-ogbn K={h}: {k3_ms:.3f} ms (plain {k3_plain:.1f} ms, segment_reduce {k3_lib} ms, bound "
+              f"{b3[0]:.3f} ms by {b3[1]}); full-graph max_abs_err {a3:.3e} (err/sum|terms| {r3:.2e})")
+        main["K3"] = {"K": h, "E": e, "N": n, "ms": k3_ms, "plain_ms": k3_plain, "library_ms": k3_lib,
+                      "bound_ms": b3[0], "bound_by": b3[1], "bytes": b3[2], "ops": b3[3], "max_abs_err": a3,
+                      "err_over_mass": r3}
+        k10_lib = _library_multihead_ms(csr, w, fs, h, e)
+        wb = _to_blocked_w_mh(blocked, csr, w)
+        del w
+        a10, r10, _ = k10_agreement(segment_sum_blocked(blocked, wb, fs, h), blocked, wb, fs, h)
+        check(r10 <= KERNEL_TOL, f"K10 at ogbn-products shape disagrees: {r10}")
+        k10_ms = cuda_ms(lambda: segment_sum_blocked(blocked, wb, fs, h), iters=5, warmup=1)
+        k10_plain = cuda_ms(lambda: segment_sum_blocked_plain(blocked, wb, fs, h, COMPOSED_PLAIN_EDGE_BLOCK),
+                            iters=1, warmup=0)
+        del wb
+        b10 = k10_bound(n, e, blocked.capacity, h, f)
+        print(f"k10-ogbn H={h} F={f}: {k10_ms:.3f} ms (plain {k10_plain:.1f} ms, {h} x sparse.mm {k10_lib} ms, "
+              f"bound {b10[0]:.3f} ms by {b10[1]}); full-graph max_abs_err {a10:.3e} (err/sum|terms| {r10:.2e}); "
+              f"gathered rows {e * h * f * 4 / 1e9:.1f} GB, {e * h * f * 4 / (k10_ms * 1e-3) / 1e12:.2f} TB/s")
+        main["K10"] = {"H": h, "F": f, "E": e, "N": n, "CB": blocked.capacity, "ms": k10_ms, "plain_ms": k10_plain,
+                       "library_ms": k10_lib, "bound_ms": b10[0], "bound_by": b10[1], "bytes": b10[2],
+                       "ops": b10[3], "max_abs_err": a10, "err_over_mass": r10}
+        del fs
+    del model
+    torch.cuda.empty_cache()
+    return {"counts": counts, "main": main, "max_abs_err": {"K3": a3, "K10": a10},
+            "record": {"build_s": build_s, "request_s": times, "launches": counts,
+                       "launches_per_request": per_request, "sampled_checks": checks,
+                       "peak_device_memory_gb": peak_gb, "max_in_degree": int(deg.max()), "main": main,
+                       "profile": profile}}
+
+
+def _library_segment_sum_ms(csr, vals, e):
+    """``torch.segment_reduce(sum)`` over the CSR-order (E, K) plane: a timed
+    yardstick only."""
+    try:
+        plane = vals[:e]
+        offsets = csr.indptr.long()
+        return cuda_ms(lambda: torch.segment_reduce(plane, "sum", offsets=offsets, unsafe=True), iters=5)
+    except (RuntimeError, TypeError) as exc:
+        print(f"library yardstick segment_reduce unavailable: {exc}")
+        return None
+
+
+def _library_multihead_ms(csr, w, x, h, e):
+    """H calls of ``torch.sparse.mm``, one a head, with that head's weights on
+    the CSR's pattern and that head's columns of ``x``: a timed yardstick
+    only (the column copies are not timed)."""
+    try:
+        n = csr.num_nodes
+        f = x.shape[1] // h
+        total = 0.0
+        for k in range(h):
+            a = torch.sparse_csr_tensor(csr.indptr, csr.cols[:e], w[:e, k].contiguous(), size=(n, n),
+                                        check_invariants=False)
+            xk = x[:, k * f:(k + 1) * f].contiguous()
+            total += cuda_ms(lambda: torch.sparse.mm(a, xk), iters=3)
+            del a, xk
+        return total
+    except (RuntimeError, TypeError) as exc:
+        print(f"library yardstick sparse.mm unavailable: {exc}")
+        return None
+
+
+def ppi_graph(dev, seed):
+    """A graph of the GAT paper's PPI size (Table 1: 56,944 nodes, 818,716
+    edges, 50 features, 121 labels), synthesised as the ogbn-products
+    stand-in is (Chung-Lu degrees, communities, labels following them)."""
+    from stgraph_tpu_torch.dataset import OgbNodeDataLoader
+    from stgraph_tpu_torch.graph import StaticGraph
+
+    edge_index, feat, labels = OgbNodeDataLoader._synthesize(PPI_NODES, PPI_EDGES, PPI_FEATS, PPI_CLASSES, 1.0, seed)
+    graph = StaticGraph(edge_index.T, None, PPI_NODES, device=dev)
+    return graph, torch.from_numpy(feat).to(dev), torch.from_numpy(labels).to(dev)
+
+
+def phase_ppi_gat(dev, args):
+    """The GAT paper's PPI model (``benchmarking/gat/train.py --num_layers 3
+    --num_hidden 256 --num_heads 4 --num_out_heads 6``) on a PPI-sized graph:
+    3 requests behind a ``Predictor`` (3 K4, 3 K3 and 3 K10 each), then
+    1 + 5 Adam(5e-3) steps (3 K4, 9 K3 and 6 K10 each), then the logits and
+    one step's gradients against the vertex program with K3's and K4's
+    plain versions."""
+    from stgraph_tpu_torch.serve import Predictor
+
+    t = time.perf_counter()
+    graph, x, y = ppi_graph(dev, args.seed)
+    n, e = graph.get_num_nodes(), graph.get_num_edges()
+    _ = graph.blocked_fwd, graph.blocked_bwd
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    model = build_gat(graph, "auto", dev, args.seed, PPI_DIMS, PPI_HEADS)
+    predictor = Predictor.build(model, dict(model.state_dict()), (x,), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    requests = [x] + [x + 0.1 * torch.randn(x.shape, device=dev, generator=gen) for _ in range(REQUESTS - 1)]
+    torch.cuda.synchronize()
+    times, per_request = [], []
+    reset_counts()
+    for r, xr in enumerate(requests):
+        before = read_counts()
+        t = time.perf_counter()
+        logits = predictor(xr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        delta = {k: v - before[k] for k, v in read_counts().items()}
+        per_request.append(delta)
+        check(delta == only(K3=3, K4=3, K10=3), f"PPI request {r} launched {delta}, expected K3, K4, K10 x3")
+        check(tuple(logits.shape) == (n, PPI_CLASSES), f"PPI logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all().item()), f"PPI request {r}: non-finite logits")
+    serve_counts = read_counts()
+    print(f"ppi-serve: synthetic PPI N={n} E={e} (graph, CSRs and blocked layouts {setup_s:.2f} s); GAT "
+          f"{PPI_DIMS[0]} -> {PPI_HEADS[0]}x{PPI_HIDDEN} -> {PPI_HEADS[1]}x{PPI_HIDDEN} -> {PPI_HEADS[2]}x"
+          f"{PPI_CLASSES} (mean): {REQUESTS} requests, launches {serve_counts}, per-request s "
+          f"{[round(v, 5) for v in times]}")
+    served_logits = predictor(x)
+    del predictor, requests
+
+    tmodel = build_gat(graph, "auto", dev, args.seed, PPI_DIMS, PPI_HEADS).train()
+    opt = torch.optim.Adam(tmodel.parameters(), lr=5e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(tmodel(x), y)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return loss.item()
+
+    t = time.perf_counter()
+    warm_loss = step()
+    warm_s = time.perf_counter() - t
+    losses, step_s, per_step = [], [], []
+    reset_counts()
+    for _ in range(TRAIN_STEPS):
+        before = read_counts()
+        t = time.perf_counter()
+        losses.append(step())
+        step_s.append(time.perf_counter() - t)
+        per_step.append({k: v - before[k] for k, v in read_counts().items()})
+    train_counts = read_counts()
+    print(f"ppi-train: warm step {warm_s:.3f} s (loss {warm_loss:.4f}); {TRAIN_STEPS} Adam steps, s per step "
+          f"{[round(v, 4) for v in step_s]}, losses {[round(v, 4) for v in losses]}, launches {train_counts}")
+    check(all(c == only(K3=9, K4=3, K10=6) for c in per_step),
+          f"a PPI training step launched {per_step}, expected K3 x9, K4 x3, K10 x6")
+    check(all(np.isfinite(losses)) and np.isfinite(warm_loss), "non-finite PPI training loss")
+    check(losses[-1] < losses[0], f"the PPI loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    profile = phase_profile(step, "one PPI GAT training step")
+    del tmodel, opt
+
+    # the same model's logits and one step's gradients on the vertex program
+    grads = {}
+    for impl in ("auto", "torch"):
+        m = build_gat(graph, impl, dev, args.seed, PPI_DIMS, PPI_HEADS)
+        with plain_narrow_kernels() if impl == "torch" else contextlib.nullcontext():
+            out = m(x)
+            torch.nn.functional.cross_entropy(out, y).backward()
+        if impl == "torch":
+            plain_logits = out.detach()
+        grads[impl] = {k: p.grad for k, p in m.named_parameters()}
+        del m, out
+    scale = plain_logits.abs().max().item()
+    err = (served_logits - plain_logits).abs().max().item()
+    ok = err <= COMPOSED_LOGIT_TOL * scale
+    print(f"ppi-model-check: served logits vs the vertex program (K3/K4 plain) max_abs_err {err:.3e} "
+          f"(max |plain| {scale:.3f}, tol {COMPOSED_LOGIT_TOL:g} x that) {'ok' if ok else 'FAIL'}")
+    check(ok, "the PPI GAT's served logits disagree with the plain path")
+    rows, worst = [], 0.0
+    for k, ref in grads["torch"].items():
+        gerr = (grads["auto"][k] - ref).abs().max().item()
+        ratio = gerr / max(ref.abs().max().item(), 1e-30)
+        worst = max(worst, ratio)
+        rows.append({"tensor": k, "max_abs_err": gerr, "err_over_max": ratio})
+    print(f"ppi-grad-check: {len(rows)} parameter gradients, composed route vs the vertex program, worst "
+          f"max_abs_err / max |plain| {worst:.2e} (tol {COMPOSED_GRAD_TOL:g}) "
+          f"{'ok' if worst <= COMPOSED_GRAD_TOL else 'FAIL'}")
+    check(worst <= COMPOSED_GRAD_TOL, f"a PPI GAT gradient disagrees with the plain path: {rows}")
+    return {"graph": graph, "x": x,
+            "serve_counts": serve_counts, "train_counts": train_counts,
+            "record": {"n": n, "e": e, "setup_s": setup_s, "request_s": times, "launches_per_request": per_request,
+                       "serve_launches": serve_counts, "warm_s": warm_s, "warm_loss": warm_loss, "step_s": step_s,
+                       "losses": losses, "launches_per_step": per_step, "train_launches": train_counts,
+                       "profile": profile, "logit_err": err, "max_abs_plain_logit": scale, "grads": rows,
+                       "worst_grad_err_over_max": worst}}
+
+
+def phase_composed_at_main_shapes(dev, ppi):
+    """K3 and K10 at a PPI training step's shapes: K3 at K = 4 and 6 on the
+    forward and transpose CSRs, K10 at 4 x 256 and 6 x 121 on both blocked
+    layouts; random positive weights, random features. Each kernel, its
+    plain version and a library call timed, full outputs compared. Returns
+    per-launch records in the order of one training step's launches."""
+    from stgraph_tpu_torch.ops.segment_kernels import segment_sum_narrow, segment_sum_narrow_plain
+    from stgraph_tpu_torch.ops.spmm_blocked import positions_in, segment_sum_blocked, segment_sum_blocked_plain
+
+    graph = ppi["graph"]
+    csr, csr_t = graph.fwd_csr, graph.bwd_csr
+    n = csr.num_nodes
+    e = int(csr.host_arrays()[0][-1])
+    gen = torch.Generator(device=dev).manual_seed(13)
+    k3, k10, worst = {}, {}, {"K3": 0.0, "K10": 0.0}
+    with torch.inference_mode():
+        for name, c in (("forward", csr), ("transpose", csr_t)):
+            for k in sorted({PPI_HEADS[0], PPI_HEADS[-1]}):
+                vals = torch.rand(c.capacity, k, device=dev, generator=gen)
+                a, r, _ = k3_agreement(segment_sum_narrow(c, vals), c, vals)
+                check(r <= KERNEL_TOL, f"K3 at the PPI shape ({name}, K={k}) disagrees: {r}")
+                ms = cuda_ms(lambda: segment_sum_narrow(c, vals), iters=20, warmup=2)
+                plain_ms = cuda_ms(lambda: segment_sum_narrow_plain(c, vals), iters=3, warmup=1)
+                lib = _library_segment_sum_ms(c, vals, e)
+                b = k3_bound(n, e, k)
+                print(f"k3-main {name} CSR K={k}: {ms:.4f} ms (plain {plain_ms:.2f} ms, segment_reduce {lib} ms, "
+                      f"bound {b[0]:.4f} ms by {b[1]}); max_abs_err {a:.3e} (err/sum|terms| {r:.2e})")
+                worst["K3"] = max(worst["K3"], a)
+                k3[(name, k)] = {"csr": name, "H": k, "F": 1, "E": e, "N": n, "ms": ms, "plain_ms": plain_ms,
+                                 "library_ms": lib, "bound_ms": b[0], "bound_by": b[1], "bytes": b[2], "ops": b[3],
+                                 "max_abs_err": a, "err_over_mass": r}
+        for name, c in (("forward", csr), ("transpose", csr_t)):
+            blk = graph.blocked_fwd if name == "forward" else graph.blocked_bwd
+            for h, f in ((PPI_HEADS[0], PPI_HIDDEN), (PPI_HEADS[-1], PPI_CLASSES)):
+                x = torch.randn(n, h * f, device=dev, generator=gen)
+                w = torch.rand(c.capacity, h, device=dev, generator=gen)
+                # the weights in the layout's slot order, as the route routes them (by user edge id)
+                wb = w.index_select(0, positions_in(c, blk.eids))
+                a, r, _ = k10_agreement(segment_sum_blocked(blk, wb, x, h), blk, wb, x, h)
+                check(r <= KERNEL_TOL, f"K10 at the PPI shape ({name}, H={h}, F={f}) disagrees: {r}")
+                ms = cuda_ms(lambda: segment_sum_blocked(blk, wb, x, h), iters=20, warmup=2)
+                plain_ms = cuda_ms(lambda: segment_sum_blocked_plain(blk, wb, x, h, COMPOSED_PLAIN_EDGE_BLOCK),
+                                   iters=2, warmup=1)
+                lib = _library_multihead_ms(c, w, x, h, e)
+                b = k10_bound(n, e, blk.capacity, h, f)
+                print(f"k10-main {name} layout H={h} F={f}: {ms:.4f} ms (plain {plain_ms:.2f} ms, {h} x sparse.mm "
+                      f"{lib} ms, bound {b[0]:.4f} ms by {b[1]}); max_abs_err {a:.3e} (err/sum|terms| {r:.2e})")
+                worst["K10"] = max(worst["K10"], a)
+                k10[(name, h)] = {"layout": name, "H": h, "F": f, "E": e, "N": n, "CB": blk.capacity, "ms": ms,
+                                  "plain_ms": plain_ms, "library_ms": lib, "bound_ms": b[0], "bound_by": b[1],
+                                  "bytes": b[2], "ops": b[3], "max_abs_err": a, "err_over_mass": r}
+                del x, w, wb
+    h0, h2 = PPI_HEADS[0], PPI_HEADS[-1]
+    # one training step: the denominators (forward CSR), d er (forward CSR), d el (transpose CSR);
+    # K10 forward on the forward layout, d feat on the transpose layout
+    k3_step = [k3[("forward", hh)] for hh in (h0, h0, h2)] * 2 + [k3[("transpose", hh)] for hh in (h0, h0, h2)]
+    k10_step = [k10[(name, hh)] for name in ("forward", "transpose") for hh in (h0, h0, h2)]
+    return {"K3": k3_step, "K10": k10_step}, worst
 
 
 # -- dynamic graphs: the lazy store pair, K6 and K7 --------------------------
@@ -1970,8 +2526,8 @@ def phase_dtdg_training(dev, args, workdir, name):
 def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, library=None):
     """One kernel's entry of the kernels line: launches summed over the main
     paths' runs, times summed over the launches of one request (K1, K4) or
-    one training step (K2, K8 with its aux outputs, K9) at the main path's
-    shapes."""
+    one training step (K2, K8 with its aux outputs, K9; K3 and K10: a step of
+    the PPI GAT) at the main path's shapes."""
     return {
         "name": name,
         "route": "cuda",
@@ -2051,7 +2607,11 @@ def main() -> int:
             record["gat_training"] = gat_trained["record"]
             record["gat_training_profile"] = phase_profile(gat_trained["step"], "one GAT training step")
             gat_train_counts = gat_trained["counts"]
-            del base, gat_trained
+            del gat_trained
+            torch.cuda.empty_cache()
+            composed = phase_composed_ogbn_serving(dev, args, base)
+            record["composed_serving"] = composed["record"]
+            del base
             torch.cuda.empty_cache()
             record["model_check"] = phase_model_vs_plain(dev, args, workdir)
             record["grad_check"] = phase_grads_vs_plain(dev, args, workdir)
@@ -2059,6 +2619,14 @@ def main() -> int:
             record["cora"] = phase_cora(dev, args, workdir)
             record["pubmed_gat"] = phase_pubmed_gat(dev, args, workdir)
         record["tgcn"] = phase_tgcn(dev, rng)
+        # The composed GAT route at PPI size, the ogbn graph released
+        record["composed_checks"] = phase_composed_kernels_vs_plain(dev, np.random.default_rng(args.seed + 5))
+        ppi = phase_ppi_gat(dev, args)
+        record["ppi"] = ppi["record"]
+        composed_launch, composed_err = phase_composed_at_main_shapes(dev, ppi)
+        record["composed_main"] = composed_launch
+        del ppi
+        torch.cuda.empty_cache()
         # The dynamic-graph phases, the ogbn graph and models released
         record["rowid_checks"] = phase_rowid_kernels_vs_plain(dev, rng)
         dyn = phase_dyn_step(dev, args.seed)
@@ -2076,7 +2644,8 @@ def main() -> int:
 
     by_path = {"serving": gcn_counts, "training": record["training"]["launches"],
                "gat-serving": record["gat_serving"]["launches"], "gat-training": gat_train_counts,
-               "dyn-step": record["dyn_step"]["launches"]}
+               "composed-serving": composed["counts"], "ppi-serving": record["ppi"]["serve_launches"],
+               "ppi-training": record["ppi"]["train_launches"], "dyn-step": record["dyn_step"]["launches"]}
     by_path.update({f"dtdg-training:{name}": r["launches"] for name, r in record["dtdg_training"].items()})
     kernels = [
         kernel_entry("spmm_rowmask (K1)", "stgraph_tpu_torch/csrc/spmm_rowmask.cu",
@@ -2087,6 +2656,11 @@ def main() -> int:
                      max(record["k2_checks"]["max_abs_err"], k2_err),
                      # a training step's three launches: F = 128, 128, 47
                      [p for f in (128, 128, 47) for p in k2_launch if p["F"] == f]),
+        kernel_entry("segment_sum_narrow (K3)", "stgraph_tpu_torch/csrc/segment_sum_narrow.cu",
+                     "stgraph_tpu/ops/segment_pallas.py:155", "K3", by_path,
+                     max(record["composed_checks"]["max_abs_err"]["K3"], composed_err["K3"],
+                         composed["max_abs_err"]["K3"]), composed_launch["K3"],
+                     "torch.segment_reduce(sum) over the CSR-order (E, H) plane"),
         kernel_entry("segment_max_narrow (K4)", "stgraph_tpu_torch/csrc/segment_max_narrow.cu",
                      "stgraph_tpu/ops/segment_pallas.py:235", "K4", by_path,
                      max(record["gat_checks"]["max_abs_err"]["K4"], gat_err["K4"]), gat_launch["K4"],
@@ -2108,6 +2682,11 @@ def main() -> int:
         kernel_entry("flash_gat_bwd (K9)", "stgraph_tpu_torch/csrc/flash_gat_bwd.cu",
                      "stgraph_tpu/ops/flash_gat.py:365", "K9", by_path,
                      max(record["gat_checks"]["max_abs_err"]["K9"], gat_err["K9"]), gat_launch["K9"]),
+        kernel_entry("segment_sum_blocked (K10)", "stgraph_tpu_torch/csrc/segment_sum_blocked.cu",
+                     "stgraph_tpu/ops/spmm_pallas.py:61", "K10", by_path,
+                     max(record["composed_checks"]["max_abs_err"]["K10"], composed_err["K10"],
+                         composed["max_abs_err"]["K10"]), composed_launch["K10"],
+                     "torch.sparse.mm, one call a head"),
     ]
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_start

@@ -4,10 +4,9 @@ Counterpart of ``stgraph_tpu/graph/static_graph.py`` (constructor
 ``StaticGraph(edge_list, edge_weights, num_nodes)``, accessors
 ``get_num_nodes/get_num_edges/get_ndata/set_ndata/in_degrees/out_degrees``).
 The forward CSR (dst-major in-neighbors) and the backward CSR (its
-transpose) are built on the host and placed on ``device``.
-
-The JAX package's ``blocked_fwd``/``blocked_bwd`` layouts feed only the
-blocked-CSR TPU kernel (K10) and have no counterpart here.
+transpose) are built on the host and placed on ``device``; their blocked
+layouts (``blocked_fwd``, ``blocked_bwd``), which the blocked SpMM kernel K10
+reads, are built on first use, once.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from stgraph_tpu_torch.graph.blocked import BlockedCSR, blocked_layout
 from stgraph_tpu_torch.graph.csr import CSR, build_csr
 from stgraph_tpu_torch.graph.stgraph_base import STGraphBase
 from stgraph_tpu_torch.utils.device import resolve_device
@@ -77,6 +77,16 @@ class StaticGraph(STGraphBase):
     @property
     def bwd_csr(self) -> CSR:
         return self._backward_graph
+
+    @property
+    def blocked_fwd(self) -> BlockedCSR:
+        """The forward CSR's blocked layout (built once, on the graph's device)."""
+        return blocked_layout(self._forward_graph)
+
+    @property
+    def blocked_bwd(self) -> BlockedCSR:
+        """The backward CSR's blocked layout (built once, on the graph's device)."""
+        return blocked_layout(self._backward_graph)
 
     def get_num_nodes(self) -> int:
         return self._num_nodes

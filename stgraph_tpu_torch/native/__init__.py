@@ -1,10 +1,11 @@
-"""ctypes binding for the port's native host-side CSR builder.
+"""ctypes binding for the port's native host-side graph builder.
 
-Counterpart of ``stgraph_tpu/native/__init__.py`` (``build_csr`` only): the
-library is built with ``g++`` at first use into ``build/native/`` and
-loaded with ctypes. Without a compiler ``build_csr_arrays`` returns None and
-``graph.csr.build_csr`` takes the numpy ``lexsort`` path, which gives the
-same arrays.
+Counterpart of ``stgraph_tpu/native/__init__.py`` (``build_csr`` and
+``build_blocked``): the library is built with ``g++`` at first use into
+``build/native/`` and loaded with ctypes. Without a compiler
+``build_csr_arrays`` and ``build_blocked_arrays`` return None, and
+``graph.csr.build_csr`` and ``graph.blocked.build_blocked`` take their numpy
+paths, which give the same arrays.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 
 from stgraph_tpu_torch.utils.build import library_path
 
-__all__ = ["available", "build_csr_arrays"]
+__all__ = ["available", "build_blocked_arrays", "build_csr_arrays"]
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "graph_builder.cpp")
 _lib: Optional[ctypes.CDLL] = None
@@ -62,11 +63,22 @@ def _load() -> Optional[ctypes.CDLL]:
     except OSError:
         return None
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     lib.build_csr.argtypes = [
         i32p, i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
         i32p, i32p, i32p, i32p,
     ]
     lib.build_csr.restype = ctypes.c_int
+    lib.blocked_sizes.argtypes = [
+        i32p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i64p, i64p,
+    ]
+    lib.blocked_sizes.restype = ctypes.c_int64
+    lib.build_blocked.argtypes = [
+        i32p, i32p, i32p, i32p, ctypes.c_int32, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, i64p, ctypes.c_int64,
+        i32p, i32p, i32p, i32p,
+    ]
+    lib.build_blocked.restype = ctypes.c_int
     _lib = lib
     return _lib
 
@@ -93,3 +105,38 @@ def build_csr_arrays(
     if rc != 0:
         return None
     return indptr, rows, cols, eids
+
+
+def build_blocked_arrays(
+    indptr: np.ndarray,
+    rows: np.ndarray,
+    cols: np.ndarray,
+    eids: np.ndarray,
+    num_nodes: int,
+    capacity: int,
+    row_block: int,
+    edge_chunk: int,
+):
+    """(offsets, counts, bdst, bcols, bperm, beids) via the native builder,
+    or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    n_pad = max(((num_nodes + row_block - 1) // row_block) * row_block, row_block)
+    nb = n_pad // row_block
+    offsets = np.empty(nb, np.int64)
+    counts = np.empty(nb, np.int64)
+    indptr = np.ascontiguousarray(indptr, np.int32)
+    total = lib.blocked_sizes(indptr, num_nodes, row_block, edge_chunk, offsets, counts)
+    bdst, bcols, bperm, beids = (np.empty(total, np.int32) for _ in range(4))
+    rc = lib.build_blocked(
+        indptr,
+        np.ascontiguousarray(rows, np.int32),
+        np.ascontiguousarray(cols, np.int32),
+        np.ascontiguousarray(eids, np.int32),
+        num_nodes, capacity, row_block, edge_chunk, offsets, total,
+        bdst, bcols, bperm, beids,
+    )
+    if rc != 0:
+        return None
+    return offsets, counts, bdst, bcols, bperm, beids

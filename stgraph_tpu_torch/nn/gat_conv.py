@@ -9,8 +9,9 @@ bias), and the attention takes one of the JAX layer's routes
     whole softmax through the dense adjacency (``ops.attention``);
   * ``sparse`` ('auto' or 'sparse' above that): flash-GAT's kernels, K4
     and K8 forward and K9 backward, for the tilings they take
-    (``flash_supported``), else the composed torch route (CPU only until
-    its kernels are ported);
+    (``flash_supported``), else the composed route over the graph's blocked
+    layouts (K4, K3 and K10 forward; K10 and K3 backward), whose other
+    tilings wait for K5 and K1/K2's multi-head modes on CUDA;
   * ``torch`` (or any other compiler ``impl``): the vertex program
     ``softmax_dst(leaky(el_src + er_dst))`` through the port's compiler.
 
@@ -120,7 +121,14 @@ class GATConv(nn.Module):
         elif use_attn_drop:
             rst = A.composed_gat_attention_dropout(csr, el, er, feat_src, slope, self.attn_drop, generator)
         elif self.impl in ("auto", "sparse"):
-            rst = A.sparse_gat_attention(csr, el, er, feat_src, negative_slope=slope)
+            # the composed route reads the graph's blocked layouts, built on first use
+            flash = A.flash_path_available(csr, self.num_heads, self.out_feats)
+            rst = A.sparse_gat_attention(
+                csr, el, er, feat_src, negative_slope=slope,
+                blocked=None if flash else getattr(graph, "blocked_fwd", None),
+                blocked_t=None if flash else getattr(graph, "blocked_bwd", None),
+                csr_t=getattr(graph, "bwd_csr", None),
+            )
         else:
             rst = self._vertex_program(graph, el, er, feat_src)
         if self.activation is not None:

@@ -1,7 +1,8 @@
 """Sparse message-passing ops: segment reductions, SpMM, SDDMM.
 
 Counterpart of ``stgraph_tpu/ops/``: plain torch paths (the port's oracle),
-the dense-adjacency path, GAT's attention (``attention``, ``flash_gat``),
+the dense-adjacency path, GAT's attention (``attention``, ``flash_gat``,
+and the blocked multi-head SpMM ``spmm_blocked``),
 the lazy dynamic store's SpMM and norm (``dyn_spmm``), and the hand-written
 CUDA kernels behind one functional API. Kernels are
 built and loaded only when a CUDA tensor first reaches them, never at
@@ -9,6 +10,7 @@ import.
 """
 
 from stgraph_tpu_torch.ops.attention import (
+    ComposedGat,
     dense_gat_attention,
     flash_path_available,
     sparse_gat_attention,
@@ -53,8 +55,17 @@ from stgraph_tpu_torch.ops.segment import (
 )
 from stgraph_tpu_torch.ops.segment_kernels import (
     SegmentMaxNarrow,
+    SegmentSumNarrow,
     segment_max_narrow,
     segment_max_narrow_plain,
+    segment_sum_narrow,
+    segment_sum_narrow_plain,
+)
+from stgraph_tpu_torch.ops.spmm_blocked import (
+    SpmmMultihead,
+    segment_sum_blocked,
+    segment_sum_blocked_plain,
+    spmm_multihead,
 )
 from stgraph_tpu_torch.ops.spmm_kernels import (
     spmm_rowmask,
@@ -64,8 +75,11 @@ from stgraph_tpu_torch.ops.spmm_kernels import (
 )
 
 __all__ = [
+    "ComposedGat",
     "LazyPair",
     "SegmentMaxNarrow",
+    "SegmentSumNarrow",
+    "SpmmMultihead",
     "aggregate",
     "apply_delta_lazy_pair",
     "broadcast_to_edges",
@@ -94,8 +108,13 @@ __all__ = [
     "segment_min",
     "segment_softmax",
     "segment_sum",
+    "segment_sum_blocked",
+    "segment_sum_blocked_plain",
+    "segment_sum_narrow",
+    "segment_sum_narrow_plain",
     "sparse_gat_attention",
     "spmm",
+    "spmm_multihead",
     "spmm_rowid",
     "spmm_rowid_plain",
     "spmm_rowmask",

@@ -26,11 +26,13 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES: Dict[str, str] = {
     "spmm_rowmask": "spmm_rowmask.cu",  # K1
     "spmm_sddmm_rowmask": "spmm_sddmm_rowmask.cu",  # K2
+    "segment_sum_narrow": "segment_sum_narrow.cu",  # K3
     "segment_max_narrow": "segment_max_narrow.cu",  # K4
     "spmm_rowid": "spmm_rowid.cu",  # K6
     "rowid_denom": "rowid_denom.cu",  # K7
     "flash_gat_fwd": "flash_gat_fwd.cu",  # K8
     "flash_gat_bwd": "flash_gat_bwd.cu",  # K9
+    "segment_sum_blocked": "segment_sum_blocked.cu",  # K10
 }
 
 NVCC_FLAGS: List[str] = [

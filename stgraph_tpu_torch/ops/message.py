@@ -12,8 +12,16 @@ compiler's lowering. Three execution paths share one semantics:
 
 ``impl='auto'`` picks dense when the adjacency fits a 64 MB budget; else
 the kernel for a sum on CUDA tensors, and torch on CPU tensors. Max, min
-and mean SpMM have a kernel in neither package and run the torch ops;
-``aggregate`` sends a narrow max on CUDA to K4.
+and mean SpMM have a kernel in neither package and run the torch ops.
+
+On CUDA tensors of a graph with at least ``_KERNEL_MIN_EDGES`` edge slots,
+as on the JAX package's TPU: ``aggregate`` sends a narrow (K <= 16) sum or
+mean to K3 and a narrow max to K4; ``spmm`` sends a multi-head weighted sum
+((N, H, F) features, (capacity, H) weights) whose tiling the row-wise
+kernel's multi-head mode would not take to the blocked kernel K10
+(``ops.spmm_blocked``). Still waiting: wide sums for K1's no-gather mode
+(``segment_sum_wide``), wide maxima for K5, and the other multi-head
+tilings for K1's and K2's multi-head modes (those raise).
 """
 
 from __future__ import annotations
@@ -40,8 +48,8 @@ __all__ = [
 # package's value: 64 MB of f32 covers N = 4096).
 _DENSE_BUDGET_BYTES = 64 * 1024 * 1024
 
-# Minimum edge capacity for the narrow-max kernel route (the JAX package's
-# ``_PALLAS_MIN_EDGES``).
+# Minimum edge capacity for the kernel routes of ``aggregate`` and the
+# multi-head ``spmm`` (the JAX package's ``_PALLAS_MIN_EDGES``).
 _KERNEL_MIN_EDGES = 50_000
 
 
@@ -70,21 +78,30 @@ def aggregate(
 ) -> torch.Tensor:
     """Segment-reduce per-edge values into per-destination rows.
 
-    A max over a CUDA tensor whose trailing width is at most
-    ``MAX_NARROW_K`` (16), on a graph of at least ``_KERNEL_MIN_EDGES``
-    edge slots, goes to the narrow segment-max kernel K4
-    (``ops.segment_kernels``), as the JAX package sends it to its Pallas
-    kernel on the TPU (``stgraph_tpu/ops/message.py:94-105``; the port's
+    On a CUDA tensor whose trailing width is at most ``MAX_NARROW_K`` (16),
+    on a graph of at least ``_KERNEL_MIN_EDGES`` edge slots, a sum goes to
+    the narrow segment-sum kernel K3, a mean to K3 divided by
+    ``max(in-degree, 1)``, and a max to the narrow segment-max kernel K4
+    (``ops.segment_kernels``), as the JAX package sends them to its Pallas
+    kernels on the TPU (``stgraph_tpu/ops/message.py:94-112``; the port's
     CSR is always concrete). Every other reduction runs the torch segment
-    ops: the sum and wide-max kernels (K3, K5) are not ported yet.
+    ops: wide sums wait for K1's no-gather mode (``segment_sum_wide``), wide
+    maxima for K5, and ``min`` has a kernel in neither package.
     """
-    if reduce == "max" and edge_vals.device.type != "cpu" and csr.capacity >= _KERNEL_MIN_EDGES:
-        from stgraph_tpu_torch.ops.segment_kernels import MAX_NARROW_K, SegmentMaxNarrow
+    on_card = edge_vals.device.type != "cpu"
+    if reduce in ("sum", "mean", "max") and on_card and csr.capacity >= _KERNEL_MIN_EDGES:
+        from stgraph_tpu_torch.ops.segment_kernels import MAX_NARROW_K, SegmentMaxNarrow, SegmentSumNarrow
 
         trailing = tuple(edge_vals.shape[1:])
         k = int(np.prod(trailing)) if trailing else 1
         if k <= MAX_NARROW_K:
-            out = SegmentMaxNarrow.apply(edge_vals.reshape(csr.capacity, k).float(), csr)
+            vals = edge_vals.reshape(csr.capacity, k).float()
+            if reduce == "max":
+                out = SegmentMaxNarrow.apply(vals, csr)
+            else:
+                out = SegmentSumNarrow.apply(vals, csr)
+                if reduce == "mean":
+                    out = out / csr.degrees().clamp(min=1).to(out.dtype)[:, None]
             return out.reshape((csr.num_nodes,) + trailing).to(edge_vals.dtype)
     mask = csr.edge_mask if masked else None
     fn = {
@@ -129,8 +146,14 @@ def spmm(
     """``out[dst] = reduce_{(src,dst) in E} edge_weight * node_feat[src]``.
 
     ``edge_weight`` is in CSR edge order, shape (capacity,) or
-    (capacity, 1) (or (capacity, H) against (N, H, F) features).
+    (capacity, 1) (or (capacity, H) against (N, H, F) features). Per-head
+    weights on a CUDA tensor go to the kernel route when ``impl`` asks for
+    it, or when 'auto' or 'dense' meets a graph of at least
+    ``_KERNEL_MIN_EDGES`` edge slots (the blocked kernel K10 over the CSR's
+    blocked layouts, built once per CSR), as the JAX package sends them to
+    its blocked Pallas kernel.
     """
+    requested = impl
     impl = _resolve_impl(csr, node_feat, impl, reduce)
     if edge_weight is not None and not torch.is_tensor(edge_weight):
         edge_weight = torch.as_tensor(edge_weight, device=node_feat.device)
@@ -139,11 +162,12 @@ def spmm(
         node_feat = node_feat * edge_weight
         edge_weight = None
     # The dense path folds one scalar weight per edge into the adjacency;
-    # per-head weights take the torch path.
-    if impl == "dense" and not (
-        edge_weight is None or edge_weight.numel() == csr.capacity
-    ):
-        impl = "torch"
+    # per-head weights take the kernel route on the card and the torch path
+    # elsewhere.
+    if impl in ("dense", "kernel") and not (edge_weight is None or edge_weight.numel() == csr.capacity):
+        on_card = node_feat.device.type != "cpu"
+        big = requested == "kernel" or csr.capacity >= _KERNEL_MIN_EDGES
+        impl = "kernel" if on_card and big else "torch"
     if impl == "dense" and reduce == "sum":
         a = csr_to_dense(csr, edge_weight, dtype=node_feat.dtype)
         flat = node_feat.reshape(node_feat.shape[0], -1)

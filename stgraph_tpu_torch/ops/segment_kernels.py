@@ -1,5 +1,5 @@
-"""K4: the narrow segment max, with its wrapper, its plain PyTorch version
-and its autograd function.
+"""K3 and K4: the narrow segment sum and max, each with its wrapper, its
+plain PyTorch version and its autograd function.
 
 Replaces ``stgraph_tpu/ops/segment_pallas.py``'s ``segment_max_narrow``
 (``:379-463``) and its Pallas kernel ``_narrow_max_kernel`` (``:235``):
@@ -21,8 +21,20 @@ argmax mask of the JAX custom VJP (``:449-463``): every edge whose value
 equals its row's maximum receives the row's cotangent, so ties
 double-count. It is plain torch, as the JAX backward is plain ``jnp``.
 
-The wrapper takes the plain version only because the tensor it was given
-lies on the CPU. For a CUDA tensor it launches the kernel or raises.
+K3 (``segment_sum_narrow``, ``csrc/segment_sum_narrow.cu``) replaces
+``segment_pallas.segment_sum_narrow`` (``:316-377``) and its Pallas kernel
+``_narrow_sum_kernel`` (``:155``):
+
+    out[d, k] = sum_{e in row d} vals[e, k]        (f32, K <= 16)
+
+over an (E, K) plane in CSR order; padding slots never count, and empty
+rows give 0. It takes K4's design with a sum in place of the max, and its
+bound is of the same kind: memory, about 0.6 ms at ogbn-products size with
+K = 4. ``SegmentSumNarrow``'s backward is the destination gather
+``g[rows] * emask`` of the JAX custom VJP, in plain torch.
+
+The wrappers take their plain versions only because the tensor they were
+given lies on the CPU. For a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -40,8 +52,11 @@ from stgraph_tpu_torch.ops.spmm_kernels import ROW_CHUNK, _work_items
 __all__ = [
     "MAX_NARROW_K",
     "SegmentMaxNarrow",
+    "SegmentSumNarrow",
     "segment_max_narrow",
     "segment_max_narrow_plain",
+    "segment_sum_narrow",
+    "segment_sum_narrow_plain",
 ]
 
 # Largest trailing width the narrow kernel takes (the JAX package's bound).
@@ -51,6 +66,9 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "stg_segment_max_narrow": [_VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _VP, _I, _I, _VP],
+}
+_K3_SIGNATURES = {
+    "stg_segment_sum_narrow": [_VP, _VP, _VP, _VP, _I, _VP, _I, _I, _VP],
 }
 
 
@@ -171,3 +189,76 @@ class SegmentMaxNarrow(torch.autograd.Function):
             valid = csr.edge_mask
             dv = torch.zeros_like(vals).index_add(0, index[valid].long(), dv[valid])
         return dv.to(vals.dtype), None, None
+
+
+def segment_sum_narrow_plain(csr: CSR, vals: torch.Tensor, edge_block: Optional[int] = None) -> torch.Tensor:
+    """K3's plain version: a masked ``index_add`` over the real edges, summed
+    in f64 and rounded once to f32, so it is the reference that the kernel's
+    f32 sums (in any order) approximate. ``edge_block`` bounds the (edges,
+    K) f64 temporaries; the result does not depend on it."""
+    k = _check(csr, vals, None)
+    e = int(csr.host_arrays()[0][-1])
+    out = torch.zeros(csr.num_nodes, k, dtype=torch.float64, device=vals.device)
+    block = max(e, 1) if edge_block is None else edge_block
+    for e0 in range(0, e, block):
+        e1 = min(e0 + block, e)
+        out.index_add_(0, csr.rows[e0:e1].long(), vals[e0:e1].double())
+    return out.float()
+
+
+def segment_sum_narrow(csr: CSR, vals: torch.Tensor) -> torch.Tensor:
+    """K3: ``out[d, k] = sum over row d of vals[e, k]``, (N, K) f32; empty
+    rows give 0. ``vals`` is (capacity, K) in CSR order, K <= 16. Not
+    differentiable: ``SegmentSumNarrow`` is."""
+    k = _check(csr, vals, None)
+    if vals.device.type == "cpu":
+        return segment_sum_narrow_plain(csr, vals)
+
+    lib = kernel_lib.load("segment_sum_narrow", _K3_SIGNATURES)
+    dev = vals.device
+    if csr.device != dev:
+        raise ValueError(f"K3 needs the CSR and vals on one CUDA device, got {csr.device} and {dev}")
+    if vals.shape[0] * k >= 2**31 or csr.capacity + ROW_CHUNK >= 2**31:
+        raise ValueError("K3 indexes edges with int32; the graph is too large")
+    plane = vals.to(torch.float32).contiguous()
+    n = csr.num_nodes
+    out = torch.empty(n, k, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    item_row, item_beg, split_rows = _work_items(csr)
+    if split_rows.numel():
+        out.index_fill_(0, split_rows, 0.0)
+    rc = lib.stg_segment_sum_narrow(
+        csr.indptr.data_ptr(),
+        plane.data_ptr(),
+        item_row.data_ptr(),
+        item_beg.data_ptr(),
+        item_row.numel(),
+        out.data_ptr(),
+        k,
+        ROW_CHUNK,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"K3 (segment_sum_narrow) launch failed with cudaError {rc}")
+    segment_sum_narrow.launches += 1
+    return out
+
+
+segment_sum_narrow.launches = 0  # kernel launches since the count was last reset
+
+
+class SegmentSumNarrow(torch.autograd.Function):
+    """``segment_sum_narrow`` with the JAX custom VJP's gradient: each real
+    edge takes its destination row's cotangent, padding slots 0."""
+
+    @staticmethod
+    def forward(ctx, vals, csr):
+        ctx.csr = csr
+        return segment_sum_narrow(csr, vals)
+
+    @staticmethod
+    def backward(ctx, g):
+        csr = ctx.csr
+        dv = g[csr.rows_clamped.long()] * csr.edge_mask[:, None].to(g.dtype)
+        return dv, None

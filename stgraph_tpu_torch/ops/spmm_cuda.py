@@ -11,6 +11,8 @@ then permuted back to forward edge order. CPU tensors take the same
 function, with the plain versions of K1 and K2 inside, so the CPU tests
 exercise the real backward. The JAX package's ``src_ids`` variant exists
 only for the TPU's compile-request limit and has no counterpart.
+Multi-head weighted sums whose tiling the row-wise kernel's multi-head
+mode would not take go to the blocked kernel K10 (``ops.spmm_blocked``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from stgraph_tpu_torch.graph.csr import CSR
 from stgraph_tpu_torch.ops import message as _msg
+from stgraph_tpu_torch.ops.spmm_blocked import rowmask_eligible, spmm_multihead
 from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_bwd
 
 __all__ = ["spmm"]
@@ -77,12 +80,25 @@ def spmm(
 
     Sums over (N, F) features go through K1 (and K1/K2 backward);
     max/min/mean and 3-D features take the torch path as in the JAX
-    package, except multi-head weighted sums on CUDA, which wait for K1's
-    multi-head mode (the composed GAT route's).
+    package. Multi-head weighted sums ((N, H, F) features, (capacity, H)
+    weights): one head through K1; the tilings that the JAX package's
+    ``_rowmask_eligible`` refuses through the blocked kernel K10
+    (``ops.spmm_blocked``); the others wait for K1's and K2's multi-head
+    modes and raise on CUDA (the torch path on the CPU).
     """
     if reduce == "sum" and node_feat.dim() == 3 and edge_weight is not None:
-        if node_feat.device.type != "cpu":
-            raise NotImplementedError("multi-head K1 comes with the composed GAT route (ROADMAP.md)")
+        w = edge_weight.reshape(edge_weight.shape[0], -1)
+        n, h, f = node_feat.shape
+        if w.shape == (csr.capacity, h):
+            if h == 1:
+                return spmm(csr, node_feat.reshape(n, f), w, reduce).reshape(n, 1, f)
+            if not rowmask_eligible(h, f):
+                return spmm_multihead(csr, node_feat, w).to(node_feat.dtype)
+            if node_feat.device.type != "cpu":
+                raise NotImplementedError(
+                    f"a multi-head SpMM at heads={h}, F={f} needs K1's and K2's multi-head modes, "
+                    "which are not ported yet (ROADMAP.md)"
+                )
         return _msg.spmm(csr, node_feat, edge_weight, reduce=reduce, impl="torch")
     if reduce != "sum" or node_feat.dim() != 2:
         return _msg.spmm(csr, node_feat, edge_weight, reduce=reduce, impl="torch")

@@ -1,25 +1,35 @@
-"""K1, K2, K4, K6, K7, K8 and K9 on the card against their plain versions,
-and the GCN forward, a GCN training step, a GAT training step and TGCN on a
-lazy dynamic store pair on CUDA against the CPU. Marked ``cuda``: they skip where no card is present. On a
+"""K1, K2, K3, K4, K6, K7, K8, K9 and K10 on the card against their plain
+versions, and the GCN forward, a GCN training step, GAT training steps on
+the flash and the composed routes and TGCN on a lazy dynamic store pair on
+CUDA against the CPU. Marked ``cuda``: they skip where no card is present. On a
 machine with a card and without jax they run without the suite's conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest``.
 
 Tolerance: the kernel rounds as its plain version does (a bf16 stream
 rounds features, weights and products to bf16 and sums in f32), so only
-the order of f32 sums differs: 1e-4 of the output's largest magnitude.
+the order of f32 sums differs: 1e-4 of the output's largest magnitude, or,
+for sums whose terms cancel (K3, K10, K9's dl), 2e-4 of each output's sum
+of absolute terms.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from stgraph_tpu_torch.graph.blocked import build_blocked
 from stgraph_tpu_torch.graph.csr import build_csr
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
 from stgraph_tpu_torch.nn import TGCN, GATConv, GCNConv
 from stgraph_tpu_torch.ops import dyn_spmm as DS
 from stgraph_tpu_torch.ops import flash_gat as FG
 from stgraph_tpu_torch.ops import rowid_kernels as RK
-from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow, segment_max_narrow_plain
+from stgraph_tpu_torch.ops.segment_kernels import (
+    segment_max_narrow,
+    segment_max_narrow_plain,
+    segment_sum_narrow,
+    segment_sum_narrow_plain,
+)
+from stgraph_tpu_torch.ops.spmm_blocked import segment_sum_blocked, segment_sum_blocked_plain
 from stgraph_tpu_torch.ops.spmm_kernels import (
     ROW_CHUNK,
     spmm_rowmask,
@@ -158,6 +168,47 @@ def test_k4_matches_plain_on_the_card(cuda, rng, k):
     assert segment_max_narrow.launches == before + 2
 
 
+def _within_mass(out, ref, mass, tol=2e-4):
+    assert ((out - ref).abs() <= tol * mass + 1e-6).all(), ((out - ref).abs() / mass.clamp(min=1e-30)).max()
+
+
+@pytest.mark.parametrize("k", [1, 4, 6, 16])
+def test_k3_matches_plain_on_the_card(cuda, rng, k):
+    n, e = 3000, 60_000
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
+    src[-3 * ROW_CHUNK:] = 11  # a hub in the transpose too
+    csr = build_csr(src, dst, n, capacity=e + 5, device=cuda)  # with padding slots
+    vals = torch.from_numpy(rng.standard_normal((csr.capacity, k)).astype(np.float32)).to(cuda)
+    before = segment_sum_narrow.launches
+    for c in (csr, csr.transpose()):
+        out = segment_sum_narrow(c, vals)
+        torch.cuda.synchronize()
+        _within_mass(out, segment_sum_narrow_plain(c, vals), segment_sum_narrow_plain(c, vals.abs()))
+    assert not segment_sum_narrow(csr, vals)[n - 50:].any()
+    assert segment_sum_narrow.launches == before + 3
+
+
+@pytest.mark.parametrize("h,f", [(4, 256), (6, 121), (3, 20)])
+def test_k10_matches_plain_on_the_card(cuda, rng, h, f):
+    n, e = 3000, 60_000
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)  # block 0 holds over 5000 slots
+    src[-3 * ROW_CHUNK:] = 11
+    dst = np.where(dst // 128 == 9, 0, dst)  # an empty block
+    csr = build_csr(src, dst, n, device=cuda)
+    x = torch.from_numpy(rng.standard_normal((n, h * f)).astype(np.float32)).to(cuda)
+    before = segment_sum_blocked.launches
+    for transpose in (False, True):
+        blk = build_blocked(csr.transpose() if transpose else csr)
+        w = torch.from_numpy(rng.standard_normal((blk.capacity, h)).astype(np.float32)).to(cuda)
+        out = segment_sum_blocked(blk, w, x, h)
+        torch.cuda.synchronize()
+        mass = segment_sum_blocked_plain(blk, w.abs(), x.abs(), h)
+        _within_mass(out, segment_sum_blocked_plain(blk, w, x, h), mass)
+        if not transpose:  # empty rows and the empty block
+            assert not out[n - 50:].any() and not out[9 * 128:10 * 128].any()
+    assert segment_sum_blocked.launches == before + 2
+
+
 def _flash_inputs(rng, cuda, n, h, f, hub_t=True):
     src, dst = _graph(rng, n, 60_000, hub_deg=5 * ROW_CHUNK + 3)
     if hub_t:
@@ -222,6 +273,36 @@ def test_gat_training_step_on_cuda_matches_cpu(cuda, rng):
         # the projections sum in another order on the card, so a streamed
         # value may round to the neighbouring bf16 number
         assert (out - ref).abs().max().item() <= 2e-2 * max(1e-6, ref.abs().max().item())
+
+
+def test_composed_gat_training_step_on_cuda_matches_cpu(cuda, rng):
+    """Two layers off the flash route (4 x 72 with ELU, then 6 x 47
+    averaged): K4, K3 and K10 forward, K10 and K3 backward, f32 throughout."""
+    n, e = 5000, 250_000
+    edges = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)], 1)
+    x = rng.standard_normal((n, 50)).astype(np.float32)
+    y = torch.from_numpy(rng.integers(0, 47, n))
+    gen = torch.Generator().manual_seed(0)
+    init = [GATConv(50, 72, 4, device="cpu", generator=gen).state_dict(),
+            GATConv(288, 47, 6, device="cpu", generator=gen).state_dict()]
+    counters = (segment_sum_narrow, segment_max_narrow, segment_sum_blocked)
+    grads = []
+    for dev in ("cpu", cuda):
+        convs = [GATConv(50, 72, 4, activation=torch.nn.functional.elu, device=dev),
+                 GATConv(288, 47, 6, device=dev)]
+        for conv, state in zip(convs, init):
+            conv.load_state_dict(state)
+        g = StaticGraph(edges, None, n, device=dev)
+        counts = [k.launches for k in counters]
+        h = convs[0](g, torch.from_numpy(x).to(dev)).reshape(n, -1)
+        logits = convs[1](g, h).mean(1)
+        torch.nn.functional.cross_entropy(logits, y.to(dev)).backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert [k.launches - c for k, c in zip(counters, counts)] == [6, 2, 4]  # K3, K4, K10
+        grads.append([p.grad.cpu() for c in convs for p in c.parameters()])
+    for ref, out in zip(*grads):
+        assert (out - ref).abs().max().item() <= 1e-3 * max(1e-6, ref.abs().max().item())
 
 
 def _rowid_store(rng, n, slots, hub_slots, weighted):

@@ -11,10 +11,21 @@ import numpy as np
 import pytest
 import torch
 
+from stgraph_tpu_torch.graph.blocked import blocked_layout
 from stgraph_tpu_torch.graph.csr import build_csr
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
 from stgraph_tpu_torch.nn import GATConv, GCNConv
-from stgraph_tpu_torch.ops import dyn_spmm, flash_gat, kernel_lib, rowid_kernels, segment_kernels, spmm_cuda, spmm_kernels
+from stgraph_tpu_torch.ops import (
+    attention,
+    dyn_spmm,
+    flash_gat,
+    kernel_lib,
+    rowid_kernels,
+    segment_kernels,
+    spmm_blocked,
+    spmm_cuda,
+    spmm_kernels,
+)
 from stgraph_tpu_torch.serve import Predictor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -166,15 +177,52 @@ def test_non_cpu_tensor_never_takes_the_plain_rowid_kernels(monkeypatch, tmp_pat
     assert counts == (rowid_kernels.spmm_rowid.launches, rowid_kernels.dyn_degree.launches)
 
 
+def test_non_cpu_tensor_never_takes_the_plain_composed_kernels(monkeypatch, tmp_path):
+    """K3 and K10 as the others: a tensor that is not on the CPU goes to the
+    kernel or raises, through the wrappers, the multi-head SpMM and the
+    composed GAT route."""
+    csr = build_csr([0, 1, 2, 2], [1, 2, 0, 1], 3, device="cpu")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(kernel_lib, "_nvcc", no_nvcc)
+    monkeypatch.setattr(kernel_lib, "_loaded", {})
+    monkeypatch.setattr(kernel_lib, "_paths", lambda names: {n: str(tmp_path / f"{n}.so") for n in names})
+    for mod, name in ((segment_kernels, "segment_sum_narrow_plain"), (segment_kernels, "segment_max_narrow_plain"),
+                      (spmm_blocked, "segment_sum_blocked_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    blocked = blocked_layout(csr)
+    h, f = 4, 256
+    feats = torch.empty(3, h, f, device="meta")
+    counts = segment_kernels.segment_sum_narrow.launches, spmm_blocked.segment_sum_blocked.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        segment_kernels.segment_sum_narrow(csr, torch.empty(csr.capacity, h, device="meta"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        spmm_blocked.segment_sum_blocked(blocked, torch.empty(blocked.capacity, h, device="meta"),
+                                         feats.reshape(3, h * f), h)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        spmm_blocked.spmm_multihead(csr, feats, torch.empty(csr.capacity, h, device="meta"))
+    el = torch.empty(3, h, 1, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        attention.sparse_gat_attention(csr, el, el, feats)
+    assert counts == (segment_kernels.segment_sum_narrow.launches, spmm_blocked.segment_sum_blocked.launches)
+
+
 def test_kernel_build_starts_nothing_at_import():
     assert set(kernel_lib.SOURCES) == {
         "spmm_rowmask",  # K1
         "spmm_sddmm_rowmask",  # K2
+        "segment_sum_narrow",  # K3
         "segment_max_narrow",  # K4
         "spmm_rowid",  # K6
         "rowid_denom",  # K7
         "flash_gat_fwd",  # K8
         "flash_gat_bwd",  # K9
+        "segment_sum_blocked",  # K10
     }
     for name in kernel_lib.SOURCES.values():
         assert (ROOT / "stgraph_tpu_torch" / "csrc" / name).exists()
