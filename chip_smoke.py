@@ -115,12 +115,33 @@ Phases (any failure exits nonzero and prints no result line):
     logits and one step's gradients against the vertex program with K3's
     and K4's plain versions;
 30. K3 and K10 at a PPI training step's shapes: kernel, plain version and
-    library call timed, full outputs compared.
+    library call timed, full outputs compared;
+31. pubmed-rowmask, the tenth main path (run after 22):
+    ``benchmarking/gat/train.py --dataset pubmed --num_heads 32 --num_hidden
+    4`` (500 -> 32 x 4 with ELU -> 1 x 3, Adam 5e-3, 200 epochs): the 32 x 4
+    layer takes the composed route's rowmask branch, each epoch launching K5
+    and K1 (heads, denominator) once forward, K2 (heads) once and K1's
+    no-gather mode twice backward, and K4, K8 and K9 once for the 1 x 3
+    layer; train accuracy at least ``PUBMED_ROWMASK_ACC_FLOOR``; one step's
+    logits and gradients against the vertex program with every kernel's
+    plain version;
+32. K5 (bit for bit) and K1's no-gather mode (f32 and bf16 streams) at K in
+    {17, 32, 130} on both CSRs of the composed check graph, and K1's heads
+    and denominator modes and K2's heads mode at (H, F) in {(32, 4), (8, 64),
+    (4, 128), (64, 2), (1, 384)}, f32 and bf16 streams, against their plain
+    versions (run after 28);
+33. rowmask-ppi, the eleventh main path (run after 30): ``sparse_gat_attention``
+    at 32 x 4 on the PPI-sized graph (bf16 stream), forward and backward
+    (K5, K1 and K2 once, the no-gather sum twice), the output and the three
+    gradients against an f64 recomputation (``ROWMASK_OUT_TOL``,
+    ``ROWMASK_SCORE_TOL``), then each of those kernels at the route's shapes
+    against its plain version, timed with a library yardstick, its bound by
+    bytes and the longest work item of its launch.
 
 Every path of the kernels line (serving, training, gat-serving,
-gat-training, composed-serving, ppi-serving, ppi-training, dyn-step, and
-dtdg-training on each dataset) is driven with every launch count set to 0
-just before it and read just after.
+gat-training, composed-serving, ppi-serving, ppi-training, dyn-step,
+dtdg-training on each dataset, pubmed-rowmask and rowmask-ppi) is driven
+with every launch count set to 0 just before it and read just after.
 
 The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 ``--details PATH`` also writes every measurement of the run as JSON.
@@ -216,6 +237,31 @@ COMPOSED_PLAIN_EDGE_BLOCK = 1 << 18  # bounds the plain K10's (slots, H*F) tempo
 # tensor's largest
 COMPOSED_LOGIT_TOL = 1e-4
 COMPOSED_GRAD_TOL = 1e-3
+# The composed route's rowmask branch (benchmarking/gat/train.py --dataset
+# pubmed --num_heads 32 --num_hidden 4: 500 -> 32 x 4 with ELU -> 1 x 3,
+# Adam 5e-3, 200 epochs). The JAX script with ``--cpu`` (the JAX package on
+# the CPU, synthetic Pubmed, the dataset loader held offline) reaches train
+# accuracy 0.5781; the port must reach it less 0.05 (PERF.md, section 4).
+PUBMED_ROWMASK_DIMS, PUBMED_ROWMASK_HEADS = (500, 4, 3), (32, 1)
+PUBMED_ROWMASK_ACC_FLOOR = 0.5781 - 0.05
+WIDE_CHECK_K = (17, 32, 130)  # K5's and the no-gather sum's widths held against their plain versions
+ROWMASK_CHECKS = ((32, 4), (8, 64), (4, 128), (64, 2), (1, 384))  # (H, F) of K1's and K2's heads modes
+ROWMASK_PPI_TILING = (32, 4)
+# The rowmask route with a bf16 stream (the PPI-sized graph: 818,716 edges)
+# against an f64 recomputation of the same softmax attention, each output
+# element against its sum of absolute terms (for ``out``, the
+# softmax-weighted |feat| rows; for ``d feat``, the weighted |g| rows; for
+# ``d el`` and ``d er``, sum_e alpha_e (sum_f |feat_f g_f| + sum_f |g_f|
+# out-mass_f[dst]) |leaky'|, since the route forms c = <g, out> / den from
+# its own bf16-streamed output, whose error is relative to out's mass, not
+# to |out|). A bf16 rounding errs by at most 2^-8 of its value. A term of
+# ``out`` and of ``d feat`` is rounded three times (the weight, the feature
+# or cotangent, their product: K1 and K2 in bf16); a term of ``d el`` and
+# ``d er`` four times (K2's three in the per-head dot, then the no-gather
+# sum rounds each ds0 to bf16). The f32 work around them (scores, maxima,
+# exp, the denominator, every sum) adds at most KERNEL_TOL.
+ROWMASK_OUT_TOL = (1 + 2**-8) ** 3 - 1 + KERNEL_TOL
+ROWMASK_SCORE_TOL = (1 + 2**-8) ** 4 - 1 + KERNEL_TOL
 # Hidden states, lazy pair (K6, f32 sums in one order) vs NaiveGraph
 # snapshots (K1, another order), over up to 53 timesteps of three gates
 HIDDEN_TOL = 1e-3
@@ -239,6 +285,7 @@ def _counters():
 
     return {"K1": spmm_kernels.spmm_rowmask, "K2": spmm_kernels.spmm_rowmask_bwd,
             "K3": segment_kernels.segment_sum_narrow, "K4": segment_kernels.segment_max_narrow,
+            "K5": segment_kernels.segment_max_wide, "K1_nogather": segment_kernels.segment_sum_wide,
             "K6": rowid_kernels.spmm_rowid, "K7": rowid_kernels.dyn_degree, "K8": flash_gat.flash_gat_fwd,
             "K9": flash_gat.flash_gat_bwd, "K10": spmm_blocked.segment_sum_blocked}
 
@@ -1435,7 +1482,9 @@ def phase_gat_vs_plain(dev, args, workdir):
     logits, grads = {}, {}
     for impl in ("auto", "torch"):
         model = build_gat(graph, impl, dev, args.seed)
-        with plain_narrow_kernels() if impl == "torch" else contextlib.nullcontext():
+        plain = impl == "torch"
+        with plain_narrow_kernels() if plain else contextlib.nullcontext(), \
+                plain_wide_kernels() if plain else contextlib.nullcontext():
             out = model(x)
             torch.nn.functional.cross_entropy(out, y).backward()
         logits[impl] = out.detach()
@@ -1510,6 +1559,23 @@ def phase_pubmed_gat(dev, args, workdir):
 
 
 @contextlib.contextmanager
+def plain_wide_kernels():
+    """Inside, K5's and the no-gather sum's wrappers run their plain versions
+    on any device, the sum in f64 with no bf16 stream, so that a reference
+    run of the vertex program (whose wide sums and maxima reach them through
+    ``aggregate``) launches no kernel and rounds nothing to bf16."""
+    from stgraph_tpu_torch.ops import segment_kernels as SK
+
+    saved = SK.segment_max_wide, SK.segment_sum_wide
+    SK.segment_max_wide = lambda csr, vals: SK.segment_max_wide_plain(csr, vals, 1 << 18)
+    SK.segment_sum_wide = lambda csr, vals: SK.segment_sum_wide_plain(csr, vals.double(), 1 << 18)
+    try:
+        yield
+    finally:
+        SK.segment_max_wide, SK.segment_sum_wide = saved
+
+
+@contextlib.contextmanager
 def plain_narrow_kernels():
     """Inside, K3's and K4's wrappers run their plain versions on any device,
     so that a reference run of the vertex program (whose narrow sums and
@@ -1567,17 +1633,10 @@ def k10_agreement(out, blk, w, x, h, edge_block=COMPOSED_PLAIN_EDGE_BLOCK):
     return max_err, _err_over_mass(err, mass), max_ref
 
 
-def phase_composed_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=150_000):
-    """K3 and K10 against their plain versions on a graph with a hub of
-    ``hub_deg`` edges in each direction (so a 128-row block of each blocked
-    layout holds more than 10^5 slots), 1000 empty rows, ten empty row
-    blocks and padding slots: K3 at K in {1, 4, 6, 16} on the forward and
-    transpose CSRs, K10 at (H, F) in {(4, 256), (6, 121), (3, 20)} on both
-    blocked layouts."""
-    from stgraph_tpu_torch.graph.blocked import build_blocked
+def check_graph(dev, rng, n, e, hub_deg):
+    """The composed check graph: a hub of ``hub_deg`` edges in each
+    direction, 1000 empty rows, ten empty 128-row blocks, padding slots."""
     from stgraph_tpu_torch.graph.csr import build_csr
-    from stgraph_tpu_torch.ops.segment_kernels import segment_sum_narrow
-    from stgraph_tpu_torch.ops.spmm_blocked import segment_sum_blocked
 
     empty, hub = 1000, 12_345
     src = rng.integers(0, n - empty, e)
@@ -1586,7 +1645,21 @@ def phase_composed_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=15
     dst = np.where((dst >= b0) & (dst < b0 + 10 * 128), 0, dst)  # ten empty row blocks
     dst[:hub_deg] = hub
     src[-hub_deg:] = hub + 1
-    csr = build_csr(src, dst, n, capacity=e + 5, device=dev)
+    return build_csr(src, dst, n, capacity=e + 5, device=dev), empty
+
+
+def phase_composed_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=150_000):
+    """K3 and K10 against their plain versions on a graph with a hub of
+    ``hub_deg`` edges in each direction (so a 128-row block of each blocked
+    layout holds more than 10^5 slots), 1000 empty rows, ten empty row
+    blocks and padding slots: K3 at K in {1, 4, 6, 16} on the forward and
+    transpose CSRs, K10 at (H, F) in {(4, 256), (6, 121), (3, 20)} on both
+    blocked layouts."""
+    from stgraph_tpu_torch.graph.blocked import build_blocked
+    from stgraph_tpu_torch.ops.segment_kernels import segment_sum_narrow
+    from stgraph_tpu_torch.ops.spmm_blocked import segment_sum_blocked
+
+    csr, empty = check_graph(dev, rng, n, e, hub_deg)
     csr_t = csr.transpose()
     results, worst = [], {"K3": 0.0, "K10": 0.0}
     for name, c in (("forward", csr), ("transpose", csr_t)):
@@ -1793,15 +1866,15 @@ def phase_composed_ogbn_serving(dev, args, base):
                        "profile": profile}}
 
 
-def _library_segment_sum_ms(csr, vals, e):
-    """``torch.segment_reduce(sum)`` over the CSR-order (E, K) plane: a timed
-    yardstick only."""
+def _library_segment_sum_ms(csr, vals, e, reduce="sum"):
+    """``torch.segment_reduce`` (``sum`` or ``max``) over the CSR-order
+    (E, K) plane: a timed yardstick only."""
     try:
         plane = vals[:e]
         offsets = csr.indptr.long()
-        return cuda_ms(lambda: torch.segment_reduce(plane, "sum", offsets=offsets, unsafe=True), iters=5)
+        return cuda_ms(lambda: torch.segment_reduce(plane, reduce, offsets=offsets, unsafe=True), iters=5)
     except (RuntimeError, TypeError) as exc:
-        print(f"library yardstick segment_reduce unavailable: {exc}")
+        print(f"library yardstick segment_reduce({reduce}) unavailable: {exc}")
         return None
 
 
@@ -1914,7 +1987,9 @@ def phase_ppi_gat(dev, args):
     grads = {}
     for impl in ("auto", "torch"):
         m = build_gat(graph, impl, dev, args.seed, PPI_DIMS, PPI_HEADS)
-        with plain_narrow_kernels() if impl == "torch" else contextlib.nullcontext():
+        plain = impl == "torch"
+        with plain_narrow_kernels() if plain else contextlib.nullcontext(), \
+                plain_wide_kernels() if plain else contextlib.nullcontext():
             out = m(x)
             torch.nn.functional.cross_entropy(out, y).backward()
         if impl == "torch":
@@ -2004,6 +2079,430 @@ def phase_composed_at_main_shapes(dev, ppi):
     k3_step = [k3[("forward", hh)] for hh in (h0, h0, h2)] * 2 + [k3[("transpose", hh)] for hh in (h0, h0, h2)]
     k10_step = [k10[(name, hh)] for name in ("forward", "transpose") for hh in (h0, h0, h2)]
     return {"K3": k3_step, "K10": k10_step}, worst
+
+
+# -- the composed route's rowmask branch: K5, K1's no-gather and heads modes, K2's heads mode --
+
+
+def wide_bound(n: int, e: int, k: int):
+    """Least time for one K5 or no-gather call: indptr and the (E, K) f32
+    plane read once, the (N, K) output written once; or one operation per
+    edge and column."""
+    nbytes = (n + 1) * 4 + e * k * 4 + n * k * 4
+    ops = e * k
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def rowmask_bound(n: int, e: int, h: int, f: int):
+    """Least time for one K1 call with H heads and the denominator: indptr,
+    cols and the (E, H) weights, the f32 (N, H*F) table once, the output and
+    the (N, H) denominator once; or 2 operations per edge and column plus one
+    per edge and head."""
+    hf = h * f
+    nbytes = (n + 1) * 4 + e * 4 + e * h * 4 + 2 * n * hf * 4 + n * h * 4
+    ops = 2 * e * hf + e * h
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def rowmask_bwd_bound(n: int, e: int, h: int, f: int):
+    """Least time for one K2 call with H heads: indptr, cols, the (E, H)
+    weights and dw once each, the f32 g and fs tables read once, dh written
+    once; or 4 operations per edge and column."""
+    hf = h * f
+    nbytes = (n + 1) * 4 + e * 4 + 2 * e * h * 4 + 3 * n * hf * 4
+    ops = 4 * e * hf
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def longest_item(csr) -> int:
+    """The most edges one warp walks in a launch over ``csr``: K1's work
+    items cap a row at ``ROW_CHUNK`` edges."""
+    from stgraph_tpu_torch.ops.spmm_kernels import ROW_CHUNK
+
+    return int(min(np.diff(csr.host_arrays()[0]).max(initial=0), ROW_CHUNK))
+
+
+@contextlib.contextmanager
+def wide_stream(bf16: bool):
+    """Inside, the no-gather sum streams bf16 exactly when ``bf16`` (its rule
+    would decide from the graph's size)."""
+    from stgraph_tpu_torch.ops import segment_kernels as SK
+
+    saved = SK.WIDE_BF16_MIN_SLOTS
+    SK.WIDE_BF16_MIN_SLOTS = 0 if bf16 else 2**62
+    try:
+        yield
+    finally:
+        SK.WIDE_BF16_MIN_SLOTS = saved
+
+
+def phase_rowmask_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=150_000):
+    """K5, K1's no-gather mode, K1's heads and denominator modes and K2's
+    heads mode against their plain versions on the composed check graph:
+    K5 (bit for bit) and the no-gather sum (f32 and bf16 streams) at K in
+    {17, 32, 130} on the forward and transpose CSRs; K1 with heads and the
+    denominator on the forward CSR and K2 with heads on the transpose, at
+    (H, F) in {(32, 4), (8, 64), (4, 128), (64, 2), (1, 384)}, each with
+    the f32 and the bf16 stream."""
+    from stgraph_tpu_torch.ops.segment_kernels import (
+        segment_max_wide,
+        segment_max_wide_plain,
+        segment_sum_wide,
+        segment_sum_wide_plain,
+    )
+    from stgraph_tpu_torch.ops.spmm_kernels import (
+        spmm_rowmask,
+        spmm_rowmask_bwd,
+        spmm_rowmask_bwd_plain,
+        spmm_rowmask_plain,
+    )
+
+    csr, empty = check_graph(dev, rng, n, e, hub_deg)
+    csr_t = csr.transpose()
+    block = COMPOSED_PLAIN_EDGE_BLOCK
+    results, worst = [], {"K5": 0.0, "K1_nogather": 0.0, "K1": 0.0, "K2": 0.0}
+    for name, c in (("forward", csr), ("transpose", csr_t)):
+        for k in WIDE_CHECK_K:
+            vals = torch.from_numpy(rng.standard_normal((c.capacity, k)).astype(np.float32)).to(dev)
+            out = segment_max_wide(c, vals)
+            torch.cuda.synchronize()
+            ok = torch.equal(out, segment_max_wide_plain(c, vals, block)) and (
+                name == "transpose" or not out[n - empty:].any().item())
+            print(f"k5-check {name} CSR K={k}: bit-equal to its plain version {'ok' if ok else 'FAIL'}")
+            check(ok, f"K5 differs from its plain version on the {name} CSR at K={k}")
+            results.append({"kernel": "K5", "csr": name, "K": k, "bit_equal": ok})
+            for bf16 in (False, True):
+                with wide_stream(bf16):
+                    out = segment_sum_wide(c, vals)
+                    torch.cuda.synchronize()
+                    (a, r, mx), = _stats([out], [segment_sum_wide_plain(c, vals, block)],
+                                         [segment_sum_wide_plain(c, vals.abs(), block)])
+                stream = "bf16" if bf16 else "f32"
+                ok = r <= KERNEL_TOL and (name == "transpose" or not out[n - empty:].any().item())
+                print(f"k1-nogather-check {name} CSR K={k} {stream}: max_abs_err {a:.3e} (err/sum|terms| "
+                      f"{r:.2e}, max |plain| {mx:.2f}) (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"the no-gather sum disagrees with its plain version ({name}, K={k}, {stream})")
+                worst["K1_nogather"] = max(worst["K1_nogather"], a)
+                results.append({"kernel": "K1_nogather", "csr": name, "K": k, "stream": stream,
+                                "max_abs_err": a, "err_over_mass": r})
+            del vals, out
+    for h, f in ROWMASK_CHECKS:
+        x, g = (torch.from_numpy(rng.standard_normal((n, h * f)).astype(np.float32)).to(dev) for _ in range(2))
+        w = torch.from_numpy(rng.random((csr.capacity, h)).astype(np.float32)).to(dev)  # softmax weights: >= 0
+        for stream in (None, torch.bfloat16):
+            sname = "bf16" if stream is not None else "f32"
+            out, den = spmm_rowmask(csr, w, x, heads=h, with_denom=True, stream_dtype=stream)
+            torch.cuda.synchronize()
+            ref, ref_den = spmm_rowmask_plain(csr, w, x, stream, block, heads=h, with_denom=True)
+            mass = spmm_rowmask_plain(csr, w, x.abs(), stream, block, heads=h)
+            (a, r, _), (da, dr, _) = _stats([out, den], [ref, ref_den], [mass, ref_den])
+            ok = max(r, dr) <= KERNEL_TOL and not out[n - empty:].any().item() and not den[n - empty:].any().item()
+            print(f"k1-heads-check {h} x {f} {sname}: out max_abs_err {a:.3e} (err/sum|terms| {r:.2e}), "
+                  f"den max_abs_err {da:.3e} ({dr:.2e}) (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"K1 with heads and the denominator disagrees at {h} x {f}, {sname} stream")
+            del out, den, ref, ref_den, mass
+            dh, dw = spmm_rowmask_bwd(csr_t, w, g, x, stream_dtype=stream, heads=h)
+            torch.cuda.synchronize()
+            refs = spmm_rowmask_bwd_plain(csr_t, w, g, x, stream, block, heads=h)
+            masses = spmm_rowmask_bwd_plain(csr_t, w, g.abs(), x.abs(), stream, block, heads=h)
+            (ha, hr, _), (wa, wr, _) = _stats([dh, dw], refs, masses)
+            pad_zero = not dw[csr_t.num_edges:].any().item()
+            ok = max(hr, wr) <= KERNEL_TOL and pad_zero
+            print(f"k2-heads-check {h} x {f} {sname}: dh max_abs_err {ha:.3e} (err/sum|terms| {hr:.2e}), dw "
+                  f"max_abs_err {wa:.3e} ({wr:.2e}), padding 0 {pad_zero} (tol {KERNEL_TOL:g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"K2 with heads disagrees at {h} x {f}, {sname} stream")
+            del dh, dw, refs, masses
+            worst["K1"] = max(worst["K1"], a, da)
+            worst["K2"] = max(worst["K2"], ha, wa)
+            results.append({"kernel": "K1+K2", "H": h, "F": f, "stream": sname, "out_err_over_mass": r,
+                            "den_err_over_mass": dr, "dh_err_over_mass": hr, "dw_err_over_mass": wr})
+        del x, g, w
+    return {"graph": {"n": n, "e": e, "empty_rows": empty, "hub_deg": hub_deg,
+                      "longest_item": {"forward": longest_item(csr), "transpose": longest_item(csr_t)}},
+            "cases": results, "max_abs_err": worst}
+
+
+def phase_pubmed_rowmask(dev, args, workdir):
+    """``benchmarking/gat/train.py --dataset pubmed --num_heads 32
+    --num_hidden 4`` on the port: 500 -> 32 x 4 (ELU, heads concatenated)
+    -> 1 x 3, Adam(5e-3), 200 full-graph epochs. The 32 x 4 layer takes the
+    composed route's rowmask branch (88,648 edges: an f32 stream): K5 and
+    K1 with heads and the denominator forward, K2 with heads and the
+    no-gather sum twice backward; the 1 x 3 layer the flash route (K4, K8;
+    K9). Then one step's logits and gradients against the vertex program
+    with every kernel's plain version."""
+    from stgraph_tpu_torch.dataset import PubmedDataLoader, STGraphDataset
+    from stgraph_tpu_torch.graph import StaticGraph
+    from stgraph_tpu_torch.utils import accuracy
+
+    STGraphDataset._offline = True  # no network here: the synthetic Pubmed, without a download attempt
+    pubmed = PubmedDataLoader(cache_dir=os.path.join(workdir, "datasets"))
+    n = pubmed.gdata["num_nodes"]
+    graph = StaticGraph(pubmed.get_edges(), None, n, device=dev)
+    x = torch.from_numpy(pubmed.get_all_features()).to(dev)
+    y = torch.from_numpy(pubmed.get_all_targets()).to(dev)
+    gen = torch.Generator().manual_seed(args.seed)  # drawn on the CPU, as phase_pubmed_gat's
+    model = GAT(graph, PUBMED_ROWMASK_DIMS, PUBMED_ROWMASK_HEADS, "auto", torch.device("cpu"), gen).to(dev).train()
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return loss
+
+    reset_counts()
+    times = []
+    for epoch in range(PUBMED_EPOCHS):
+        t = time.perf_counter()
+        loss = step()
+        if epoch >= 3:
+            times.append(time.perf_counter() - t)
+    counts = read_counts()
+    with torch.inference_mode():
+        acc = accuracy(model(x), y)
+    epoch_s = float(np.mean(times))
+    print(f"pubmed-rowmask: synthetic={pubmed.synthetic} N={n} E={pubmed.gdata['num_edges']}, GAT "
+          f"{PUBMED_ROWMASK_DIMS[0]} -> {PUBMED_ROWMASK_HEADS[0]}x{PUBMED_ROWMASK_DIMS[1]} -> "
+          f"{PUBMED_ROWMASK_HEADS[1]}x{PUBMED_ROWMASK_DIMS[2]}, {PUBMED_EPOCHS} epochs, mean epoch (>=3) "
+          f"{epoch_s * 1e3:.3f} ms, final loss {loss.item():.4f}, train acc {acc:.4f} (floor "
+          f"{PUBMED_ROWMASK_ACC_FLOOR:.4f}), launches {counts}")
+    ep = PUBMED_EPOCHS
+    check(counts == only(K1=ep, K2=ep, K4=ep, K5=ep, K1_nogather=2 * ep, K8=ep, K9=ep),
+          f"the Pubmed rowmask GAT launched {counts}")
+    check(acc >= PUBMED_ROWMASK_ACC_FLOOR,
+          f"Pubmed rowmask GAT train accuracy {acc:.4f} is below {PUBMED_ROWMASK_ACC_FLOOR:.4f}")
+    profile = phase_profile(step, "one Pubmed rowmask epoch")  # after the counts and the accuracy
+    del model, opt
+
+    logits, grads = {}, {}
+    for impl in ("auto", "torch"):
+        m = build_gat(graph, impl, dev, args.seed, PUBMED_ROWMASK_DIMS, PUBMED_ROWMASK_HEADS)
+        plain = impl == "torch"
+        with plain_narrow_kernels() if plain else contextlib.nullcontext(), \
+                plain_wide_kernels() if plain else contextlib.nullcontext():
+            out = m(x)
+            torch.nn.functional.cross_entropy(out, y).backward()
+        logits[impl] = out.detach()
+        grads[impl] = {k: p.grad for k, p in m.named_parameters()}
+        del m, out
+    scale = logits["torch"].abs().max().item()
+    err = (logits["auto"] - logits["torch"]).abs().max().item()
+    ok = err <= COMPOSED_LOGIT_TOL * scale
+    print(f"pubmed-rowmask-check: logits vs the vertex program (plain kernels) max_abs_err {err:.3e} "
+          f"(max |plain| {scale:.3f}, tol {COMPOSED_LOGIT_TOL:g} x that) {'ok' if ok else 'FAIL'}")
+    check(ok, "the Pubmed rowmask GAT's logits disagree with the vertex program")
+    rows, worst = [], 0.0
+    for k, ref in grads["torch"].items():
+        gerr = (grads["auto"][k] - ref).abs().max().item()
+        ratio = gerr / max(ref.abs().max().item(), 1e-30)
+        worst = max(worst, ratio)
+        rows.append({"tensor": k, "max_abs_err": gerr, "err_over_max": ratio})
+    print(f"pubmed-rowmask-grad-check: {len(rows)} parameter gradients vs the vertex program, worst "
+          f"max_abs_err / max |plain| {worst:.2e} (tol {COMPOSED_GRAD_TOL:g}) "
+          f"{'ok' if worst <= COMPOSED_GRAD_TOL else 'FAIL'}")
+    check(worst <= COMPOSED_GRAD_TOL, f"a Pubmed rowmask GAT gradient disagrees with the vertex program: {rows}")
+    return {"synthetic": pubmed.synthetic, "n": n, "e": pubmed.gdata["num_edges"], "epoch_s": epoch_s,
+            "train_acc": acc, "loss": loss.item(), "launches": counts, "profile": profile, "logit_err": err,
+            "max_abs_plain_logit": scale, "grads": rows, "worst_grad_err_over_max": worst}
+
+
+def rowmask_reference(csr, el, er, fs, g, slope):
+    """The softmax attention and its three gradients in f64 by autograd, on
+    the edge list (the stability max detached: the softmax does not depend on
+    it), with each output's sum of absolute terms. Returns (out, d el, d er,
+    d feat) and their masses, all f64."""
+    n, h, f = fs.shape
+    e = csr.num_edges
+    rows, cols = csr.rows[:e].long(), csr.cols[:e].long()
+    el64, er64, fs64 = (t.double().requires_grad_() for t in (el, er, fs))
+    s0 = el64[cols] + er64[rows]
+    s = torch.where(s0 >= 0, s0, slope * s0)
+    m = torch.full((n, h), float("-inf"), dtype=torch.float64, device=el.device)
+    m = m.scatter_reduce(0, rows[:, None].expand(-1, h), s.detach(), "amax", include_self=True)
+    w = torch.exp(s - m[rows])
+    den = torch.zeros(n, h, dtype=torch.float64, device=el.device).index_add(0, rows, w)
+    alpha = w / den[rows]
+    out = torch.zeros(n, h, f, dtype=torch.float64, device=el.device).index_add(
+        0, rows, alpha[:, :, None] * fs64[cols])
+    g64 = g.double()
+    d_el, d_er, d_fs = torch.autograd.grad((out * g64).sum(), (el64, er64, fs64))
+    with torch.no_grad():
+        zeros = torch.zeros(n, h, f, dtype=torch.float64, device=el.device)
+        a = alpha.detach()
+        mass_out = zeros.index_add(0, rows, a[:, :, None] * fs64[cols].abs())
+        mass_fs = zeros.index_add(0, cols, a[:, :, None] * g64[rows].abs())
+        # the route forms c = <g, out> / den from its own output, so c's terms
+        # are |g_f| times out's (mass_out), not |<g, out>|
+        c_terms = (g64.abs() * mass_out).sum(-1)
+        slope_e = torch.where(s0.detach() >= 0, 1.0, slope).double()
+        term = a * ((fs64[cols] * g64[rows]).abs().sum(-1) + c_terms[rows]) * slope_e
+        mass_el = torch.zeros(n, h, dtype=torch.float64, device=el.device).index_add(0, cols, term)
+        mass_er = torch.zeros(n, h, dtype=torch.float64, device=el.device).index_add(0, rows, term)
+    return (out.detach(), d_el, d_er, d_fs), (mass_out, mass_el, mass_er, mass_fs)
+
+
+def _library_multihead_bwd_ms(csr_t, w_t, g, fs, h, e):
+    """Per head, ``torch.sparse.mm`` of the head's weights on the transpose
+    pattern with the head's cotangent columns, and
+    ``torch.sparse.sampled_addmm`` of the head's features and cotangents on
+    that pattern: K2's two results from library calls, a timed yardstick
+    only (the column copies are not timed)."""
+    try:
+        n = csr_t.num_nodes
+        f = g.shape[1] // h
+        total = 0.0
+        for k in range(h):
+            a = torch.sparse_csr_tensor(csr_t.indptr, csr_t.cols[:e], w_t[:e, k].contiguous(), size=(n, n),
+                                        check_invariants=False)
+            gk = g[:, k * f:(k + 1) * f].contiguous()
+            fk = fs[:, k * f:(k + 1) * f].contiguous()
+            total += cuda_ms(lambda: torch.sparse.mm(a, gk), iters=3)
+            total += cuda_ms(lambda: torch.sparse.sampled_addmm(a, fk, gk.t(), beta=0.0), iters=3)
+            del a, gk, fk
+        return total
+    except (RuntimeError, TypeError) as exc:
+        print(f"library yardstick sparse.mm + sampled_addmm unavailable: {exc}")
+        return None
+
+
+def phase_rowmask_ppi(dev, ppi):
+    """The rowmask route at 32 x 4 on the PPI-sized graph (818,716 edges:
+    the bf16 stream): ``sparse_gat_attention`` forward and backward with the
+    launch counts set to 0 just before and read just after (K5, K1 with
+    heads and the denominator, K2 with heads, the no-gather sum twice); the
+    output, ``d feat``, ``d el`` and ``d er`` against an f64 recomputation
+    (``ROWMASK_OUT_TOL``, ``ROWMASK_SCORE_TOL``); then each kernel at the
+    route's own shapes, held against its plain version and timed beside it,
+    a library yardstick and its bound by bytes, with the longest work item
+    of its launch."""
+    from stgraph_tpu_torch.ops import attention as A
+    from stgraph_tpu_torch.ops import segment_kernels as SK
+    from stgraph_tpu_torch.ops import spmm_cuda
+    from stgraph_tpu_torch.ops.spmm_blocked import positions_in
+    from stgraph_tpu_torch.ops.spmm_kernels import (
+        spmm_rowmask,
+        spmm_rowmask_bwd,
+        spmm_rowmask_bwd_plain,
+        spmm_rowmask_plain,
+    )
+
+    graph = ppi["graph"]
+    csr, csr_t = graph.fwd_csr, graph.bwd_csr
+    n = csr.num_nodes
+    e = csr.num_edges
+    h, f = ROWMASK_PPI_TILING
+    stream = spmm_cuda._stream_dtype(csr, torch.float32)
+    check(stream == torch.bfloat16, "the PPI-sized graph should stream bf16")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    el, er = (torch.randn(n, h, device=dev, generator=gen) for _ in range(2))
+    fs, g = (torch.randn(n, h, f, device=dev, generator=gen) for _ in range(2))
+    ts = [t.clone().requires_grad_() for t in (el, er, fs)]
+    reset_counts()
+    t = time.perf_counter()
+    out = A.sparse_gat_attention(csr, ts[0][..., None], ts[1][..., None], ts[2], negative_slope=GAT_SLOPE,
+                                 csr_t=csr_t)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    counts = read_counts()
+    check(counts == only(K1=1, K2=1, K5=1, K1_nogather=2), f"the rowmask route at PPI size launched {counts}")
+    refs, masses = rowmask_reference(csr, el, er, fs, g, GAT_SLOPE)
+    errs = {}
+    for name, got, ref, mass, tol in zip(
+            ("out", "d el", "d er", "d feat"), (out.detach(), ts[0].grad, ts[1].grad, ts[2].grad), refs, masses,
+            (ROWMASK_OUT_TOL, ROWMASK_SCORE_TOL, ROWMASK_SCORE_TOL, ROWMASK_OUT_TOL)):
+        err = (got.double() - ref).abs()
+        ratio = _err_over_mass(err, mass)
+        errs[name] = {"max_abs_err": err.max().item(), "err_over_mass": ratio, "tol": tol}
+        print(f"rowmask-ppi {name}: vs f64 max_abs_err {err.max().item():.3e}, worst err/sum|terms| "
+              f"{ratio:.2e} (tol {tol:.4g}) {'ok' if ratio <= tol else 'FAIL'}")
+        check(ratio <= tol, f"the rowmask route at PPI size: {name} disagrees with the f64 recomputation ({ratio})")
+    del refs, masses, out
+    print(f"rowmask-ppi: N={n} E={e} {h} x {f} bf16 stream, forward + backward {step_s:.4f} s (host clock, "
+          f"first call), launches {counts}")
+
+    # each kernel at the route's own shapes
+    records, worst = {}, {"K5": 0.0, "K1_nogather": 0.0, "K1": 0.0, "K2": 0.0}
+    block = COMPOSED_PLAIN_EDGE_BLOCK
+    with torch.inference_mode():
+        rows, cols = csr.rows_clamped, csr.cols_clamped
+        s0 = el.index_select(0, cols) + er.index_select(0, rows)
+        s = torch.where(s0 >= 0, s0, GAT_SLOPE * s0)
+        m = SK.segment_max_wide(csr, s)
+        check(torch.equal(m, SK.segment_max_wide_plain(csr, s, block)), "K5 at the PPI shape differs from plain")
+        w = torch.where(csr.edge_mask[:, None], torch.exp(s - m.index_select(0, rows)), torch.zeros((), device=dev))
+        fs2 = fs.reshape(n, h * f)
+        gu = torch.randn(n, h * f, device=dev, generator=gen)
+        w_t = w.index_select(0, positions_in(csr, csr_t.eids))
+        ds0 = torch.randn(csr.capacity, h, device=dev, generator=gen) * w
+        ds0_t = ds0.index_select(0, positions_in(csr, csr_t.eids))
+        cases = (
+            ("K5", "forward", csr, lambda: SK.segment_max_wide(csr, s),
+             lambda: SK.segment_max_wide_plain(csr, s, block), None,
+             lambda: _library_segment_sum_ms(csr, s, e, "max"), wide_bound(n, e, h), "torch.segment_reduce(max)"),
+            ("K1_nogather", "transpose (d el)", csr_t, lambda: SK.segment_sum_wide(csr_t, ds0_t),
+             lambda: SK.segment_sum_wide_plain(csr_t, ds0_t, block),
+             lambda: SK.segment_sum_wide_plain(csr_t, ds0_t.abs(), block),
+             lambda: _library_segment_sum_ms(csr_t, ds0_t, e), wide_bound(n, e, h), "torch.segment_reduce(sum)"),
+            ("K1_nogather", "forward (d er)", csr, lambda: SK.segment_sum_wide(csr, ds0),
+             lambda: SK.segment_sum_wide_plain(csr, ds0, block),
+             lambda: SK.segment_sum_wide_plain(csr, ds0.abs(), block),
+             lambda: _library_segment_sum_ms(csr, ds0, e), wide_bound(n, e, h), "torch.segment_reduce(sum)"),
+            ("K1", "forward", csr,
+             lambda: spmm_rowmask(csr, w, fs2, heads=h, with_denom=True, stream_dtype=stream),
+             lambda: spmm_rowmask_plain(csr, w, fs2, stream, block, heads=h, with_denom=True),
+             lambda: (spmm_rowmask_plain(csr, w, fs2.abs(), stream, block, heads=h),
+                      spmm_rowmask_plain(csr, w, fs2, stream, block, heads=h, with_denom=True)[1]),
+             lambda: _library_multihead_ms(csr, w, fs2, h, e), rowmask_bound(n, e, h, f),
+             "torch.sparse.mm, one call a head"),
+            ("K2", "transpose", csr_t,
+             lambda: spmm_rowmask_bwd(csr_t, w_t, gu, fs2, stream_dtype=stream, heads=h),
+             lambda: spmm_rowmask_bwd_plain(csr_t, w_t, gu, fs2, stream, block, heads=h),
+             lambda: spmm_rowmask_bwd_plain(csr_t, w_t, gu.abs(), fs2.abs(), stream, block, heads=h),
+             lambda: _library_multihead_bwd_ms(csr_t, w_t, gu, fs2, h, e), rowmask_bwd_bound(n, e, h, f),
+             "torch.sparse.mm + torch.sparse.sampled_addmm, one each a head"),
+        )
+        for key, where, c, kernel, plain, mass, library, bound, lib_name in cases:
+            got = kernel()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = plain()
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            if mass is None:  # a maximum: bit for bit
+                a, r = (0.0, 0.0) if torch.equal(got[0], ref[0]) else (float("inf"), float("inf"))
+            else:
+                ms_ = mass()
+                ms_ = ms_ if isinstance(ms_, tuple) else (ms_,)
+                stats = _stats([x for x in got if x is not None], list(ref), list(ms_))
+                a, r = max(x[0] for x in stats), max(x[1] for x in stats)
+            check(r <= KERNEL_TOL, f"{key} at the PPI shape ({where}) disagrees with its plain version: {r}")
+            del got, ref
+            ms = cuda_ms(kernel, iters=20, warmup=2)
+            plain_ms = cuda_ms(plain, iters=2, warmup=1)
+            lib = library()
+            bound_ms, bound_by, nbytes, ops = bound
+            item = longest_item(c)
+            if key in ("K1", "K2"):
+                sname = "bf16"
+            else:  # K5 reads f32; the no-gather sum by its rule (818,716 slots: bf16)
+                sname = "bf16" if key == "K1_nogather" and SK.wide_stream_is_bf16(c, ds0) else "f32"
+            print(f"{key}-ppi {where} {h} x {f} ({sname}): {ms:.4f} ms (plain {plain_ms:.2f} ms, {lib_name} "
+                  f"{lib} ms, bound {bound_ms:.4f} ms by {bound_by}); longest item {item} edges; max_abs_err "
+                  f"{a:.3e} (err/sum|terms| {r:.2e})")
+            worst[key] = max(worst[key], a)
+            records.setdefault(key, []).append(
+                {"where": where, "H": h, "F": f if key in ("K1", "K2") else 1, "E": e, "N": n, "stream": sname,
+                 "longest_item": item, "ms": ms, "plain_ms": plain_ms, "library_ms": lib, "library": lib_name,
+                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops, "max_abs_err": a,
+                 "err_over_mass": r})
+    return {"counts": counts, "errors": errs, "step_s": step_s, "per_launch": records, "max_abs_err": worst}
 
 
 # -- dynamic graphs: the lazy store pair, K6 and K7 --------------------------
@@ -2523,11 +3022,15 @@ def phase_dtdg_training(dev, args, workdir, name):
             "loss_vs_naive": [loss_pair, loss_naive], "grad_err_over_max": grad_rows, "profile": profile}
 
 
-def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, library=None):
+def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, library=None, paths=None):
     """One kernel's entry of the kernels line: launches summed over the main
-    paths' runs, times summed over the launches of one request (K1, K4) or
-    one training step (K2, K8 with its aux outputs, K9; K3 and K10: a step of
-    the PPI GAT) at the main path's shapes."""
+    paths' runs (``paths``, default all: K1's and K2's one-head and heads
+    modes count on their own paths), times summed over the launches of one
+    request (K1, K4) or one training step (K2, K8 with its aux outputs, K9;
+    K3 and K10: a step of the PPI GAT; K5, the no-gather sum and the heads
+    modes: a step of the rowmask route at PPI size) at the main path's
+    shapes."""
+    by_path = {path: counts for path, counts in by_path.items() if paths is None or path in paths}
     return {
         "name": name,
         "route": "cuda",
@@ -2543,7 +3046,8 @@ def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, 
         "library_ms": (None if any(p["library_ms"] is None for p in per_launch)
                        else sum(p["library_ms"] for p in per_launch)),
         "library": library,
-        "per_launch": [{k: p[k] for k in ("H", "F", "aux", "ms", "plain_ms", "bound_ms", "library_ms") if k in p}
+        "per_launch": [{k: p[k] for k in ("where", "H", "F", "aux", "stream", "longest_item", "ms", "plain_ms",
+                                          "bound_ms", "library_ms") if k in p}
                        for p in per_launch],
     }
 
@@ -2618,13 +3122,18 @@ def main() -> int:
             record["gat_check"] = phase_gat_vs_plain(dev, args, workdir)
             record["cora"] = phase_cora(dev, args, workdir)
             record["pubmed_gat"] = phase_pubmed_gat(dev, args, workdir)
+            record["pubmed_rowmask"] = phase_pubmed_rowmask(dev, args, workdir)
         record["tgcn"] = phase_tgcn(dev, rng)
         # The composed GAT route at PPI size, the ogbn graph released
         record["composed_checks"] = phase_composed_kernels_vs_plain(dev, np.random.default_rng(args.seed + 5))
+        record["rowmask_checks"] = phase_rowmask_kernels_vs_plain(dev, np.random.default_rng(args.seed + 7))
         ppi = phase_ppi_gat(dev, args)
         record["ppi"] = ppi["record"]
         composed_launch, composed_err = phase_composed_at_main_shapes(dev, ppi)
         record["composed_main"] = composed_launch
+        rowmask_ppi = phase_rowmask_ppi(dev, ppi)
+        record["rowmask_ppi"] = {k: v for k, v in rowmask_ppi.items() if k != "per_launch"}
+        record["rowmask_main"] = rowmask_ppi["per_launch"]
         del ppi
         torch.cuda.empty_cache()
         # The dynamic-graph phases, the ogbn graph and models released
@@ -2645,17 +3154,41 @@ def main() -> int:
     by_path = {"serving": gcn_counts, "training": record["training"]["launches"],
                "gat-serving": record["gat_serving"]["launches"], "gat-training": gat_train_counts,
                "composed-serving": composed["counts"], "ppi-serving": record["ppi"]["serve_launches"],
-               "ppi-training": record["ppi"]["train_launches"], "dyn-step": record["dyn_step"]["launches"]}
+               "ppi-training": record["ppi"]["train_launches"], "dyn-step": record["dyn_step"]["launches"],
+               "pubmed-rowmask": record["pubmed_rowmask"]["launches"], "rowmask-ppi": rowmask_ppi["counts"]}
     by_path.update({f"dtdg-training:{name}": r["launches"] for name, r in record["dtdg_training"].items()})
+    rowmask_paths = ("pubmed-rowmask", "rowmask-ppi")
+    one_head_paths = tuple(path for path in by_path if path not in rowmask_paths)
+    rowmask_main, rowmask_checks = rowmask_ppi["per_launch"], record["rowmask_checks"]["max_abs_err"]
+    h, f = ROWMASK_PPI_TILING
     kernels = [
-        kernel_entry("spmm_rowmask (K1)", "stgraph_tpu_torch/csrc/spmm_rowmask.cu",
-                     "stgraph_tpu/ops/segment_pallas.py:761", "K1", by_path,
-                     max(record["k1_checks"]["max_abs_err"], k1_err), k1_launch),
-        kernel_entry("spmm_sddmm_rowmask (K2)", "stgraph_tpu_torch/csrc/spmm_sddmm_rowmask.cu",
+        kernel_entry("spmm_rowmask (K1, one head: H=1, F=128, 128, 47, bf16 stream)",
+                     "stgraph_tpu_torch/csrc/spmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:761", "K1", by_path,
+                     max(record["k1_checks"]["max_abs_err"], k1_err), [dict(p, H=1) for p in k1_launch],
+                     paths=one_head_paths),
+        kernel_entry(f"spmm_rowmask (K1, heads and denominator: H={h}, F={f}, bf16 stream at PPI size, f32 on "
+                     "Pubmed)", "stgraph_tpu_torch/csrc/spmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:761",
+                     "K1", by_path, max(rowmask_checks["K1"], rowmask_ppi["max_abs_err"]["K1"]), rowmask_main["K1"],
+                     rowmask_main["K1"][0]["library"], paths=rowmask_paths),
+        kernel_entry("spmm_sddmm_rowmask (K2, one head: H=1, F=128, 128, 47, bf16 stream)",
+                     "stgraph_tpu_torch/csrc/spmm_sddmm_rowmask.cu",
                      "stgraph_tpu/ops/segment_pallas.py:1248", "K2", by_path,
                      max(record["k2_checks"]["max_abs_err"], k2_err),
                      # a training step's three launches: F = 128, 128, 47
-                     [p for f in (128, 128, 47) for p in k2_launch if p["F"] == f]),
+                     [dict(p, H=1) for f_ in (128, 128, 47) for p in k2_launch if p["F"] == f_],
+                     paths=one_head_paths),
+        kernel_entry(f"spmm_sddmm_rowmask (K2, heads: H={h}, F={f}, bf16 stream at PPI size, f32 on Pubmed)",
+                     "stgraph_tpu_torch/csrc/spmm_sddmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:1248", "K2",
+                     by_path, max(rowmask_checks["K2"], rowmask_ppi["max_abs_err"]["K2"]), rowmask_main["K2"],
+                     rowmask_main["K2"][0]["library"], paths=rowmask_paths),
+        kernel_entry(f"segment_sum_wide (K1's no-gather mode, K={h}, bf16 stream at PPI size, f32 on Pubmed)",
+                     "stgraph_tpu_torch/csrc/segment_sum_wide.cu", "stgraph_tpu/ops/segment_pallas.py:710",
+                     "K1_nogather", by_path, max(rowmask_checks["K1_nogather"],
+                                                 rowmask_ppi["max_abs_err"]["K1_nogather"]),
+                     rowmask_main["K1_nogather"], rowmask_main["K1_nogather"][0]["library"]),
+        kernel_entry(f"segment_max_wide (K5, K={h})", "stgraph_tpu_torch/csrc/segment_max_wide.cu",
+                     "stgraph_tpu/ops/segment_pallas.py:466", "K5", by_path, rowmask_ppi["max_abs_err"]["K5"],
+                     rowmask_main["K5"], rowmask_main["K5"][0]["library"]),
         kernel_entry("segment_sum_narrow (K3)", "stgraph_tpu_torch/csrc/segment_sum_narrow.cu",
                      "stgraph_tpu/ops/segment_pallas.py:155", "K3", by_path,
                      max(record["composed_checks"]["max_abs_err"]["K3"], composed_err["K3"],

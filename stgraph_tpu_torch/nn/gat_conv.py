@@ -9,17 +9,23 @@ bias), and the attention takes one of the JAX layer's routes
     whole softmax through the dense adjacency (``ops.attention``);
   * ``sparse`` ('auto' or 'sparse' above that): flash-GAT's kernels, K4
     and K8 forward and K9 backward, for the tilings they take
-    (``flash_supported``), else the composed route over the graph's blocked
-    layouts (K4, K3 and K10 forward; K10 and K3 backward), whose other
-    tilings wait for K5 and K1/K2's multi-head modes on CUDA;
+    (``flash_supported``); else the composed route: its rowmask branch (K1's
+    and K2's heads modes) where the row-wise kernel takes the tiling, or the
+    blocked kernel K10 over the graph's blocked layouts, with K4/K3 (K5 and
+    K1's no-gather mode past 16 heads) for the segment reductions;
   * ``torch`` (or any other compiler ``impl``): the vertex program
     ``softmax_dst(leaky(el_src + er_dst))`` through the port's compiler.
 
 Dropout: ``feat_drop`` and ``attn_drop`` act in training mode, drawing
-from the ``generator`` given to ``forward``. Attention dropout runs on the
-dense route and on the composed edge-domain route; on the flash route it
-needs the kernels' stateless ``edge_keep_mask`` hash, which is not ported,
-and raises ``NotImplementedError``.
+from the ``generator`` given to ``forward``. Attention dropout takes the
+JAX layer's routes (``gat_conv.py:122-173``): the dense route where it
+applies, else the edge-domain route (``composed_gat_attention_dropout``,
+plain torch) on the CPU at every tiling, as the reference off its TPU, and
+on CUDA at the tilings off the reference's flash predicate
+(``flash_gat.reference_flash_tiling``). At those flash tilings the
+reference keeps dropout inside its flash kernels (the stateless
+``edge_keep_mask`` hash); K8's and K9's dropout mode is not ported yet, so
+there, on CUDA, it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from torch import nn
 
 from stgraph_tpu_torch.compiler import STGraph, dsl
 from stgraph_tpu_torch.graph.csr import CSR
+from stgraph_tpu_torch.ops.flash_gat import reference_flash_tiling
 from stgraph_tpu_torch.utils.device import resolve_device
 
 # Same scale as ops.message._DENSE_BUDGET_BYTES: an (N, N) f32 mask.
@@ -110,13 +117,16 @@ class GATConv(nn.Module):
                 csr, el, er, feat_src, negative_slope=slope,
                 attn_drop_rate=self.attn_drop if use_attn_drop else 0.0, generator=generator,
             )
-        elif use_attn_drop and self.impl in ("auto", "sparse") and A.flash_path_available(
-            csr, self.num_heads, self.out_feats
+        elif (
+            use_attn_drop
+            and self.impl in ("auto", "sparse")
+            and feat.device.type != "cpu"
+            and reference_flash_tiling(self.num_heads, self.out_feats)
         ):
             raise NotImplementedError(
-                "attention dropout on the flash route needs K8's and K9's dropout mode "
-                "(the stateless edge_keep_mask hash), which is not ported yet "
-                "(ROADMAP.md, §2 'K8/K9 dropout mode'); train with attn_drop=0"
+                f"attention dropout at heads={self.num_heads}, F={self.out_feats} (a flash tiling of the "
+                "reference) on CUDA needs K8's and K9's dropout mode (the stateless edge_keep_mask hash), "
+                "kernel item E, which is not ported yet (ROADMAP.md); train with attn_drop=0"
             )
         elif use_attn_drop:
             rst = A.composed_gat_attention_dropout(csr, el, er, feat_src, slope, self.attn_drop, generator)

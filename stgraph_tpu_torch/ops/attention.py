@@ -8,21 +8,21 @@ Counterpart of ``stgraph_tpu/ops/attention.py``:
     destination row and applied as one matmul. Heads run one at a time to
     bound the N^2 temporary. Duplicate edges count with their multiplicity;
     rows without edges come out as exactly 0.
-  * ``sparse_gat_attention`` (``:113-359``): the flash route
-    (``ops.flash_gat``: K4 and K8 forward, K9 backward) whenever
-    ``flash_supported``; otherwise the composed route, ``ComposedGat``, the
-    JAX custom VJP's non-rowmask branch (``:225-280`` forward, ``:282-352``
-    backward): K4 for the stability maximum, K3 for the softmax
-    denominator, the blocked kernel K10 for the weighted aggregation; in
-    backward K10 on the transpose layout for ``d feat``, the per-head SDDMM
-    in plain torch, and K3 for ``d er`` and ``d el``.
+  * ``sparse_gat_attention`` (``:113-359``) routes by the tiling alone:
+    the flash route (``ops.flash_gat``: K4 and K8 forward, K9 backward)
+    whenever ``flash_supported``; else the composed route's rowmask branch,
+    ``RowmaskGat`` (the JAX custom VJP's ``use_rowmask`` branch,
+    ``:197-200, 236-256, 287-325``), for the tilings the row-wise kernel
+    takes (``rowmask_eligible``): the stability max, K1's heads and
+    denominator modes forward, K2's heads mode and two segment sums
+    backward; else ``ComposedGat``, the non-rowmask branch (``:225-280``
+    forward, ``:282-352`` backward) over the blocked kernel K10.
+  * The segment reductions of both composed branches (``_segment``) are
+    the narrow kernels K4 (max) and K3 (sum) up to 16 heads, and K5 and
+    K1's no-gather mode (``segment_sum_wide``) past 16.
 
-On CUDA the composed route takes the tilings that the JAX package sends to
-its blocked kernel (H > 1 with ``128 % F != 0`` or ``(H * F) % 128 != 0``)
-with H <= 16. It raises for the others, naming what they wait for: K5 (the
-wide segment max) for H > 16, and K1's and K2's multi-head modes for the
-rowmask tilings off the flash route. On the CPU it runs the kernels' plain
-versions (and the torch segment ops past 16 heads).
+Every tiling runs on CUDA. On the CPU the same functions run the kernels'
+plain versions.
 """
 
 from __future__ import annotations
@@ -36,7 +36,14 @@ from stgraph_tpu_torch.graph.csr import CSR
 from stgraph_tpu_torch.ops import message as M
 from stgraph_tpu_torch.ops import segment as seg
 from stgraph_tpu_torch.ops.flash_gat import flash_gat_attention, flash_supported
-from stgraph_tpu_torch.ops.segment_kernels import MAX_NARROW_K, segment_max_narrow, segment_sum_narrow
+from stgraph_tpu_torch.ops.segment_kernels import (
+    MAX_NARROW_K,
+    segment_max_narrow,
+    segment_max_wide,
+    segment_sum_narrow,
+    segment_sum_wide,
+)
+from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_bwd
 from stgraph_tpu_torch.ops.spmm_blocked import (
     _ensure_blocked,
     _to_blocked_w_mh,
@@ -48,6 +55,7 @@ from stgraph_tpu_torch.ops.spmm_blocked import (
 
 __all__ = [
     "ComposedGat",
+    "RowmaskGat",
     "composed_gat_attention_dropout",
     "dense_gat_attention",
     "flash_path_available",
@@ -116,24 +124,17 @@ def dense_gat_attention(
     return torch.stack(outs, dim=1)
 
 
-def _require_cpu(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cpu":
-        raise NotImplementedError(
-            f"{what} on {t.device.type} runs on the CPU only: on CUDA the port gives attention "
-            "dropout to K8's and K9's dropout mode (the stateless edge_keep_mask hash), which is "
-            "not ported yet (ROADMAP.md), and the composed route's kernels (K3, K4, K10) take no "
-            "dropout mask; train with attn_drop=0"
-        )
-
-
 def _segment(csr: CSR, vals: torch.Tensor, reduce: str) -> torch.Tensor:
-    """K4 (``max``) or K3 (``sum``) of a (capacity, H) plane; past
-    ``MAX_NARROW_K`` heads (which CUDA callers never reach) the torch segment
-    ops, with the same conventions."""
+    """K4 (``max``) or K3 (``sum``) of a (capacity, H) plane, and K5 or K1's
+    no-gather mode (``segment_sum_wide``) past ``MAX_NARROW_K`` heads, as
+    the JAX package's ``aggregate`` sends them on its TPU."""
     if vals.shape[1] <= MAX_NARROW_K:
         return (segment_max_narrow if reduce == "max" else segment_sum_narrow)(csr, vals)
-    fn = seg.segment_max if reduce == "max" else seg.segment_sum
-    return fn(vals, csr.rows, csr.num_nodes, edge_mask=csr.edge_mask)
+    return (segment_max_wide if reduce == "max" else segment_sum_wide)(csr, vals)
+
+
+def _leaky(s0: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(s0 >= 0, s0, slope * s0)
 
 
 class ComposedGat(torch.autograd.Function):
@@ -184,6 +185,72 @@ class ComposedGat(torch.autograd.Function):
         return dl.to(el2.dtype), der.to(er2.dtype), dfs.reshape(n, h, f).to(fs.dtype), None, None, None, None, None
 
 
+class RowmaskGat(torch.autograd.Function):
+    """The composed route's rowmask branch with the JAX package's
+    hand-derived backward (``stgraph_tpu/ops/attention.py:236-256`` forward,
+    ``:287-325`` backward), in the same order and the same edge orders.
+
+    Forward, with ``s = leaky(el[src] + er[dst])`` per edge and head (CSR
+    order): ``m = max_dst s`` (``_segment``: K4, or K5 past 16 heads),
+    ``w = exp(s - m[dst])`` (0 on padding slots), then K1 with ``heads``
+    and the denominator in one pass: ``u = sum_dst w feat[src]`` and
+    ``den = sum_dst w``; ``out = u / max(den, tiny)``.
+
+    Backward, for a cotangent ``g`` of ``out``, entirely in transpose edge
+    order: ``gu = g / den`` and the node-wise ``c = <g, out> / den``; the
+    weights recomputed per transpose edge from node tables (``er``, ``m``
+    and ``c`` in one gather at the destinations, ``el`` at the sources);
+    K2 with ``heads`` on the transpose CSR gives ``d feat`` and
+    ``dw = <feat[src], gu[dst]>`` per head in one pass; ``ds0 = w (dw -
+    c[dst]) leaky'(s0)``; ``d el`` by ``_segment`` on the transpose CSR and
+    ``d er`` by ``_segment`` on the forward CSR after the one crossing of
+    edge orders (``perm_f``). ``d m = 0``: the softmax is invariant to the
+    shift.
+
+    Where it departs from JAX: the forward does not save ``w``. The JAX
+    residual carries it, but its rowmask backward never reads it, so the
+    (capacity, H) buffer would only hold memory. ``stream_dtype`` is the
+    caller's: bf16 on graphs of at least ``spmm_cuda._BF16_STREAM_MIN_EDGES``
+    edge slots, as JAX's ``sdt``.
+    """
+
+    @staticmethod
+    def forward(ctx, el2, er2, fs, csr, csr_t, slope, stream_dtype):
+        n, h, f = fs.shape
+        rows, cols = csr.rows_clamped, csr.cols_clamped
+        s = _leaky(el2.index_select(0, cols) + er2.index_select(0, rows), slope)
+        m = _segment(csr, s, "max")
+        w = torch.exp(s - m.index_select(0, rows))
+        w = torch.where(csr.edge_mask[:, None], w, torch.zeros((), device=w.device))
+        u, den = spmm_rowmask(csr, w, fs.reshape(n, h * f), heads=h, with_denom=True, stream_dtype=stream_dtype)
+        denom = den.clamp(min=_TINY)
+        out = u.reshape(n, h, f) / denom[:, :, None]
+        ctx.graph = (csr, csr_t, slope, stream_dtype)
+        ctx.save_for_backward(el2, er2, fs, m, denom, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        el2, er2, fs, m, denom, out = ctx.saved_tensors
+        csr, csr_t, slope, stream_dtype = ctx.graph
+        n, h, f = fs.shape
+        g = g.float()
+        gu = g / denom[:, :, None]
+        c = (g * out).sum(-1) / denom
+        side_t = torch.cat([er2, m, c], dim=1).index_select(0, csr_t.cols_clamped)  # one (E, 3H) gather
+        er_t, m_t, c_t = side_t[:, :h], side_t[:, h:2 * h], side_t[:, 2 * h:]
+        s0_t = el2.index_select(0, csr_t.rows_clamped) + er_t
+        w_t = torch.exp(_leaky(s0_t, slope) - m_t)
+        w_t = torch.where(csr_t.edge_mask[:, None], w_t, torch.zeros((), device=w_t.device))
+        dfs, dw_t = spmm_rowmask_bwd(
+            csr_t, w_t, gu.reshape(n, h * f), fs.reshape(n, h * f), stream_dtype=stream_dtype, heads=h
+        )
+        ds0_t = w_t * (dw_t.reshape(-1, h) - c_t) * torch.where(s0_t >= 0, 1.0, slope)
+        dl = _segment(csr_t, ds0_t, "sum")
+        der = _segment(csr, ds0_t.index_select(0, positions_in(csr_t, csr.eids)), "sum")
+        return dl.to(el2.dtype), der.to(er2.dtype), dfs.reshape(n, h, f).to(fs.dtype), None, None, None, None
+
+
 def sparse_gat_attention(
     csr: CSR,
     el: torch.Tensor,
@@ -196,40 +263,32 @@ def sparse_gat_attention(
 ) -> torch.Tensor:
     """Large-graph GAT attention: (N, H, 1), (N, H, 1), (N, H, F) -> (N, H, F).
 
-    Flash route (K4, K8; K9 in backward) when ``flash_supported(H, F)``,
-    with features streamed as bf16 on graphs of at least
-    ``spmm_cuda._BF16_STREAM_MIN_EDGES`` edge slots, as in the JAX package.
-    Otherwise the composed route (``ComposedGat``, f32) over the blocked
-    layouts ``blocked`` and ``blocked_t`` of ``csr`` and of its transpose
-    ``csr_t`` (each built once per CSR when not given).
+    Routed by the tiling alone, with features streamed as bf16 on graphs of
+    at least ``spmm_cuda._BF16_STREAM_MIN_EDGES`` edge slots, as in the JAX
+    package: the flash route (K4, K8; K9 in backward) when
+    ``flash_supported(H, F)``; else ``RowmaskGat`` when the row-wise kernel
+    takes the tiling (``rowmask_eligible``: one head, or ``128 % F == 0``
+    and ``(H * F) % 128 == 0``); else the composed route (``ComposedGat``,
+    f32) over the blocked layouts ``blocked`` and ``blocked_t`` of ``csr``
+    and of its transpose ``csr_t`` (each built once per CSR when not given).
     """
     from stgraph_tpu_torch.ops import spmm_cuda
 
     n, h, f = feat_src.shape
+    sdt = spmm_cuda._stream_dtype(csr, torch.float32)
     if flash_supported(h, f):
-        sdt = spmm_cuda._stream_dtype(csr, torch.float32)
         out = flash_gat_attention(
             csr, el[..., 0], er[..., 0], feat_src.reshape(n, h * f), h, negative_slope, sdt
         )
         return out.reshape(n, h, f).to(feat_src.dtype)
-    if feat_src.device.type != "cpu":
-        if h > MAX_NARROW_K:
-            raise NotImplementedError(
-                f"GAT attention with heads={h} > {MAX_NARROW_K} on CUDA needs the wide segment-max "
-                "kernel K5, which is not ported yet (ROADMAP.md)"
-            )
-        if rowmask_eligible(h, f):
-            raise NotImplementedError(
-                f"GAT attention with heads={h}, F={f} off the flash route needs K1's and K2's "
-                "multi-head modes (the JAX package's rowmask tilings), which are not ported yet "
-                "(ROADMAP.md); the flash route takes heads <= 16 and heads * F <= 256"
-            )
     if csr_t is None:
         csr_t = csr.transpose()
-    blocked, blocked_t = _ensure_blocked(csr, blocked, blocked_t, csr_t)
-    out = ComposedGat.apply(
-        el[..., 0].float(), er[..., 0].float(), feat_src.float(), csr, csr_t, blocked, blocked_t, negative_slope
-    )
+    scores = (el[..., 0].float(), er[..., 0].float(), feat_src.float(), csr, csr_t)
+    if rowmask_eligible(h, f):
+        out = RowmaskGat.apply(*scores, negative_slope, sdt)
+    else:
+        blocked, blocked_t = _ensure_blocked(csr, blocked, blocked_t, csr_t)
+        out = ComposedGat.apply(*scores, blocked, blocked_t, negative_slope)
     return out.to(feat_src.dtype)
 
 
@@ -243,9 +302,9 @@ def composed_gat_attention_dropout(
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """The edge-domain route with attention dropout (the JAX ``GATConv``'s
-    fallback, ``gat_conv.py:146-173``): explicit per-edge coefficients, so
-    the keep mask applies to each; differentiated by autograd."""
-    _require_cpu(feat_src, "GAT attention dropout off the flash route")
+    route off its flash tilings, ``gat_conv.py:146-173``): explicit per-edge
+    coefficients, so the keep mask applies to each; plain torch on any
+    device, as JAX's is plain XLA, differentiated by autograd."""
     n = csr.num_nodes
     s = M.gather_src(csr, el[..., 0]) + M.gather_dst(csr, er[..., 0])
     s = torch.where(s >= 0, s, negative_slope * s)

@@ -34,7 +34,8 @@ and the weight are rounded to bf16 and so is their product, while sums,
 ``den``, ``el``, ``er``, ``m`` and ``c`` stay f32.
 
 Dropout inside the kernels (the stateless ``edge_keep_mask`` hash) is not
-ported yet: ``attn_drop`` is refused here.
+ported yet: ``attn_drop`` is refused here, and ``GATConv`` refuses it on
+CUDA at the tilings ``reference_flash_tiling`` names.
 
 Each wrapper takes its plain version only because the tensors it was given
 lie on the CPU. For a CUDA tensor it launches the kernel or raises.
@@ -67,6 +68,7 @@ __all__ = [
     "flash_gat_fwd",
     "flash_gat_fwd_plain",
     "flash_supported",
+    "reference_flash_tiling",
     "stability_max",
 ]
 
@@ -96,6 +98,25 @@ def flash_supported(heads: int, f: int) -> bool:
     ``1 <= heads * f <= 256``. Unlike the TPU kernels (``flash_gat.py:99``)
     there is no 128-lane rule: any ``f`` up to the width bound works."""
     return 1 <= heads <= FLASH_MAX_HEADS and f >= 1 and heads * f <= FLASH_MAX_WIDTH
+
+
+# The TPU kernels' side tile: 128 lanes, which must hold six H-wide fields.
+_REFERENCE_SIDE = 128
+
+
+def reference_flash_tiling(heads: int, f: int) -> bool:
+    """The JAX package's ``flash_supported`` (``stgraph_tpu/ops/flash_gat.py:99-106``),
+    copied: the tilings its TPU sends to the flash kernels. One head takes
+    ``f % 128 == 0`` or ``f <= 128``; several need ``128 % f == 0``,
+    ``(heads * f) % 128 == 0`` and ``6 * heads <= 128``. ``GATConv`` refuses
+    attention dropout on CUDA exactly at these tilings, until K8's and K9's
+    dropout mode is ported; off them the reference trains on its edge-domain
+    route, and so does the port."""
+    if heads < 1 or f < 1:
+        return False
+    if heads == 1:
+        return f % 128 == 0 or f <= 128
+    return 128 % f == 0 and (heads * f) % 128 == 0 and 6 * heads <= _REFERENCE_SIDE
 
 
 def _leaky(s0: torch.Tensor, slope: float) -> torch.Tensor:

@@ -28,6 +28,8 @@ SOURCES: Dict[str, str] = {
     "spmm_sddmm_rowmask": "spmm_sddmm_rowmask.cu",  # K2
     "segment_sum_narrow": "segment_sum_narrow.cu",  # K3
     "segment_max_narrow": "segment_max_narrow.cu",  # K4
+    "segment_max_wide": "segment_max_wide.cu",  # K5
+    "segment_sum_wide": "segment_sum_wide.cu",  # K1's no-gather mode
     "spmm_rowid": "spmm_rowid.cu",  # K6
     "rowid_denom": "rowid_denom.cu",  # K7
     "flash_gat_fwd": "flash_gat_fwd.cu",  # K8

@@ -16,12 +16,11 @@ and mean SpMM have a kernel in neither package and run the torch ops.
 
 On CUDA tensors of a graph with at least ``_KERNEL_MIN_EDGES`` edge slots,
 as on the JAX package's TPU: ``aggregate`` sends a narrow (K <= 16) sum or
-mean to K3 and a narrow max to K4; ``spmm`` sends a multi-head weighted sum
-((N, H, F) features, (capacity, H) weights) whose tiling the row-wise
-kernel's multi-head mode would not take to the blocked kernel K10
-(``ops.spmm_blocked``). Still waiting: wide sums for K1's no-gather mode
-(``segment_sum_wide``), wide maxima for K5, and the other multi-head
-tilings for K1's and K2's multi-head modes (those raise).
+mean to K3 and a narrow max to K4, a wide sum or mean to K1's no-gather
+mode (``segment_sum_wide``) and a wide max to K5; ``spmm`` sends a
+multi-head weighted sum ((N, H, F) features, (capacity, H) weights) to
+K1's and K2's multi-head modes where the row-wise kernel takes the tiling,
+and to the blocked kernel K10 (``ops.spmm_blocked``) otherwise.
 """
 
 from __future__ import annotations
@@ -78,31 +77,32 @@ def aggregate(
 ) -> torch.Tensor:
     """Segment-reduce per-edge values into per-destination rows.
 
-    On a CUDA tensor whose trailing width is at most ``MAX_NARROW_K`` (16),
-    on a graph of at least ``_KERNEL_MIN_EDGES`` edge slots, a sum goes to
-    the narrow segment-sum kernel K3, a mean to K3 divided by
-    ``max(in-degree, 1)``, and a max to the narrow segment-max kernel K4
-    (``ops.segment_kernels``), as the JAX package sends them to its Pallas
-    kernels on the TPU (``stgraph_tpu/ops/message.py:94-112``; the port's
-    CSR is always concrete). Every other reduction runs the torch segment
-    ops: wide sums wait for K1's no-gather mode (``segment_sum_wide``), wide
-    maxima for K5, and ``min`` has a kernel in neither package.
+    On a CUDA tensor, on a graph of at least ``_KERNEL_MIN_EDGES`` edge
+    slots, a sum goes to the segment-sum kernels (K3 for a trailing width of
+    at most ``MAX_NARROW_K`` (16), K1's no-gather mode ``segment_sum_wide``
+    past it), a mean to the same sum divided by ``max(in-degree, 1)``, and a
+    max to K4 or K5 (``ops.segment_kernels``), as the JAX package sends them
+    to its Pallas kernels on the TPU (``stgraph_tpu/ops/message.py:94-112``;
+    the port's CSR is always concrete). Every other reduction runs the
+    torch segment ops: CPU tensors, small graphs, and ``min``, which has a
+    kernel in neither package.
     """
     on_card = edge_vals.device.type != "cpu"
     if reduce in ("sum", "mean", "max") and on_card and csr.capacity >= _KERNEL_MIN_EDGES:
-        from stgraph_tpu_torch.ops.segment_kernels import MAX_NARROW_K, SegmentMaxNarrow, SegmentSumNarrow
+        from stgraph_tpu_torch.ops import segment_kernels as SK
 
         trailing = tuple(edge_vals.shape[1:])
         k = int(np.prod(trailing)) if trailing else 1
-        if k <= MAX_NARROW_K:
-            vals = edge_vals.reshape(csr.capacity, k).float()
-            if reduce == "max":
-                out = SegmentMaxNarrow.apply(vals, csr)
-            else:
-                out = SegmentSumNarrow.apply(vals, csr)
-                if reduce == "mean":
-                    out = out / csr.degrees().clamp(min=1).to(out.dtype)[:, None]
-            return out.reshape((csr.num_nodes,) + trailing).to(edge_vals.dtype)
+        narrow = k <= SK.MAX_NARROW_K
+        vals = edge_vals.reshape(csr.capacity, k)
+        if reduce == "max":
+            out = (SK.SegmentMaxNarrow if narrow else SK.SegmentMaxWide).apply(vals.float(), csr)
+        else:
+            # the wide sum keeps the values' dtype: it decides the bf16 stream
+            out = SK.SegmentSumNarrow.apply(vals.float(), csr) if narrow else SK.SegmentSumWide.apply(vals, csr)
+            if reduce == "mean":
+                out = out / csr.degrees().clamp(min=1).to(out.dtype)[:, None]
+        return out.reshape((csr.num_nodes,) + trailing).to(edge_vals.dtype)
     mask = csr.edge_mask if masked else None
     fn = {
         "sum": seg.segment_sum,

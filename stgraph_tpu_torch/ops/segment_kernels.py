@@ -33,6 +33,22 @@ bound is of the same kind: memory, about 0.6 ms at ogbn-products size with
 K = 4. ``SegmentSumNarrow``'s backward is the destination gather
 ``g[rows] * emask`` of the JAX custom VJP, in plain torch.
 
+K5 (``segment_max_wide``, ``csrc/segment_max_wide.cu``) replaces
+``segment_pallas.segment_max_wide`` (``:620-654``) and its Pallas kernel
+``_wide_max_kernel`` (``:466``, through ``_wide_call`` ``:573``): K4's
+maximum for any width K, empty rows 0. K1's no-gather mode
+(``segment_sum_wide``, ``csrc/segment_sum_wide.cu``) replaces
+``segment_pallas.segment_sum_wide`` (``:661-760``), the row-wise SpMM
+kernel run on the (E, K) plane itself: K3's sum for any width, with the
+values rounded to bf16 (f32 sums) when the graph has at least
+``WIDE_BF16_MIN_SLOTS`` edge slots and the values are f32, as the JAX
+package's ``:682-686``. Both are bound by memory (they read the plane once,
+in CSR order) and share one lane mapping: lanes as (edge offset, group of
+4 columns) pairs, so a narrow row keeps every lane busy. ``SegmentMaxWide``
+and ``SegmentSumWide`` carry the JAX custom VJPs (``:648-654`` and
+``:741-747``): the argmax mask (ties double-count, padding gets nothing)
+and the destination gather.
+
 The wrappers take their plain versions only because the tensor they were
 given lies on the CPU. For a CUDA tensor they launch the kernel or raise.
 """
@@ -52,11 +68,19 @@ from stgraph_tpu_torch.ops.spmm_kernels import ROW_CHUNK, _work_items
 __all__ = [
     "MAX_NARROW_K",
     "SegmentMaxNarrow",
+    "SegmentMaxWide",
     "SegmentSumNarrow",
+    "SegmentSumWide",
+    "WIDE_BF16_MIN_SLOTS",
     "segment_max_narrow",
     "segment_max_narrow_plain",
+    "segment_max_wide",
+    "segment_max_wide_plain",
     "segment_sum_narrow",
     "segment_sum_narrow_plain",
+    "segment_sum_wide",
+    "segment_sum_wide_plain",
+    "wide_stream_is_bf16",
 ]
 
 # Largest trailing width the narrow kernel takes (the JAX package's bound).
@@ -70,6 +94,17 @@ _SIGNATURES = {
 _K3_SIGNATURES = {
     "stg_segment_sum_narrow": [_VP, _VP, _VP, _VP, _I, _VP, _I, _I, _VP],
 }
+_K5_SIGNATURES = {
+    "stg_segment_max_wide": [_VP, _VP, _VP, _VP, _I, _VP, _I, _VP, _I, _I, _VP],
+}
+_WIDE_SUM_SIGNATURES = {
+    "stg_segment_sum_wide": [_VP, _VP, _I, _VP, _VP, _I, _VP, _I, _I, _VP],
+}
+
+# f32 values on graphs of at least this many edge slots stream bf16 through
+# the no-gather sum (f32 sums): the JAX package's literal at
+# segment_pallas.py:684, the SpMM's threshold.
+WIDE_BF16_MIN_SLOTS = 200_000
 
 
 def _check(csr: CSR, vals: torch.Tensor, index: Optional[torch.Tensor]) -> int:
@@ -85,6 +120,19 @@ def _check(csr: CSR, vals: torch.Tensor, index: Optional[torch.Tensor]) -> int:
     return k
 
 
+def _max_plain(csr: CSR, vals: torch.Tensor, index: Optional[torch.Tensor], k: int, edge_block: Optional[int]):
+    n = csr.num_nodes
+    e = int(csr.host_arrays()[0][-1])
+    out = torch.full((n, k), float("-inf"), dtype=torch.float32, device=vals.device)
+    block = max(e, 1) if edge_block is None else edge_block
+    for e0 in range(0, e, block):
+        e1 = min(e0 + block, e)
+        v = vals[index[e0:e1].long()] if index is not None else vals[e0:e1]
+        rows = csr.rows[e0:e1].long()[:, None].expand(-1, k)
+        out.scatter_reduce_(0, rows, v.to(torch.float32), "amax", include_self=True)
+    return out.masked_fill_(torch.isneginf(out), 0.0)
+
+
 def segment_max_narrow_plain(
     csr: CSR,
     vals: torch.Tensor,
@@ -98,17 +146,7 @@ def segment_max_narrow_plain(
     blocks of that many, each folded into the running maximum. A maximum is
     exact, so the result does not depend on it.
     """
-    k = _check(csr, vals, index)
-    n = csr.num_nodes
-    e = int(csr.host_arrays()[0][-1])
-    out = torch.full((n, k), float("-inf"), dtype=torch.float32, device=vals.device)
-    block = max(e, 1) if edge_block is None else edge_block
-    for e0 in range(0, e, block):
-        e1 = min(e0 + block, e)
-        v = vals[index[e0:e1].long()] if index is not None else vals[e0:e1]
-        rows = csr.rows[e0:e1].long()[:, None].expand(-1, k)
-        out.scatter_reduce_(0, rows, v.to(torch.float32), "amax", include_self=True)
-    return out.masked_fill_(torch.isneginf(out), 0.0)
+    return _max_plain(csr, vals, index, _check(csr, vals, index), edge_block)
 
 
 def segment_max_narrow(
@@ -164,6 +202,15 @@ def segment_max_narrow(
 segment_max_narrow.launches = 0  # kernel launches since the count was last reset
 
 
+def _max_edge_grad(csr: CSR, v: torch.Tensor, out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The argmax-mask gradient of a segment max over per-edge values ``v``:
+    the row's cotangent to every real edge whose value equals the row's
+    maximum (ties double-count), 0 elsewhere."""
+    rows = csr.rows_clamped.long()
+    is_max = (v == out[rows]) & csr.edge_mask[:, None]
+    return torch.where(is_max, g[rows], torch.zeros((), dtype=g.dtype, device=g.device))
+
+
 class SegmentMaxNarrow(torch.autograd.Function):
     """``segment_max_narrow`` with the argmax-mask gradient: the row's
     cotangent goes to every real edge whose value equals the row's maximum
@@ -181,10 +228,8 @@ class SegmentMaxNarrow(torch.autograd.Function):
     def backward(ctx, g):
         vals, out, index = ctx.saved_tensors
         csr = ctx.csr
-        rows = csr.rows_clamped.long()
         v = vals if index is None else vals[index.clamp(max=vals.shape[0] - 1).long()]
-        is_max = (v == out[rows]) & csr.edge_mask[:, None]
-        dv = torch.where(is_max, g[rows], torch.zeros((), dtype=g.dtype, device=g.device))
+        dv = _max_edge_grad(csr, v, out, g)
         if index is not None:
             valid = csr.edge_mask
             dv = torch.zeros_like(vals).index_add(0, index[valid].long(), dv[valid])
@@ -262,3 +307,154 @@ class SegmentSumNarrow(torch.autograd.Function):
         csr = ctx.csr
         dv = g[csr.rows_clamped.long()] * csr.edge_mask[:, None].to(g.dtype)
         return dv, None
+
+
+def _check_wide(csr: CSR, vals: torch.Tensor) -> int:
+    if vals.dim() != 2 or vals.shape[1] < 1:
+        raise ValueError(f"vals must be (capacity, K) with K >= 1, got {tuple(vals.shape)}")
+    if vals.shape[0] != csr.capacity:
+        raise ValueError(f"per-edge vals must have {csr.capacity} rows, got {vals.shape[0]}")
+    if vals.numel() >= 2**31 or csr.capacity + ROW_CHUNK >= 2**31:
+        raise ValueError("the wide kernels index edges with int32; the plane is too large")
+    return vals.shape[1]
+
+
+def segment_max_wide_plain(csr: CSR, vals: torch.Tensor, edge_block: Optional[int] = None) -> torch.Tensor:
+    """K5's plain version: K4's (a masked ``scatter_reduce`` ``amax``, -inf
+    becomes 0) for any width. Exact, so the kernel equals it bit for bit."""
+    return _max_plain(csr, vals, None, _check_wide(csr, vals), edge_block)
+
+
+def segment_max_wide(csr: CSR, vals: torch.Tensor) -> torch.Tensor:
+    """K5: ``out[d, k] = max over row d of vals[e, k]``, (N, K) f32, any K;
+    empty rows give 0. ``vals`` is (capacity, K) in CSR order. Not
+    differentiable: ``SegmentMaxWide`` is."""
+    k = _check_wide(csr, vals)
+    if vals.device.type == "cpu":
+        return segment_max_wide_plain(csr, vals)
+
+    lib = kernel_lib.load("segment_max_wide", _K5_SIGNATURES)
+    dev = vals.device
+    if csr.device != dev:
+        raise ValueError(f"K5 needs the CSR and vals on one CUDA device, got {csr.device} and {dev}")
+    plane = vals.to(torch.float32).contiguous()
+    n = csr.num_nodes
+    out = torch.empty(n, k, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    item_row, item_beg, split_rows = _work_items(csr)
+    if split_rows.numel():
+        out.index_fill_(0, split_rows, float("-inf"))
+    rc = lib.stg_segment_max_wide(
+        csr.indptr.data_ptr(),
+        plane.data_ptr(),
+        item_row.data_ptr(),
+        item_beg.data_ptr(),
+        item_row.numel(),
+        split_rows.data_ptr(),
+        split_rows.numel(),
+        out.data_ptr(),
+        k,
+        ROW_CHUNK,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"K5 (segment_max_wide) launch failed with cudaError {rc}")
+    segment_max_wide.launches += 1
+    return out
+
+
+segment_max_wide.launches = 0  # kernel launches since the count was last reset
+
+
+class SegmentMaxWide(torch.autograd.Function):
+    """``segment_max_wide`` with the JAX custom VJP's argmax-mask gradient
+    (``segment_pallas.py:648-654``): ties double-count, an empty row passes
+    nothing back, padding slots get 0."""
+
+    @staticmethod
+    def forward(ctx, vals, csr):
+        out = segment_max_wide(csr, vals)
+        ctx.csr = csr
+        ctx.save_for_backward(vals, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, out = ctx.saved_tensors
+        return _max_edge_grad(ctx.csr, vals.float(), out, g).to(vals.dtype), None
+
+
+def wide_stream_is_bf16(csr: CSR, vals: torch.Tensor) -> bool:
+    """Whether the no-gather sum rounds ``vals`` to bf16: f32 values on a
+    graph of at least ``WIDE_BF16_MIN_SLOTS`` edge slots."""
+    return csr.capacity >= WIDE_BF16_MIN_SLOTS and vals.dtype == torch.float32
+
+
+def segment_sum_wide_plain(csr: CSR, vals: torch.Tensor, edge_block: Optional[int] = None) -> torch.Tensor:
+    """The no-gather sum's plain version: each value rounded to bf16 when
+    ``wide_stream_is_bf16``, then a masked ``index_add`` over the real edges
+    in f64, rounded once to f32 (the reference that the kernel's f32 sums
+    approximate). ``edge_block`` bounds the temporaries."""
+    k = _check_wide(csr, vals)
+    dt = torch.bfloat16 if wide_stream_is_bf16(csr, vals) else vals.dtype
+    e = int(csr.host_arrays()[0][-1])
+    out = torch.zeros(csr.num_nodes, k, dtype=torch.float64, device=vals.device)
+    block = max(e, 1) if edge_block is None else edge_block
+    for e0 in range(0, e, block):
+        e1 = min(e0 + block, e)
+        out.index_add_(0, csr.rows[e0:e1].long(), vals[e0:e1].to(dt).double())
+    return out.float()
+
+
+def segment_sum_wide(csr: CSR, vals: torch.Tensor) -> torch.Tensor:
+    """K1's no-gather mode: ``out[d, k] = sum over row d of vals[e, k]``,
+    (N, K) f32, any K; empty rows give 0. ``vals`` is (capacity, K) in CSR
+    order, rounded to bf16 when ``wide_stream_is_bf16``. Not
+    differentiable: ``SegmentSumWide`` is."""
+    k = _check_wide(csr, vals)
+    if vals.device.type == "cpu":
+        return segment_sum_wide_plain(csr, vals)
+
+    lib = kernel_lib.load("segment_sum_wide", _WIDE_SUM_SIGNATURES)
+    dev = vals.device
+    if csr.device != dev:
+        raise ValueError(f"the no-gather sum needs the CSR and vals on one CUDA device, got {csr.device} and {dev}")
+    round_bf16 = wide_stream_is_bf16(csr, vals)
+    plane = vals.to(torch.float32).contiguous()  # rounded to the stream in the kernel
+    n = csr.num_nodes
+    out = torch.empty(n, k, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    item_row, item_beg, split_rows = _work_items(csr)
+    if split_rows.numel():
+        out.index_fill_(0, split_rows, 0.0)
+    rc = lib.stg_segment_sum_wide(
+        csr.indptr.data_ptr(),
+        plane.data_ptr(),
+        int(round_bf16),
+        item_row.data_ptr(),
+        item_beg.data_ptr(),
+        item_row.numel(),
+        out.data_ptr(),
+        k,
+        ROW_CHUNK,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"the no-gather sum (segment_sum_wide) launch failed with cudaError {rc}")
+    segment_sum_wide.launches += 1
+    return out
+
+
+segment_sum_wide.launches = 0  # kernel launches since the count was last reset
+
+
+class SegmentSumWide(SegmentSumNarrow):
+    """``segment_sum_wide`` with the JAX custom VJP's destination gather
+    (``segment_pallas.py:741-747``), ``SegmentSumNarrow``'s backward."""
+
+    @staticmethod
+    def forward(ctx, vals, csr):
+        ctx.csr = csr
+        return segment_sum_wide(csr, vals)

@@ -11,8 +11,9 @@ then permuted back to forward edge order. CPU tensors take the same
 function, with the plain versions of K1 and K2 inside, so the CPU tests
 exercise the real backward. The JAX package's ``src_ids`` variant exists
 only for the TPU's compile-request limit and has no counterpart.
-Multi-head weighted sums whose tiling the row-wise kernel's multi-head
-mode would not take go to the blocked kernel K10 (``ops.spmm_blocked``).
+Multi-head weighted sums take K1's and K2's heads modes through the same
+function where the row-wise kernel takes the tiling (``rowmask_eligible``),
+and the blocked kernel K10 (``ops.spmm_blocked``) otherwise.
 """
 
 from __future__ import annotations
@@ -42,32 +43,34 @@ def _stream_dtype(csr: CSR, dt: torch.dtype) -> Optional[torch.dtype]:
 class _RowmaskSpmm(torch.autograd.Function):
     """K1 forward; K1 on the transpose (unweighted) or K2 (weighted) backward.
 
-    The cotangent streams bf16 exactly when the forward's features did.
+    ``h`` is (N, heads * F) and ``w`` (capacity,) for one head or
+    (capacity, heads). The cotangent streams bf16 exactly when the
+    forward's features did.
     """
 
     @staticmethod
-    def forward(ctx, h, w, csr, stream_dtype):
-        out, _ = spmm_rowmask(csr, w, h, stream_dtype=stream_dtype)
-        ctx.csr, ctx.stream_dtype = csr, stream_dtype
+    def forward(ctx, h, w, csr, stream_dtype, heads):
+        out, _ = spmm_rowmask(csr, w, h, heads=heads, stream_dtype=stream_dtype)
+        ctx.csr, ctx.stream_dtype, ctx.heads = csr, stream_dtype, heads
         ctx.save_for_backward(h, w)
         return out
 
     @staticmethod
     def backward(ctx, g):
         h, w = ctx.saved_tensors
-        csr = ctx.csr
+        csr, heads = ctx.csr, ctx.heads
         csr_t = csr.transpose()
         g = g.contiguous()
         if w is None:  # constant ones: the plain transpose pass, no SDDMM
             dh, _ = spmm_rowmask(csr_t, None, g, stream_dtype=ctx.stream_dtype)
-            return dh.to(h.dtype), None, None, None
+            return dh.to(h.dtype), None, None, None, None
         perm_t, perm_f, emask = csr.edge_perms()
         w_t = w.index_select(0, perm_t)
-        dh, dw_t = spmm_rowmask_bwd(csr_t, w_t, g, h, stream_dtype=ctx.stream_dtype)
+        dh, dw_t = spmm_rowmask_bwd(csr_t, w_t, g, h, stream_dtype=ctx.stream_dtype, heads=heads)
         dw = None
         if ctx.needs_input_grad[1]:
-            dw = (dw_t.index_select(0, perm_f) * emask).to(w.dtype)
-        return dh.to(h.dtype), dw, None, None
+            dw = (dw_t.index_select(0, perm_f) * emask.reshape((-1,) + (1,) * (dw_t.dim() - 1))).to(w.dtype)
+        return dh.to(h.dtype), dw, None, None, None
 
 
 def spmm(
@@ -81,24 +84,20 @@ def spmm(
     Sums over (N, F) features go through K1 (and K1/K2 backward);
     max/min/mean and 3-D features take the torch path as in the JAX
     package. Multi-head weighted sums ((N, H, F) features, (capacity, H)
-    weights): one head through K1; the tilings that the JAX package's
-    ``_rowmask_eligible`` refuses through the blocked kernel K10
-    (``ops.spmm_blocked``); the others wait for K1's and K2's multi-head
-    modes and raise on CUDA (the torch path on the CPU).
+    weights): the tilings of the JAX package's ``_rowmask_eligible``
+    (``spmm_pallas.py:579-584``; one head among them) through K1's heads
+    mode (K2's in backward), the others through the blocked kernel K10
+    (``ops.spmm_blocked``), as the JAX package's ``spmm`` routes them.
     """
     if reduce == "sum" and node_feat.dim() == 3 and edge_weight is not None:
         w = edge_weight.reshape(edge_weight.shape[0], -1)
         n, h, f = node_feat.shape
         if w.shape == (csr.capacity, h):
-            if h == 1:
-                return spmm(csr, node_feat.reshape(n, f), w, reduce).reshape(n, 1, f)
             if not rowmask_eligible(h, f):
                 return spmm_multihead(csr, node_feat, w).to(node_feat.dtype)
-            if node_feat.device.type != "cpu":
-                raise NotImplementedError(
-                    f"a multi-head SpMM at heads={h}, F={f} needs K1's and K2's multi-head modes, "
-                    "which are not ported yet (ROADMAP.md)"
-                )
+            flat = node_feat.reshape(n, h * f)
+            out = _RowmaskSpmm.apply(flat, w if h > 1 else w.reshape(-1), csr, _stream_dtype(csr, flat.dtype), h)
+            return out.reshape(n, h, f).to(node_feat.dtype)
         return _msg.spmm(csr, node_feat, edge_weight, reduce=reduce, impl="torch")
     if reduce != "sum" or node_feat.dim() != 2:
         return _msg.spmm(csr, node_feat, edge_weight, reduce=reduce, impl="torch")
@@ -107,5 +106,5 @@ def spmm(
         w = edge_weight.reshape(-1)
         if w.shape[0] != csr.capacity:
             return _msg.spmm(csr, node_feat, edge_weight, reduce=reduce, impl="torch")
-    out = _RowmaskSpmm.apply(node_feat, w, csr, _stream_dtype(csr, node_feat.dtype))
+    out = _RowmaskSpmm.apply(node_feat, w, csr, _stream_dtype(csr, node_feat.dtype), 1)
     return out.to(node_feat.dtype)

@@ -2,10 +2,15 @@
 wrapper and its plain PyTorch version.
 
 Replaces ``stgraph_tpu/ops/segment_pallas.py``'s ``spmm_rowmask``
-(``:913-1133``) and its Pallas kernel ``_spmm_rowmask_kernel`` (``:761``)
-for one head:
+(``:913-1133``) and its Pallas kernel ``_spmm_rowmask_kernel`` (``:761``),
+for one head or ``heads`` heads of F columns each, with the softmax
+denominator when asked:
 
-    out[d, :] = sum_{e in row d} w[e] * node_feats[cols[e], :]     (f32)
+    out[d, c] = sum_{e in row d} w[e, c // F] * node_feats[cols[e], c]   (f32)
+    den[d, h] = sum_{e in row d} w[e, h]                                 (f32)
+
+Several heads need the JAX package's tiling (``:945-958``): ``128 % F == 0``
+and ``(H * F) % 128 == 0``; any other raises ``ValueError``, as there.
 
 The CUDA kernel lives in ``csrc/spmm_rowmask.cu``. On this card it is bound
 by memory: two operations per gathered element, and the gathered rows are
@@ -27,6 +32,8 @@ CSR, with the weights in transpose edge order, one pass gives
 
 It shares K1's work items (on the transpose ``indptr``) and its bound is
 the same kind: memory, about 1.6 ms at ogbn-products size and F = 128.
+With ``heads`` heads (``:1434-1560``) ``w_t`` and ``dw_t`` are (capacity, H)
+and each head's columns form their own dot product.
 
 Each wrapper takes the plain version only because the tensor it was given
 lies on the CPU. For a CUDA tensor it launches the kernel or raises;
@@ -61,10 +68,10 @@ ROW_CHUNK = 1024
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "stg_spmm_rowmask": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP, _I, _I, _I, _VP],
+    "stg_spmm_rowmask": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _VP],
 }
 _K2_SIGNATURES = {
-    "stg_spmm_sddmm_rowmask": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _VP],
+    "stg_spmm_sddmm_rowmask": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _VP],
 }
 
 _INT32_LIMIT = 2**31
@@ -88,6 +95,17 @@ def k1_work_items(indptr: np.ndarray, chunk: int = ROW_CHUNK):
     return item_row, item_beg.astype(np.int32), split_rows
 
 
+def _head_width(width: int, heads: int, kernel: str) -> int:
+    """F of a (N, heads * F) table, checked against the JAX package's tiling
+    rule for several heads (``segment_pallas.py:945-958``)."""
+    f = width // heads if heads >= 1 else 0
+    if f < 1 or f * heads != width:
+        raise ValueError(f"node_feats width {width} must be heads * F with heads={heads}")
+    if heads > 1 and (128 % f != 0 or width % 128 != 0):
+        raise ValueError(f"multihead {kernel} needs 128 % F == 0 and heads*F % 128 == 0, got heads={heads}, F={f}")
+    return f
+
+
 def _stream_is_bf16(node_feats: torch.Tensor, stream_dtype) -> bool:
     if stream_dtype is not None:
         if stream_dtype not in (torch.float32, torch.bfloat16):
@@ -102,7 +120,9 @@ def spmm_rowmask_plain(
     node_feats: torch.Tensor,
     stream_dtype=None,
     edge_block: Optional[int] = None,
-) -> torch.Tensor:
+    heads: int = 1,
+    with_denom: bool = False,
+):
     """K1's plain version: gather, product, masked ``index_add_``; f32 out.
 
     Only the real edges (positions below ``indptr[n]``) are summed. The
@@ -112,11 +132,19 @@ def spmm_rowmask_plain(
     version is the reference that the kernel's (and the TPU kernel's) f32
     sums approximate, whatever their order. Differentiable by autograd.
 
+    With ``heads`` heads ``w`` is (capacity, heads) and column ``c`` takes
+    the weight of head ``c // F``. ``with_denom`` returns ``(out, den)``,
+    ``den`` (N, heads) the f64 sum of the unrounded weights rounded to f32;
+    otherwise ``out`` alone.
+
     ``edge_block`` bounds the (edges, F) temporaries: rows are taken in
     groups of about that many edges (at ogbn-products size one group of
     all edges would need some 63 GB). The result does not depend on it.
     """
-    n, f = node_feats.shape
+    n, width = node_feats.shape
+    f = _head_width(width, heads, "spmm_rowmask")
+    if with_denom and w is None:
+        raise ValueError("with_denom requires weights")
     indptr = csr.host_arrays()[0]
     e = int(indptr[-1])
     bf16 = _stream_is_bf16(node_feats, stream_dtype)
@@ -124,23 +152,33 @@ def spmm_rowmask_plain(
     firsts = np.searchsorted(indptr, np.arange(0, e, block), side="right") - 1
     starts = np.unique(np.concatenate([[0], firsts]))
     bounds = list(starts[starts < n]) + [n]
-    parts = []
+    dev = node_feats.device
+    w2 = None if w is None else w.reshape(csr.capacity, heads)
+    parts, dens = [], []
     for r0, r1 in zip(bounds[:-1], bounds[1:]):
         e0, e1 = int(indptr[r0]), int(indptr[r1])
+        rows = csr.rows[e0:e1].long() - r0
         x = node_feats[csr.cols[e0:e1].long()].to(torch.bfloat16 if bf16 else torch.float32)
-        if w is None:
+        if w2 is None:
             msg = x.float()
         else:
-            wt = w.reshape(-1)[e0:e1].to(torch.float32)[:, None]
+            wt = w2[e0:e1].to(torch.float32)
+            if heads > 1:
+                wt = wt.repeat_interleave(f, dim=1)
             if bf16:
                 msg = (x.float() * wt.to(torch.bfloat16).float()).to(torch.bfloat16).float()
             else:
                 msg = x * wt
-        out = torch.zeros(r1 - r0, f, dtype=torch.float64, device=node_feats.device)
-        parts.append(out.index_add(0, csr.rows[e0:e1].long() - r0, msg.double()).float())
+            if with_denom:
+                den = torch.zeros(r1 - r0, heads, dtype=torch.float64, device=dev)
+                dens.append(den.index_add(0, rows, w2[e0:e1].double()).float())
+        out = torch.zeros(r1 - r0, width, dtype=torch.float64, device=dev)
+        parts.append(out.index_add(0, rows, msg.double()).float())
     if not parts:
-        return torch.zeros(n, f, dtype=torch.float32, device=node_feats.device)
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+        out = torch.zeros(n, width, dtype=torch.float32, device=dev)
+        return (out, torch.zeros(n, heads, device=dev)) if with_denom else out
+    out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return (out, torch.cat(dens)) if with_denom else out
 
 
 def _work_items(csr: CSR):
@@ -197,27 +235,32 @@ def spmm_rowmask(
     heads: int = 1,
     with_denom: bool = False,
     stream_dtype=None,
-) -> Tuple[torch.Tensor, None]:
-    """``out[d] = sum_e w[e] * node_feats[src_e]``, f32, as ``(out, None)``.
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``out[d, c] = sum_e w[e, c // F] * node_feats[src_e, c]``, f32, as
+    ``(out, den)``.
 
-    ``w`` is (capacity,) or (capacity, 1) in CSR order, or None for the
-    unweighted path. ``stream_dtype=torch.bfloat16`` streams the features
-    as bf16 with f32 sums (the JAX package's rule for large graphs).
-    ``heads > 1`` and ``with_denom`` (the composed GAT route's modes) are
-    not ported yet.
+    ``w`` is (capacity,) or (capacity, 1) in CSR order for one head,
+    (capacity, heads) for several, or None for the unweighted path.
+    ``node_feats`` is (N, heads * F); several heads need ``128 % F == 0``
+    and ``(heads * F) % 128 == 0`` (``ValueError`` otherwise, as in the JAX
+    package). ``with_denom`` also returns ``den[d, h] = sum_e w[e, h]``
+    (N, heads) f32, summed from the unrounded weights in the same pass;
+    otherwise ``den`` is None. ``stream_dtype=torch.bfloat16`` streams the
+    features as bf16 with f32 sums (the JAX package's rule for large
+    graphs).
     """
-    if heads != 1 or with_denom:
-        raise NotImplementedError(
-            "multi-head K1 and its denominator come with the composed GAT route (ROADMAP.md)"
-        )
     if node_feats.dim() != 2 or node_feats.shape[0] != csr.num_nodes:
         raise ValueError(
             f"node_feats must be (num_nodes={csr.num_nodes}, F), got {tuple(node_feats.shape)}"
         )
-    if w is not None and w.numel() != csr.capacity:
-        raise ValueError(f"w must hold one weight per edge slot ({csr.capacity})")
+    _head_width(node_feats.shape[1], heads, "spmm_rowmask")
+    if w is not None and w.numel() != csr.capacity * heads:
+        raise ValueError(f"w must hold {heads} weight(s) per edge slot ({csr.capacity} slots)")
+    if with_denom and w is None:
+        raise ValueError("with_denom requires weights")
     if node_feats.device.type == "cpu":
-        return spmm_rowmask_plain(csr, w, node_feats, stream_dtype), None
+        res = spmm_rowmask_plain(csr, w, node_feats, stream_dtype, heads=heads, with_denom=with_denom)
+        return res if with_denom else (res, None)
 
     lib = kernel_lib.load("spmm_rowmask", _SIGNATURES)
     dev = node_feats.device
@@ -225,11 +268,14 @@ def spmm_rowmask(
     wt = None if w is None else _edge_weights(w, dev)
     n, f = node_feats.shape
     out = torch.empty(n, f, dtype=torch.float32, device=dev)
+    den = torch.empty(n, heads, dtype=torch.float32, device=dev) if with_denom else None
     if n == 0 or f == 0:
-        return out, None
+        return out, den
     item_row, item_beg, split_rows = _work_items(csr)
     if split_rows.numel():
         out.index_fill_(0, split_rows, 0.0)
+        if den is not None:
+            den.index_fill_(0, split_rows, 0.0)
     rc = lib.stg_spmm_rowmask(
         csr.indptr.data_ptr(),
         csr.cols.data_ptr(),
@@ -240,15 +286,17 @@ def spmm_rowmask(
         item_beg.data_ptr(),
         item_row.numel(),
         out.data_ptr(),
+        None if den is None else den.data_ptr(),
         f,
         ld,
+        heads,
         ROW_CHUNK,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"K1 (spmm_rowmask) launch failed with cudaError {rc}")
     spmm_rowmask.launches += 1
-    return out, None
+    return out, den
 
 
 spmm_rowmask.launches = 0  # kernel launches since the count was last reset
@@ -261,20 +309,24 @@ def spmm_rowmask_bwd_plain(
     fs: torch.Tensor,
     stream_dtype=None,
     edge_block: Optional[int] = None,
+    heads: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2's plain version: ``dh`` by K1's plain version on ``csr_t``, and
     ``dw_t`` by gathering ``fs[rows_t]`` and ``g[cols_t]`` per edge.
 
     Rounds as the kernel rounds (bf16 stream: bf16 ``fs`` and ``g``, each
-    elementwise product rounded to bf16) and sums each dot product in f64,
-    rounded once to f32. Padding slots of ``dw_t`` are 0. ``edge_block``
-    bounds the (edges, F) temporaries, as for ``spmm_rowmask_plain``.
+    elementwise product rounded to bf16) and sums each head's dot product
+    in f64, rounded once to f32. Padding slots of ``dw_t`` are 0; it is
+    (capacity,) for one head and (capacity, heads) for several.
+    ``edge_block`` bounds the (edges, F) temporaries, as for
+    ``spmm_rowmask_plain``.
     """
-    dh = spmm_rowmask_plain(csr_t, w_t, g, stream_dtype, edge_block)
+    dh = spmm_rowmask_plain(csr_t, w_t, g, stream_dtype, edge_block, heads=heads)
+    f = g.shape[1] // heads
     e = int(csr_t.host_arrays()[0][-1])
     bf16 = _stream_is_bf16(g, stream_dtype)
     dt = torch.bfloat16 if bf16 else torch.float32
-    dw = torch.zeros(csr_t.capacity, dtype=torch.float32, device=g.device)
+    dw = torch.zeros(csr_t.capacity, heads, dtype=torch.float32, device=g.device)
     block = max(e, 1) if edge_block is None else edge_block
     for e0 in range(0, e, block):
         e1 = min(e0 + block, e)
@@ -283,8 +335,8 @@ def spmm_rowmask_bwd_plain(
         prod = a * b
         if bf16:
             prod = prod.to(torch.bfloat16).float()
-        dw[e0:e1] = prod.double().sum(-1).float()
-    return dh, dw
+        dw[e0:e1] = prod.double().reshape(e1 - e0, heads, f).sum(-1).float()
+    return dh, (dw.reshape(-1) if heads == 1 else dw)
 
 
 def spmm_rowmask_bwd(
@@ -293,62 +345,70 @@ def spmm_rowmask_bwd(
     g: torch.Tensor,
     fs: torch.Tensor,
     stream_dtype=None,
+    heads: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: ``(dh, dw_t)`` of a weighted SpMM in one pass over ``csr_t``.
 
     Call it on the TRANSPOSE CSR with the weights ``w_t`` in transpose edge
     order, the output cotangent ``g`` and the forward's input features
-    ``fs`` (both (N, F)). ``dh`` is (N, F) f32; ``dw_t`` is (capacity,) f32
-    in transpose edge order, 0 on padding slots. ``stream_dtype`` as for
-    ``spmm_rowmask`` (it decides from ``g``'s dtype when None).
+    ``fs`` (both (N, heads * F)). ``dh`` is (N, heads * F) f32; ``dw_t`` is
+    in transpose edge order, 0 on padding slots: (capacity,) f32 for one
+    head, (capacity, heads) for several (the tiling rule of
+    ``spmm_rowmask``). ``stream_dtype`` as for ``spmm_rowmask`` (it decides
+    from ``g``'s dtype when None).
     """
     n = csr_t.num_nodes
     if g.dim() != 2 or g.shape[0] != n or fs.shape != g.shape:
         raise ValueError(
             f"g and fs must both be (num_nodes={n}, F), got {tuple(g.shape)} and {tuple(fs.shape)}"
         )
-    if w_t.numel() != csr_t.capacity:
-        raise ValueError(f"w_t must hold one weight per edge slot ({csr_t.capacity})")
+    _head_width(g.shape[1], heads, "spmm_rowmask_bwd")
+    if w_t.numel() != csr_t.capacity * heads:
+        raise ValueError(f"w_t must hold {heads} weight(s) per edge slot ({csr_t.capacity} slots)")
     if g.device.type == "cpu":
-        return spmm_rowmask_bwd_plain(csr_t, w_t, g, fs, stream_dtype)
+        return spmm_rowmask_bwd_plain(csr_t, w_t, g, fs, stream_dtype, heads=heads)
 
     lib = kernel_lib.load("spmm_sddmm_rowmask", _K2_SIGNATURES)
     dev = g.device
     table, ld, bf16 = _gathered_table(csr_t, g, stream_dtype, "K2")
+    if heads > 1 and table.data_ptr() % 16:
+        table = table.clone()  # the heads modes load 4 columns a lane
     if fs.device != dev:
         raise ValueError("fs must be on g's device")
     fs32 = fs.to(torch.float32).contiguous()  # rounded to the stream in the kernel
     wt = _edge_weights(w_t, dev)
     f = g.shape[1]
     dh = torch.empty(n, f, dtype=torch.float32, device=dev)
-    dw = torch.empty(csr_t.capacity, dtype=torch.float32, device=dev)
+    dw = torch.empty(csr_t.capacity, heads, dtype=torch.float32, device=dev)
     dw[int(csr_t.host_arrays()[0][-1]):] = 0.0  # padding slots belong to no item
     if n == 0 or f == 0:
-        return dh, dw.zero_()
-    item_row, item_beg, split_rows = _work_items(csr_t)
-    if split_rows.numel():
-        dh.index_fill_(0, split_rows, 0.0)
-    rc = lib.stg_spmm_sddmm_rowmask(
-        csr_t.indptr.data_ptr(),
-        csr_t.cols.data_ptr(),
-        wt.data_ptr(),
-        table.data_ptr(),
-        int(bf16),
-        fs32.data_ptr(),
-        item_row.data_ptr(),
-        item_beg.data_ptr(),
-        item_row.numel(),
-        dh.data_ptr(),
-        dw.data_ptr(),
-        f,
-        ld,
-        ROW_CHUNK,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"K2 (spmm_rowmask_bwd) launch failed with cudaError {rc}")
-    spmm_rowmask_bwd.launches += 1
-    return dh, dw
+        dw.zero_()
+    else:
+        item_row, item_beg, split_rows = _work_items(csr_t)
+        if split_rows.numel():
+            dh.index_fill_(0, split_rows, 0.0)
+        rc = lib.stg_spmm_sddmm_rowmask(
+            csr_t.indptr.data_ptr(),
+            csr_t.cols.data_ptr(),
+            wt.data_ptr(),
+            table.data_ptr(),
+            int(bf16),
+            fs32.data_ptr(),
+            item_row.data_ptr(),
+            item_beg.data_ptr(),
+            item_row.numel(),
+            dh.data_ptr(),
+            dw.data_ptr(),
+            f,
+            ld,
+            heads,
+            ROW_CHUNK,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"K2 (spmm_rowmask_bwd) launch failed with cudaError {rc}")
+        spmm_rowmask_bwd.launches += 1
+    return dh, (dw.reshape(-1) if heads == 1 else dw)
 
 
 spmm_rowmask_bwd.launches = 0  # kernel launches since the count was last reset

@@ -206,11 +206,35 @@ def test_composed_attention_matches_jax(rng, h, f):
 
 
 @pytest.mark.parametrize("h,f,missing", [(17, 8, "K5"), (8, 64, "K1"), (1, 384, "K1")])
-def test_composed_route_on_cuda_names_the_missing_kernel(rng, h, f, missing):
-    csr, _, n = _pair(rng)
+def test_composed_route_on_cuda_names_the_missing_kernel(rng, monkeypatch, h, f, missing):
+    """These tilings once raised on CUDA, naming the kernel each waited for.
+    With K5 and K1's heads and denominator modes ported, a non-CPU tensor
+    reaches that kernel: K5 for the stability max past 16 heads (17 x 8, on
+    the blocked route), K1 with the tiling's heads and the denominator for
+    the rowmask tilings (8 x 64, 1 x 384)."""
+
+    class Reached(Exception):
+        pass
+
+    def reach(name):
+        def kernel(*args, **kwargs):
+            raise Reached(name, kwargs)
+
+        return kernel
+
+    monkeypatch.setattr(A, "segment_max_wide", reach("K5"))
+    monkeypatch.setattr(A, "spmm_rowmask", reach("K1"))
+    # K4's result, so that the rowmask branch goes on to K1
+    monkeypatch.setattr(A, "segment_max_narrow", lambda c, v: torch.zeros(c.num_nodes, v.shape[1], device=v.device))
+    n = 300
+    csr = build_csr(*_edges(rng, n), n, device="meta")  # graph and tensors on one (non-CPU) device
     el, er = (torch.empty(n, h, 1, device="meta") for _ in range(2))
-    with pytest.raises(NotImplementedError, match=missing):
+    with pytest.raises(Reached) as reached:
         A.sparse_gat_attention(csr, el, er, torch.empty(n, h, f, device="meta"))
+    name, kwargs = reached.value.args
+    assert name == missing
+    if name == "K1":
+        assert kwargs["heads"] == h and kwargs["with_denom"]
 
 
 # -- routing --------------------------------------------------------------------
@@ -225,10 +249,15 @@ def test_aggregate_sum_and_mean_route_to_k3_for_a_non_cpu_tensor(rng, monkeypatc
         calls.append((vals.device.type, tuple(vals.shape)))
         return torch.ones(csr_.num_nodes, vals.shape[1])  # on the CPU, so that the mean can be read
 
+    def fake_wide(csr_, vals):
+        calls.append(("wide", tuple(vals.shape)))
+        return torch.ones(csr_.num_nodes, vals.shape[1])
+
     def torch_op(data, *a, **k):
         calls.append(("torch", tuple(data.shape)))
 
     monkeypatch.setattr(SK, "segment_sum_narrow", fake_k3)
+    monkeypatch.setattr(SK, "segment_sum_wide", fake_wide)
     monkeypatch.setattr(M.seg, "segment_sum", torch_op)
     monkeypatch.setattr(M.seg, "segment_mean", torch_op)
     assert M.aggregate(csr, torch.empty(csr.capacity, 4, 2, device="meta")).shape == (500, 4, 2)
@@ -237,15 +266,21 @@ def test_aggregate_sum_and_mean_route_to_k3_for_a_non_cpu_tensor(rng, monkeypatc
     # the mean is K3's sum over max(in-degree, 1), as in the JAX package
     deg = np.diff(csr.host_arrays()[0])
     np.testing.assert_allclose(mean.numpy(), np.repeat(1.0 / np.maximum(deg, 1)[:, None], 3, 1), rtol=1e-6)
-    # CPU tensors, wide values and small graphs keep the torch segment ops
+    # wide values go to K1's no-gather mode (sum and mean alike); CPU
+    # tensors and small graphs keep the torch segment ops
     M.aggregate(csr, torch.zeros(csr.capacity, 8))
     M.aggregate(csr, torch.empty(csr.capacity, 17, device="meta"))
+    wide_mean = M.aggregate(csr, torch.empty(csr.capacity, 17, device="meta"), reduce="mean")
+    np.testing.assert_allclose(wide_mean.numpy(), np.repeat(1.0 / np.maximum(deg, 1)[:, None], 17, 1), rtol=1e-6)
     small = build_csr(rng.integers(0, 50, 900), rng.integers(0, 50, 900), 50, device="cpu")
     M.aggregate(small, torch.empty(small.capacity, 4, device="meta"), reduce="mean")
-    assert [c[0] for c in calls] == ["meta", "meta", "torch", "torch", "torch"]
+    assert [c[0] for c in calls] == ["meta", "meta", "torch", "wide", "wide", "torch"]
 
 
 def test_multihead_spmm_routes_to_k10_or_raises(rng, monkeypatch):
+    """Multi-head sums on a card: the tilings the row-wise kernel refuses go
+    to K10; the others (4 x 32 here), which raised until K1's and K2's heads
+    modes were ported, go to K1 with their heads."""
     e = 50_000
     csr = build_csr(rng.integers(0, 5000, e), rng.integers(0, 5000, e), 5000, device="cpu")
     calls = []
@@ -254,14 +289,21 @@ def test_multihead_spmm_routes_to_k10_or_raises(rng, monkeypatch):
     M.spmm(csr, torch.empty(5000, 4, 256, device="meta"), edge_weight=w)
     M.spmm(csr, torch.empty(5000, 6, 121, device="meta"), edge_weight=torch.empty(csr.capacity, 6, device="meta"))
     assert calls == [(5000, 4, 256), (5000, 6, 121)]
-    with pytest.raises(NotImplementedError, match="multi-head modes"):
-        M.spmm(csr, torch.empty(5000, 4, 32, device="meta"), edge_weight=w)
+    k1 = []
+
+    def fake_k1(c, w_, x, heads=1, with_denom=False, stream_dtype=None):
+        k1.append((tuple(x.shape), tuple(w_.shape), heads, with_denom))
+        return torch.empty(x.shape, device=x.device), None
+
+    monkeypatch.setattr(spmm_cuda, "spmm_rowmask", fake_k1)
+    assert M.spmm(csr, torch.empty(5000, 4, 32, device="meta"), edge_weight=w).shape == (5000, 4, 32)
+    assert k1 == [((5000, 128), (csr.capacity, 4), 4, False)]
     # the torch path on the CPU, where the tiling is K1's
     x = rng.standard_normal((5000, 4, 32)).astype(np.float32)
     wt = rng.random((csr.capacity, 4)).astype(np.float32)
     out = M.spmm(csr, _t(x), edge_weight=_t(wt))
     np.testing.assert_allclose(out.numpy(), M.spmm(csr, _t(x), edge_weight=_t(wt), impl="torch").numpy())
-    assert len(calls) == 2
+    assert len(calls) == 2 and len(k1) == 1
 
 
 # -- a three-layer GAT at composed widths --------------------------------------

@@ -1,15 +1,17 @@
-"""K1, K2, K3, K4, K6, K7, K8, K9 and K10 on the card against their plain
+"""K1 (with its heads, denominator and no-gather modes), K2 (with its heads
+mode), K3, K4, K5, K6, K7, K8, K9 and K10 on the card against their plain
 versions, and the GCN forward, a GCN training step, GAT training steps on
-the flash and the composed routes and TGCN on a lazy dynamic store pair on
-CUDA against the CPU. Marked ``cuda``: they skip where no card is present. On a
+the flash route and on the composed route's blocked and rowmask branches,
+and TGCN on a lazy dynamic store pair on CUDA against the CPU. Marked ``cuda``: they skip where no card is present. On a
 machine with a card and without jax they run without the suite's conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest``.
 
 Tolerance: the kernel rounds as its plain version does (a bf16 stream
 rounds features, weights and products to bf16 and sums in f32), so only
 the order of f32 sums differs: 1e-4 of the output's largest magnitude, or,
-for sums whose terms cancel (K3, K10, K9's dl), 2e-4 of each output's sum
-of absolute terms.
+for sums whose terms cancel (K3, K10, K9's dl, the no-gather sum and the
+heads modes), 2e-4 of each output's sum of absolute terms. K4 and K5 are
+maxima: bit for bit.
 """
 
 import numpy as np
@@ -23,11 +25,16 @@ from stgraph_tpu_torch.nn import TGCN, GATConv, GCNConv
 from stgraph_tpu_torch.ops import dyn_spmm as DS
 from stgraph_tpu_torch.ops import flash_gat as FG
 from stgraph_tpu_torch.ops import rowid_kernels as RK
+from stgraph_tpu_torch.ops import segment_kernels as SK
 from stgraph_tpu_torch.ops.segment_kernels import (
     segment_max_narrow,
     segment_max_narrow_plain,
+    segment_max_wide,
+    segment_max_wide_plain,
     segment_sum_narrow,
     segment_sum_narrow_plain,
+    segment_sum_wide,
+    segment_sum_wide_plain,
 )
 from stgraph_tpu_torch.ops.spmm_blocked import segment_sum_blocked, segment_sum_blocked_plain
 from stgraph_tpu_torch.ops.spmm_kernels import (
@@ -207,6 +214,99 @@ def test_k10_matches_plain_on_the_card(cuda, rng, h, f):
         if not transpose:  # empty rows and the empty block
             assert not out[n - 50:].any() and not out[9 * 128:10 * 128].any()
     assert segment_sum_blocked.launches == before + 2
+
+
+@pytest.mark.parametrize("k", [17, 32, 130])
+def test_k5_matches_plain_on_the_card(cuda, rng, k):
+    n, e = 3000, 60_000
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
+    csr = build_csr(src, dst, n, capacity=e + 5, device=cuda)  # with padding slots
+    vals = torch.from_numpy(rng.standard_normal((csr.capacity, k)).astype(np.float32)).to(cuda)
+    before = segment_max_wide.launches
+    out = segment_max_wide(csr, vals)
+    torch.cuda.synchronize()
+    assert segment_max_wide.launches == before + 1
+    assert torch.equal(out, segment_max_wide_plain(csr, vals))  # a max is exact
+    assert not out[n - 50:].any()
+
+
+@pytest.mark.parametrize("k", [17, 32, 130])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wide_sum_matches_plain_on_the_card(cuda, rng, monkeypatch, k, bf16):
+    if bf16:
+        monkeypatch.setattr(SK, "WIDE_BF16_MIN_SLOTS", 0)  # every graph streams bf16
+    n, e = 3000, 60_000
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
+    src[-3 * ROW_CHUNK:] = 11  # a hub in the transpose too
+    csr = build_csr(src, dst, n, capacity=e + 5, device=cuda)
+    vals = torch.from_numpy(rng.standard_normal((csr.capacity, k)).astype(np.float32)).to(cuda)
+    assert SK.wide_stream_is_bf16(csr, vals) == bf16
+    before = segment_sum_wide.launches
+    for c in (csr, csr.transpose()):
+        out = segment_sum_wide(c, vals)
+        torch.cuda.synchronize()
+        _within_mass(out, segment_sum_wide_plain(c, vals), segment_sum_wide_plain(c, vals.abs()))
+    assert not segment_sum_wide(csr, vals)[n - 50:].any()
+    assert segment_sum_wide.launches == before + 3
+
+
+@pytest.mark.parametrize("h,f", [(32, 4), (8, 64), (4, 128), (64, 2), (1, 384)])
+@pytest.mark.parametrize("stream", [None, torch.bfloat16])
+def test_k1_and_k2_heads_modes_match_plain_on_the_card(cuda, rng, h, f, stream):
+    n, e = 3000, 60_000
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
+    src[-3 * ROW_CHUNK:] = 11  # a hub in the transpose too
+    csr = build_csr(src, dst, n, capacity=e + 5, device=cuda)
+    csr_t = csr.transpose()
+    x, g = (torch.from_numpy(rng.standard_normal((n, h * f)).astype(np.float32)).to(cuda) for _ in range(2))
+    w = torch.from_numpy(rng.random((csr.capacity, h)).astype(np.float32)).to(cuda)
+    before = spmm_rowmask.launches, spmm_rowmask_bwd.launches
+    out, den = spmm_rowmask(csr, w, x, heads=h, with_denom=True, stream_dtype=stream)
+    dh, dw = spmm_rowmask_bwd(csr_t, w, g, x, stream_dtype=stream, heads=h)
+    torch.cuda.synchronize()
+    assert (spmm_rowmask.launches, spmm_rowmask_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_den = spmm_rowmask_plain(csr, w, x, stream, heads=h, with_denom=True)
+    _within_mass(out, ref, spmm_rowmask_plain(csr, w, x.abs(), stream, heads=h))
+    _within_mass(den, ref_den, ref_den)  # positive weights: the sum is its own mass
+    assert not out[n - 50:].any() and not den[n - 50:].any()
+    ref_dh, ref_dw = spmm_rowmask_bwd_plain(csr_t, w, g, x, stream, heads=h)
+    mass_dh, mass_dw = spmm_rowmask_bwd_plain(csr_t, w, g.abs(), x.abs(), stream, heads=h)
+    _within_mass(dh, ref_dh, mass_dh)
+    _within_mass(dw, ref_dw, mass_dw)
+    assert not dw[csr_t.num_edges:].any()
+
+
+def test_rowmask_gat_training_step_on_cuda_matches_cpu(cuda, rng):
+    """``benchmarking/gat/train.py --num_heads 32 --num_hidden 4``'s two
+    layers (32 x 4 with ELU, then 1 x 3): the rowmask branch (K5, K1 with
+    heads and the denominator; K2 with heads, the no-gather sum twice) and
+    the flash route (K4, K8; K9), f32 throughout."""
+    n, e = 5000, 150_000
+    edges = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)], 1)
+    x = rng.standard_normal((n, 50)).astype(np.float32)
+    y = torch.from_numpy(rng.integers(0, 3, n))
+    gen = torch.Generator().manual_seed(0)
+    init = [GATConv(50, 4, 32, device="cpu", generator=gen).state_dict(),
+            GATConv(128, 3, 1, device="cpu", generator=gen).state_dict()]
+    counters = (spmm_rowmask, spmm_rowmask_bwd, segment_max_wide, segment_sum_wide, segment_max_narrow,
+                FG.flash_gat_fwd, FG.flash_gat_bwd)
+    grads = []
+    for dev in ("cpu", cuda):
+        convs = [GATConv(50, 4, 32, activation=torch.nn.functional.elu, impl="sparse", device=dev),
+                 GATConv(128, 3, 1, impl="sparse", device=dev)]
+        for conv, state in zip(convs, init):
+            conv.load_state_dict(state)
+        g = StaticGraph(edges, None, n, device=dev)
+        counts = [k.launches for k in counters]
+        h = convs[0](g, torch.from_numpy(x).to(dev)).reshape(n, -1)
+        logits = convs[1](g, h).mean(1)
+        torch.nn.functional.cross_entropy(logits, y.to(dev)).backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert [k.launches - c for k, c in zip(counters, counts)] == [1, 1, 1, 2, 1, 1, 1]
+        grads.append([p.grad.cpu() for c in convs for p in c.parameters()])
+    for ref, out in zip(*grads):
+        assert (out - ref).abs().max().item() <= 1e-3 * max(1e-6, ref.abs().max().item())
 
 
 def _flash_inputs(rng, cuda, n, h, f, hub_t=True):

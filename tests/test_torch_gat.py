@@ -341,10 +341,16 @@ def test_gatconv_init_dropout_and_the_flash_dropout_refusal(rng):
     assert torch.equal(a, b) and not torch.equal(a, drop.eval()(g, x))
     composed = GATConv(12, 100, 3, attn_drop=0.4, impl="sparse", device="cpu").train()
     assert composed(g, x, generator=torch.Generator().manual_seed(5)).shape == (150, 3, 100)
+    # the flash route's tilings train with attention dropout on the CPU, on
+    # the edge-domain route, as the JAX layer does off its TPU
     flash = GATConv(12, 4, 2, attn_drop=0.4, impl="sparse", device="cpu").train()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        flash(g, x)
+    assert flash(g, x, generator=torch.Generator().manual_seed(5)).shape == (150, 2, 4)
     assert flash.eval()(g, x).shape == (150, 2, 4)
+    # on a card the refusal stays at the reference's flash tilings (4 x 32),
+    # until K8's and K9's dropout mode (kernel item E)
+    card = GATConv(12, 32, 4, attn_drop=0.4, impl="sparse", device="meta").train()
+    with pytest.raises(NotImplementedError, match="dropout.*item E"):
+        card(g, torch.empty(150, 12, device="meta"))
 
 
 @pytest.mark.parametrize("impl,jimpl", [("sparse", "sparse"), ("dense", "dense")])
@@ -419,13 +425,19 @@ def test_aggregate_max_routes_to_k4_for_a_non_cpu_tensor(rng, monkeypatch):
     def torch_max(data, *a, **k):
         calls.append(("torch", tuple(data.shape), None))
 
+    def fake_k5(csr_, vals):
+        calls.append(("K5", tuple(vals.shape), None))
+        return torch.empty(csr_.num_nodes, vals.shape[1], device=vals.device)
+
     monkeypatch.setattr(SK, "segment_max_narrow", fake_k4)
+    monkeypatch.setattr(SK, "segment_max_wide", fake_k5)
     monkeypatch.setattr(M.seg, "segment_max", torch_max)
     out = M.aggregate(csr, torch.empty(csr.capacity, 8, 1, device="meta"), reduce="max")
     assert out.shape == (500, 8, 1) and calls == [("meta", (csr.capacity, 8), None)]
-    # CPU tensors, wide values and small graphs keep the torch segment ops
+    # wide values go to K5; CPU tensors and small graphs keep the torch segment ops
     M.aggregate(csr, torch.zeros(csr.capacity, 8), reduce="max")
-    M.aggregate(csr, torch.empty(csr.capacity, 17, device="meta"), reduce="max")
+    assert M.aggregate(csr, torch.empty(csr.capacity, 17, device="meta"), reduce="max").shape == (500, 17)
     small = build_csr(rng.integers(0, 50, 900), rng.integers(0, 50, 900), 50, device="cpu")
     M.aggregate(small, torch.empty(small.capacity, 4, device="meta"), reduce="max")
-    assert [c[0] for c in calls] == ["meta", "torch", "torch", "torch"]
+    assert [c[0] for c in calls] == ["meta", "torch", "K5", "torch"]
+    assert calls[2][1] == (csr.capacity, 17)

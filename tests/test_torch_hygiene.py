@@ -20,6 +20,7 @@ from stgraph_tpu_torch.ops import (
     dyn_spmm,
     flash_gat,
     kernel_lib,
+    message,
     rowid_kernels,
     segment_kernels,
     spmm_blocked,
@@ -212,12 +213,55 @@ def test_non_cpu_tensor_never_takes_the_plain_composed_kernels(monkeypatch, tmp_
     assert counts == (segment_kernels.segment_sum_narrow.launches, spmm_blocked.segment_sum_blocked.launches)
 
 
+def test_non_cpu_tensor_never_takes_the_plain_rowmask_kernels(monkeypatch, tmp_path):
+    """K5, K1's no-gather, heads and denominator modes and K2's heads mode as
+    the others: a tensor that is not on the CPU goes to the kernel or raises,
+    through the wrappers, ``aggregate``, the multi-head SpMM and the composed
+    route's rowmask branch."""
+    csr = build_csr([0, 1, 2, 2], [1, 2, 0, 1], 3, device="cpu")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(kernel_lib, "_nvcc", no_nvcc)
+    monkeypatch.setattr(kernel_lib, "_loaded", {})
+    monkeypatch.setattr(kernel_lib, "_paths", lambda names: {n: str(tmp_path / f"{n}.so") for n in names})
+    monkeypatch.setattr(message, "_KERNEL_MIN_EDGES", 0)
+    for mod, name in ((segment_kernels, "segment_max_wide_plain"), (segment_kernels, "segment_sum_wide_plain"),
+                      (spmm_kernels, "spmm_rowmask_plain"), (spmm_kernels, "spmm_rowmask_bwd_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    h, f = 32, 4
+    wide = torch.empty(csr.capacity, h, device="meta")
+    feats = torch.empty(3, h * f, device="meta")
+    counters = (segment_kernels.segment_max_wide, segment_kernels.segment_sum_wide, spmm_kernels.spmm_rowmask,
+                spmm_kernels.spmm_rowmask_bwd)
+    counts = [fn.launches for fn in counters]
+    for call in (
+        lambda: segment_kernels.segment_max_wide(csr, wide),
+        lambda: segment_kernels.segment_sum_wide(csr, wide),
+        lambda: message.aggregate(csr, wide, reduce="max"),
+        lambda: message.aggregate(csr, wide, reduce="mean"),
+        lambda: spmm_kernels.spmm_rowmask(csr, wide, feats, heads=h, with_denom=True),
+        lambda: spmm_kernels.spmm_rowmask_bwd(csr.transpose(), wide, feats, feats, heads=h),
+        lambda: spmm_cuda.spmm(csr, feats.reshape(3, h, f), wide),
+        lambda: attention.sparse_gat_attention(csr, wide[:3, :, None], wide[:3, :, None], feats.reshape(3, h, f)),
+    ):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert counts == [fn.launches for fn in counters]
+
+
 def test_kernel_build_starts_nothing_at_import():
     assert set(kernel_lib.SOURCES) == {
         "spmm_rowmask",  # K1
         "spmm_sddmm_rowmask",  # K2
         "segment_sum_narrow",  # K3
         "segment_max_narrow",  # K4
+        "segment_max_wide",  # K5
+        "segment_sum_wide",  # K1's no-gather mode
         "spmm_rowid",  # K6
         "rowid_denom",  # K7
         "flash_gat_fwd",  # K8

@@ -238,9 +238,17 @@ def test_k1_plain_is_differentiable(rng):
 
 
 def test_k1_modes_of_later_slices_raise(rng):
-    csr, *_ = _pair(rng)
+    """K1's heads and denominator modes came with the composed GAT route's
+    rowmask branch: a tiling the JAX kernel refuses (2 heads of F = 4:
+    ``128 % F == 0`` but ``(H * F) % 128 != 0``) raises ``ValueError`` in
+    both packages, and the denominator of unit weights is each row's
+    in-degree."""
+    csr, jcsr, _, dst = _pair(rng)
     x = torch.zeros(40, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="128 % F"):
         spmm_rowmask(csr, torch.ones(csr.capacity, 2), x, heads=2)
-    with pytest.raises(NotImplementedError):
-        spmm_rowmask(csr, torch.ones(csr.capacity, 1), x, with_denom=True)
+    with pytest.raises(ValueError, match="128 % F"):
+        NSP.spmm_rowmask(jcsr, jnp.ones((csr.capacity, 2)), jnp.zeros((40, 8)), heads=2, interpret=True)
+    out, den = spmm_rowmask(csr, torch.ones(csr.capacity, 1), x, with_denom=True)
+    assert not out.any()
+    np.testing.assert_array_equal(den.numpy()[:, 0], np.bincount(dst, minlength=40))
