@@ -138,10 +138,30 @@ Phases (any failure exits nonzero and prints no result line):
     against its plain version, timed with a library yardstick, its bound by
     bytes and the longest work item of its launch.
 
+34. the in-kernel attention-dropout mask (``stg_edge_keep_mask``, the hash
+    K8 and K9 run) against ``edge_keep_mask`` bit for bit over 1.6 * 10^8
+    (edge, head) pairs, and K8 (with and without aux) and K9 in their
+    dropout mode against their plain versions at rates 0.3 and 0.6 (in 16,
+    on its graph and tilings, both streams);
+35. K8 (aux) and K9 in the dropout mode at the main path's shapes (in 18,
+    on the same inputs): full outputs against the plain versions, timed in
+    turns with the mode without dropout;
+36. gat-dropout-training, the twelfth main path (after 20): the GAT of 19
+    with the GAT paper's dropout, ``feat_drop`` and ``attn_drop`` 0.6 on
+    both layers, 1 + 5 Adam(5e-3) steps, each launching K4, K8 and K9 twice,
+    K8 and K9 in the dropout mode; the loss finite and falling; a profile of
+    a step; a step with ``attn_drop`` alone peaks within
+    ``DROPOUT_PEAK_SLACK`` of the same step without dropout;
+37. that GAT with ``attn_drop`` at ``--scale 0.01`` (after 21): logits and
+    every gradient against the same layers on the edge-domain route given
+    the same hash masks.
+
 Every path of the kernels line (serving, training, gat-serving,
-gat-training, composed-serving, ppi-serving, ppi-training, dyn-step,
-dtdg-training on each dataset, pubmed-rowmask and rowmask-ppi) is driven
-with every launch count set to 0 just before it and read just after.
+gat-training, gat-dropout-training, composed-serving, ppi-serving,
+ppi-training, dyn-step, dtdg-training on each dataset, pubmed-rowmask and
+rowmask-ppi) is driven with every launch count set to 0 just before it and
+read just after; K8's and K9's dropout-mode launches count apart
+(``K8_dropout``, ``K9_dropout``) as well as with all of theirs.
 
 The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 ``--details PATH`` also writes every measurement of the run as JSON.
@@ -153,6 +173,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import re
@@ -202,6 +223,13 @@ GAT_DIMS, GAT_HEADS = (100, 32, 47), (8, 1)  # in, hidden a head, classes; heads
 GAT_SLOPE = 0.2
 GAT_CHECKS = ((8, 32), (1, 47), (8, 8), (4, 16))  # (H, F) held against the plain versions
 GAT_PLAIN_EDGE_BLOCK = 1 << 21  # the plain K8/K9 gather (edges, H*F) planes: ~16 GB
+GAT_CHECK_RATES = (0.3, 0.6)  # K8's and K9's dropout mode, held against the plain versions
+# The GAT paper's dropout (Velickovic et al. 2018, section 3.3): p = 0.6 on
+# the layers' inputs and on the normalised attention coefficients
+GAT_FEAT_DROP, GAT_ATTN_DROP = 0.6, 0.6
+# Peak device memory of an attention-dropout step over the same step
+# without dropout: no (E, H) mask plane (one would be 3.96 GB at 8 heads)
+DROPOUT_PEAK_SLACK = 64 << 20
 PUBMED_DIMS, PUBMED_HEADS, PUBMED_EPOCHS = (500, 8, 3), (8, 1), 200
 # ``benchmarking/gat/train.py --dataset pubmed --cpu`` (the JAX package on
 # the CPU, synthetic Pubmed, 200 epochs) reaches train accuracy 0.6322; the
@@ -275,19 +303,45 @@ class SmokeFailure(Exception):
     pass
 
 
+PHASE_SECONDS = []  # (phase, wall seconds) of each phase call of this run, in order
+
+
+def timed_phase(fn):
+    """Append the wall time of every call of the phase ``fn`` to
+    ``PHASE_SECONDS`` (the details' ``phase_s``: where the script's own
+    time goes)."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            PHASE_SECONDS.append((fn.__name__, time.perf_counter() - t))
+
+    return run
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
 
 
 def _counters():
+    """Each count's wrapper and attribute: ``launches`` counts every launch
+    of a kernel; K8's and K9's ``dropout_launches`` those of them in the
+    dropout mode."""
     from stgraph_tpu_torch.ops import flash_gat, rowid_kernels, segment_kernels, spmm_blocked, spmm_kernels
 
-    return {"K1": spmm_kernels.spmm_rowmask, "K2": spmm_kernels.spmm_rowmask_bwd,
-            "K3": segment_kernels.segment_sum_narrow, "K4": segment_kernels.segment_max_narrow,
-            "K5": segment_kernels.segment_max_wide, "K1_nogather": segment_kernels.segment_sum_wide,
-            "K6": rowid_kernels.spmm_rowid, "K7": rowid_kernels.dyn_degree, "K8": flash_gat.flash_gat_fwd,
-            "K9": flash_gat.flash_gat_bwd, "K10": spmm_blocked.segment_sum_blocked}
+    fns = {"K1": spmm_kernels.spmm_rowmask, "K2": spmm_kernels.spmm_rowmask_bwd,
+           "K3": segment_kernels.segment_sum_narrow, "K4": segment_kernels.segment_max_narrow,
+           "K5": segment_kernels.segment_max_wide, "K1_nogather": segment_kernels.segment_sum_wide,
+           "K6": rowid_kernels.spmm_rowid, "K7": rowid_kernels.dyn_degree, "K8": flash_gat.flash_gat_fwd,
+           "K9": flash_gat.flash_gat_bwd, "K10": spmm_blocked.segment_sum_blocked}
+    counts = {k: (fn, "launches") for k, fn in fns.items()}
+    counts["K8_dropout"] = (flash_gat.flash_gat_fwd, "dropout_launches")
+    counts["K9_dropout"] = (flash_gat.flash_gat_bwd, "dropout_launches")
+    return counts
 
 
 def only(**launched) -> dict:
@@ -296,13 +350,13 @@ def only(**launched) -> dict:
 
 
 def reset_counts() -> None:
-    """Every kernel wrapper's launch count to 0."""
-    for fn in _counters().values():
-        fn.launches = 0
+    """Every kernel wrapper's launch counts to 0."""
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in _counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -375,6 +429,7 @@ def k2_agreement(dh, dw, csr_t, w, g, fs, stream, edge_block=None):
     return stats[0], stats[1], not dw[csr_t.num_edges:].any().item()
 
 
+@timed_phase
 def phase_environment(port):
     from stgraph_tpu_torch import native
     from stgraph_tpu_torch.ops import kernel_lib
@@ -399,12 +454,14 @@ def phase_environment(port):
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", log)]
         ptxas[name] = {"kernels": len(regs), "max_registers": max(regs, default=0),
-                       "spilling": sum(b > 0 for b in spills), "max_spill_stores": max(spills, default=0)}
+                       "spilling": sum(b > 0 for b in spills), "max_spill_stores": max(spills, default=0),
+                       "log": log}
         print(f"  ptxas[{name}]: {len(regs)} kernels, registers {min(regs, default=0)}-{max(regs, default=0)}, "
               f"{ptxas[name]['spilling']} with spill stores (at most {ptxas[name]['max_spill_stores']} B)")
     return {"nvidia_smi": smi, "nvcc": nvcc, "build_s": build_s, "ptxas": ptxas}
 
 
+@timed_phase
 def phase_k1_vs_plain(dev, rng):
     from stgraph_tpu_torch.graph.csr import build_csr
     from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask
@@ -436,6 +493,7 @@ def phase_k1_vs_plain(dev, rng):
             "cases": results, "max_abs_err": worst}
 
 
+@timed_phase
 def phase_k2_vs_plain(dev, rng):
     from stgraph_tpu_torch.graph.csr import build_csr
     from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_bwd
@@ -545,6 +603,7 @@ def sampled_layer_check(graph, layer, h_in, y, rows, relu):
     return err.max().item(), ratio, ref.abs().max().item(), int(deg.sum())
 
 
+@timed_phase
 def phase_serving(dev, args, workdir):
     from stgraph_tpu_torch.dataset import OgbNodeDataLoader
     from stgraph_tpu_torch.graph import StaticGraph
@@ -627,6 +686,7 @@ def phase_serving(dev, args, workdir):
     }
 
 
+@timed_phase
 def phase_k1_at_main_shapes(served):
     from stgraph_tpu_torch.ops import message as M
     from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_plain
@@ -670,6 +730,7 @@ def phase_k1_at_main_shapes(served):
     return per_launch, worst
 
 
+@timed_phase
 def phase_model_vs_plain(dev, args, workdir):
     from stgraph_tpu_torch.dataset import OgbNodeDataLoader
     from stgraph_tpu_torch.graph import StaticGraph
@@ -691,6 +752,7 @@ def phase_model_vs_plain(dev, args, workdir):
     return {"n": n, "e": graph.get_num_edges(), "max_abs_err": err, "max_abs_plain": scale}
 
 
+@timed_phase
 def phase_profile(fn, what):
     """Device time by kernel over one call of ``fn``, and the device's idle
     share between its first and last kernel."""
@@ -722,6 +784,7 @@ def phase_profile(fn, what):
             "top": [{"ms": ms, "name": name, "count": c} for ms, name, c in rows[:12]]}
 
 
+@timed_phase
 def phase_k2_at_main_shapes(served):
     """K2 on the transpose of the full graph at the widths a training step
     gives it (F = 128 and 47), with the forward's own weights and features
@@ -788,6 +851,7 @@ def phase_k2_at_main_shapes(served):
     return per_launch, worst, {"transpose_s": t1 - t0, "edge_perms_s": t2 - t1, "max_out_degree": max_out}
 
 
+@timed_phase
 def phase_training(dev, args, served):
     """The served GCN class trained on the full graph: the main path of the
     training slice."""
@@ -829,6 +893,7 @@ def phase_training(dev, args, served):
                        "launches_per_step": per_step, "launches": launches}}
 
 
+@timed_phase
 def phase_unweighted_step(dev, args, served):
     """``bench.py``'s training step formulation: the norms outside the SpMM,
     so it runs unweighted and its backward is K1 on the transpose."""
@@ -866,6 +931,7 @@ def phase_unweighted_step(dev, args, served):
     return {"step_s": step_s, "loss": loss, "launches": {"K1": counts[0], "K2": counts[1]}}
 
 
+@timed_phase
 def phase_checkpoint_serve(dev, served, trained, workdir):
     """Save the trained model and optimizer, serve from the checkpoint, and
     hold each served layer to the trained layer's own forward on the same
@@ -925,6 +991,7 @@ def phase_checkpoint_serve(dev, served, trained, workdir):
             "max_abs_err": worst}
 
 
+@timed_phase
 def phase_grads_vs_plain(dev, args, workdir):
     from stgraph_tpu_torch.dataset import OgbNodeDataLoader
     from stgraph_tpu_torch.graph import StaticGraph
@@ -962,6 +1029,7 @@ def phase_grads_vs_plain(dev, args, workdir):
     return {"n": n, "e": e, "grads": rows, "worst_err_over_max": worst}
 
 
+@timed_phase
 def phase_cora(dev, args, workdir):
     """``benchmarking/gcn/train.py`` on the port: 2 GCN layers, hidden 16,
     AdamW(1e-2, 5e-4), 200 full-graph epochs, the kernel route."""
@@ -1002,6 +1070,7 @@ def phase_cora(dev, args, workdir):
             "launches": {"K1": counts[0], "K2": counts[1]}}
 
 
+@timed_phase
 def phase_tgcn(dev, rng):
     """TGCN, 3 timesteps forward and backward on a 200k-edge weighted graph
     (K1 and K2 stream bf16), against the same run on the CPU's plain path."""
@@ -1088,29 +1157,29 @@ def _stats(outs, refs, masses):
     return rows
 
 
-def k8_agreement(outs, csr, el, er, m, fs, h, stream, edge_block=None):
+def k8_agreement(outs, csr, el, er, m, fs, h, stream, edge_block=None, rate=0.0, seed=None):
     """Hold K8's (out, den[, u, p]) against its plain version. The sums of
-    absolute terms come from the plain version on |fs| (the weights are
-    positive): sum w|fs| / den for out, sum w lp |fs| for u, and den and p
-    themselves."""
+    absolute terms come from the plain version on |fs| (the weights and the
+    keep factors are not negative): sum w q |fs| / den for out, sum w lp q
+    |fs| for u, and den and p themselves."""
     from stgraph_tpu_torch.ops.flash_gat import flash_gat_fwd_plain
 
     aux = outs[2] is not None
-    refs = flash_gat_fwd_plain(csr, el, er, m, fs, h, GAT_SLOPE, stream, aux, edge_block)
-    masses = flash_gat_fwd_plain(csr, el, er, m, fs.abs(), h, GAT_SLOPE, stream, aux, edge_block)
+    refs = flash_gat_fwd_plain(csr, el, er, m, fs, h, GAT_SLOPE, stream, aux, edge_block, rate, seed)
+    masses = flash_gat_fwd_plain(csr, el, er, m, fs.abs(), h, GAT_SLOPE, stream, aux, edge_block, rate, seed)
     keep = [i for i, r in enumerate(refs) if r is not None]
     return _stats([outs[i] for i in keep], [refs[i] for i in keep], [masses[i] for i in keep])
 
 
-def k9_agreement(dfs, dl, csr_t, el, er, m, c, gu, fs, h, stream, edge_block=None):
+def k9_agreement(dfs, dl, csr_t, el, er, m, c, gu, fs, h, stream, edge_block=None, rate=0.0, seed=None):
     """Hold K9's (dfs, dl) against its plain version. Sums of absolute
-    terms: sum w |gu| for dfs; sum w lp (sum_f |fs gu| + |c|) for dl, the
-    plain version on |fs|, |gu| and -|c|."""
+    terms: sum w q |gu| for dfs; sum w lp (q sum_f |fs gu| + |c|) for dl,
+    the plain version on |fs|, |gu| and -|c|."""
     from stgraph_tpu_torch.ops.flash_gat import flash_gat_bwd_plain
 
-    refs = flash_gat_bwd_plain(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, stream, edge_block)
+    refs = flash_gat_bwd_plain(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, stream, edge_block, rate, seed)
     masses = flash_gat_bwd_plain(csr_t, el, er, m, -c.abs(), gu.abs(), fs.abs(), h, GAT_SLOPE, stream,
-                                 edge_block)
+                                 edge_block, rate, seed)
     return _stats((dfs, dl), refs, masses)
 
 
@@ -1124,9 +1193,38 @@ def _node_cotangents(g, out, den, h):
     return gu, c
 
 
+def keep_mask_check(dev, rng, csr, e):
+    """The in-kernel hash (``stg_edge_keep_mask``, the device function K8 and
+    K9 run) against the port's ``edge_keep_mask``, bit for bit: the check
+    graph's (src, dst) pairs at 8 heads and a million random pairs with ids
+    up to 2^31 - 2 at 21 heads, seeds 0, 2^32 - 1 and a random one."""
+    from stgraph_tpu_torch.ops.flash_gat import edge_keep_mask, edge_keep_mask_kernel
+
+    big = torch.from_numpy(rng.integers(0, 2**31 - 1, (2, 1_000_000)).astype(np.int32)).to(dev)
+    cases = [(csr.cols[:e], csr.rows[:e], 8, 0.6), (big[0], big[1], 21, 0.35)]
+    seeds = (0, 2**32 - 1, int(rng.integers(0, 2**32)))
+    pairs, mismatched = 0, 0
+    for seed in seeds:
+        for src, dst, h, rate in cases:
+            seed_t = torch.tensor([seed], device=dev)
+            out = edge_keep_mask_kernel(src, dst, seed_t, h, rate)
+            torch.cuda.synchronize()
+            ref = edge_keep_mask(src, dst, seed_t, h, rate)
+            mismatched += int((out.view(torch.int32) != ref.view(torch.int32)).sum().item())
+            pairs += out.numel()
+            del out, ref
+    print(f"keep-mask-check: stg_edge_keep_mask vs edge_keep_mask over {pairs} (edge, head) pairs, seeds {seeds}: "
+          f"{mismatched} bits differ {'ok' if mismatched == 0 else 'FAIL'}")
+    check(pairs >= 10**7 and mismatched == 0, f"the in-kernel keep mask differs from edge_keep_mask at {mismatched}")
+    return {"pairs": pairs, "seeds": list(seeds), "mismatched": mismatched}
+
+
+@timed_phase
 def phase_gat_kernels_vs_plain(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000):
     """K4, K8 (with and without aux) and K9 against their plain versions on
-    K2's check graph: 1000 empty rows, a 300k-edge hub in each direction."""
+    K2's check graph: 1000 empty rows, a 300k-edge hub in each direction;
+    then the in-kernel keep mask, and K8 (with and without aux) and K9 in
+    their dropout mode at rates ``GAT_CHECK_RATES``."""
     from stgraph_tpu_torch.graph.csr import build_csr
     from stgraph_tpu_torch.ops.flash_gat import flash_gat_bwd, flash_gat_fwd, stability_max
     from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow, segment_max_narrow_plain
@@ -1138,7 +1236,9 @@ def phase_gat_kernels_vs_plain(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000
     src[-hub_deg:] = hub + 1
     csr = build_csr(src, dst, n, device=dev)
     csr_t = csr.transpose()
-    results, worst = [], {"K4": 0.0, "K8": 0.0, "K9": 0.0}
+    results, worst = [], {"K4": 0.0, "K8": 0.0, "K9": 0.0, "K8_dropout": 0.0, "K9_dropout": 0.0}
+    mask_check = keep_mask_check(dev, rng, csr, e)
+    drop_seed = torch.tensor([int(rng.integers(0, 2**32))], device=dev)
 
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
@@ -1152,41 +1252,44 @@ def phase_gat_kernels_vs_plain(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000
         check(k4_err == 0.0, f"K4 disagrees with its plain version at H={h}: {k4_err}")
         m = stability_max(csr, el, er, GAT_SLOPE)
         for stream in (torch.float32, torch.bfloat16):
-            tag = f"H={h} F={f} {str(stream)[6:]} stream"
-            fwd = {}
-            for aux in (False, True):
-                outs = flash_gat_fwd(csr, el, er, m, fs, h, GAT_SLOPE, stream, aux=aux)
+            for rate in (0.0,) + GAT_CHECK_RATES:
+                tag = f"H={h} F={f} {str(stream)[6:]} stream" + (f" dropout {rate}" if rate else "")
+                k8, k9 = ("K8_dropout", "K9_dropout") if rate else ("K8", "K9")
+                seed = drop_seed if rate else None
+                fwd = {}
+                for aux in (False, True):
+                    outs = flash_gat_fwd(csr, el, er, m, fs, h, GAT_SLOPE, stream, aux=aux, rate=rate, seed=seed)
+                    torch.cuda.synchronize()
+                    fwd[aux] = outs
+                    stats = k8_agreement(outs, csr, el, er, m, fs, h, stream, GAT_PLAIN_EDGE_BLOCK, rate, seed)
+                    ok = (all(r <= KERNEL_TOL for _, r, _ in stats)
+                          and not outs[0][n - empty:].any().item() and not outs[1][n - empty:].any().item())
+                    names = ("out", "den", "u", "p")
+                    print(f"k8-check {tag} aux={aux}: " + "; ".join(
+                        f"{nm} max_abs_err {a:.3e} (err/sum|terms| {r:.2e})"
+                        for nm, (a, r, _) in zip(names, stats)) + f" (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+                    check(ok, f"K8 disagrees with its plain version at {tag}, aux={aux}")
+                    worst[k8] = max(worst[k8], *(a for a, _, _ in stats))
+                    results.append({"kernel": k8, "case": tag, "aux": aux, "rate": rate,
+                                    "stats": [{"output": nm, "max_abs_err": a, "err_over_mass": r,
+                                               "max_abs_plain": mx} for nm, (a, r, mx) in zip(names, stats)]})
+                gu, c = _node_cotangents(g, fwd[True][0], fwd[True][1], h)
+                dfs, dl = flash_gat_bwd(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, stream, rate=rate, seed=seed)
                 torch.cuda.synchronize()
-                fwd[aux] = outs
-                stats = k8_agreement(outs, csr, el, er, m, fs, h, stream, GAT_PLAIN_EDGE_BLOCK)
-                ok = (all(r <= KERNEL_TOL for _, r, _ in stats)
-                      and not outs[0][n - empty:].any().item() and not outs[1][n - empty:].any().item())
-                names = ("out", "den", "u", "p")
-                print(f"k8-check {tag} aux={aux}: " + "; ".join(
-                    f"{nm} max_abs_err {a:.3e} (err/sum|terms| {r:.2e})" for nm, (a, r, _) in zip(names, stats))
-                    + f" (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
-                check(ok, f"K8 disagrees with its plain version at {tag}, aux={aux}")
-                worst["K8"] = max(worst["K8"], *(a for a, _, _ in stats))
-                results.append({"kernel": "K8", "case": tag, "aux": aux,
-                                "stats": [{"output": nm, "max_abs_err": a, "err_over_mass": r, "max_abs_plain": mx}
-                                          for nm, (a, r, mx) in zip(names, stats)]})
-            gu, c = _node_cotangents(g, fwd[True][0], fwd[True][1], h)
-            dfs, dl = flash_gat_bwd(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, stream)
-            torch.cuda.synchronize()
-            (dfs_a, dfs_r, _), (dl_a, dl_r, _) = k9_agreement(dfs, dl, csr_t, el, er, m, c, gu, fs, h, stream,
-                                                               GAT_PLAIN_EDGE_BLOCK)
-            ok = (dfs_r <= KERNEL_TOL and dl_r <= KERNEL_TOL
-                  and not dfs[n - empty:].any().item() and not dl[n - empty:].any().item())
-            print(f"k9-check {tag}: dfs max_abs_err {dfs_a:.3e} (err/sum|terms| {dfs_r:.2e}); dl max_abs_err "
-                  f"{dl_a:.3e} (err/sum|terms| {dl_r:.2e}) (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
-            check(ok, f"K9 disagrees with its plain version at {tag}")
-            worst["K9"] = max(worst["K9"], dfs_a, dl_a)
-            results.append({"kernel": "K9", "case": tag, "dfs_max_abs_err": dfs_a, "dfs_err_over_mass": dfs_r,
-                            "dl_max_abs_err": dl_a, "dl_err_over_mass": dl_r})
+                (dfs_a, dfs_r, _), (dl_a, dl_r, _) = k9_agreement(dfs, dl, csr_t, el, er, m, c, gu, fs, h, stream,
+                                                                   GAT_PLAIN_EDGE_BLOCK, rate, seed)
+                ok = (dfs_r <= KERNEL_TOL and dl_r <= KERNEL_TOL
+                      and not dfs[n - empty:].any().item() and not dl[n - empty:].any().item())
+                print(f"k9-check {tag}: dfs max_abs_err {dfs_a:.3e} (err/sum|terms| {dfs_r:.2e}); dl max_abs_err "
+                      f"{dl_a:.3e} (err/sum|terms| {dl_r:.2e}) (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"K9 disagrees with its plain version at {tag}")
+                worst[k9] = max(worst[k9], dfs_a, dl_a)
+                results.append({"kernel": k9, "case": tag, "rate": rate, "dfs_max_abs_err": dfs_a,
+                                "dfs_err_over_mass": dfs_r, "dl_max_abs_err": dl_a, "dl_err_over_mass": dl_r})
         print(f"k4-check H={h}: bit-equal to its plain version (max_abs_err {k4_err})")
         results.append({"kernel": "K4", "case": f"H={h}", "max_abs_err": k4_err})
     return {"graph": {"n": n, "e": e, "empty_rows": empty, "hub_deg": hub_deg},
-            "cases": results, "max_abs_err": worst}
+            "keep_mask": mask_check, "cases": results, "max_abs_err": worst}
 
 
 def gat_shapes(dims, heads):
@@ -1201,24 +1304,27 @@ def gat_shapes(dims, heads):
 
 class GAT(torch.nn.Module):
     """``benchmarking/gat/train.py``'s model: GATConv layers with ELU, the
-    heads concatenated, then a GATConv whose heads are averaged."""
+    heads concatenated, then a GATConv whose heads are averaged. Dropout
+    (``feat_drop``, ``attn_drop`` on every layer) draws from the
+    ``generator`` given to ``forward``."""
 
-    def __init__(self, graph, dims, heads, impl, device, generator=None):
+    def __init__(self, graph, dims, heads, impl, device, generator=None, feat_drop=0.0, attn_drop=0.0):
         super().__init__()
         from stgraph_tpu_torch.nn import GATConv
 
         shapes = gat_shapes(dims, heads)
         self.graph = graph
         self.layers = torch.nn.ModuleList(
-            GATConv(a, f, h, negative_slope=GAT_SLOPE, impl=impl, device=device, generator=generator,
+            GATConv(a, f, h, feat_drop=feat_drop, attn_drop=attn_drop, negative_slope=GAT_SLOPE, impl=impl,
+                    device=device, generator=generator,
                     activation=torch.nn.functional.elu if i < len(shapes) - 1 else None)
             for i, (a, f, h) in enumerate(shapes)
         )
 
-    def forward(self, h):
+    def forward(self, h, generator=None):
         for layer in self.layers[:-1]:
-            h = layer(self.graph, h).reshape(h.shape[0], -1)
-        return self.layers[-1](self.graph, h).mean(1)
+            h = layer(self.graph, h, generator).reshape(h.shape[0], -1)
+        return self.layers[-1](self.graph, h, generator).mean(1)
 
 
 def numpy_gat_params(dims, heads, seed):
@@ -1236,14 +1342,15 @@ def numpy_gat_params(dims, heads, seed):
     return {"params": tree}
 
 
-def build_gat(graph, impl, dev, seed, dims=GAT_DIMS, heads=GAT_HEADS):
+def build_gat(graph, impl, dev, seed, dims=GAT_DIMS, heads=GAT_HEADS, feat_drop=0.0, attn_drop=0.0):
     from stgraph_tpu_torch.convert import gat_params_from_jax
 
-    model = GAT(graph, dims, heads, impl, dev)
+    model = GAT(graph, dims, heads, impl, dev, feat_drop=feat_drop, attn_drop=attn_drop)
     model.load_state_dict(gat_params_from_jax(numpy_gat_params(dims, heads, seed)))
     return model.eval()
 
 
+@timed_phase
 def phase_gat_serving(dev, args, base):
     """The GAT behind a ``Predictor`` on the full graph: 3 requests, each
     launching K4 and K8 twice (no aux outputs) and nothing else."""
@@ -1329,9 +1436,12 @@ def _library_k8_ms(csr, el, er, fs, h, e):
         return None
 
 
+@timed_phase
 def phase_gat_kernels_at_main_shapes(dev, gat):
     """K4, K8 and K9 on the full graph with each GAT layer's own scores and
-    features (captured from the first request) and a random cotangent."""
+    features (captured from the first request) and a random cotangent; then
+    K8 (aux) and K9 in their dropout mode (``GAT_ATTN_DROP``) on the same
+    inputs, timed in turns with the mode without dropout."""
     from stgraph_tpu_torch.ops.flash_gat import (flash_gat_bwd, flash_gat_bwd_plain, flash_gat_fwd,
                                                  flash_gat_fwd_plain, stability_max)
     from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow, segment_max_narrow_plain
@@ -1343,8 +1453,10 @@ def phase_gat_kernels_at_main_shapes(dev, gat):
     e = int(csr.host_arrays()[0][-1])
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(11)
-    out = {"K4": [], "K8": [], "K8_serving": [], "K9": []}
-    worst = {"K4": 0.0, "K8": 0.0, "K9": 0.0}
+    seed = torch.randint(0, 1 << 32, (1,), generator=gen, device=dev, dtype=torch.int64)
+    rate = GAT_ATTN_DROP
+    out = {"K4": [], "K8": [], "K8_serving": [], "K9": [], "K8_dropout": [], "K9_dropout": []}
+    worst = {"K4": 0.0, "K8": 0.0, "K9": 0.0, "K8_dropout": 0.0, "K9_dropout": 0.0}
     with torch.inference_mode():
         for layer, h_in in zip(gat["model"].layers, gat["inputs"]):
             h, f = layer.num_heads, layer.out_feats
@@ -1422,6 +1534,56 @@ def phase_gat_kernels_at_main_shapes(dev, gat):
                               "library_ms": None, "bound_ms": b9[0], "bound_by": b9[1], "bytes": b9[2],
                               "ops": b9[3], "dfs_max_abs_err": dfs_a, "dfs_err_over_mass": dfs_r,
                               "dl_max_abs_err": dl_a, "dl_err_over_mass": dl_r})
+            # The dropout mode on the same inputs: full outputs against the
+            # plain versions, then timed in turns with the mode without it
+            # (none, dropout, dropout, none). The mask adds no bytes, so the
+            # bounds are the same; no PyTorch call computes the function.
+            outs = flash_gat_fwd(csr, el, er, m, fs, h, GAT_SLOPE, bf16, aux=True, rate=rate, seed=seed)
+            torch.cuda.synchronize()
+            stats = k8_agreement(outs, csr, el, er, m, fs, h, bf16, GAT_PLAIN_EDGE_BLOCK, rate, seed)
+            check(all(r <= KERNEL_TOL for _, r, _ in stats),
+                  f"K8's dropout mode at H={h}, F={f} (full graph) disagrees: {stats}")
+            k8d_err = max(a for a, _, _ in stats)
+            del outs
+            dfs, dl = flash_gat_bwd(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, bf16, rate=rate, seed=seed)
+            torch.cuda.synchronize()
+            (dfsd_a, dfsd_r, _), (dld_a, dld_r, _) = k9_agreement(dfs, dl, csr_t, el, er, m, c, gu, fs, h, bf16,
+                                                                   GAT_PLAIN_EDGE_BLOCK, rate, seed)
+            check(dfsd_r <= KERNEL_TOL and dld_r <= KERNEL_TOL,
+                  f"K9's dropout mode at H={h}, F={f} (full graph) disagrees: dfs {dfsd_r}, dl {dld_r}")
+            del dfs, dl
+
+            def k8_call(drop):
+                return lambda: flash_gat_fwd(csr, el, er, m, fs, h, GAT_SLOPE, bf16, aux=True,
+                                             rate=rate if drop else 0.0, seed=seed if drop else None)
+
+            def k9_call(drop):
+                return lambda: flash_gat_bwd(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, bf16,
+                                             rate=rate if drop else 0.0, seed=seed if drop else None)
+
+            turns = {}
+            for key, call in (("K8", k8_call), ("K9", k9_call)):
+                times = [cuda_ms(call(drop), iters=10, warmup=2) for drop in (False, True, True, False)]
+                turns[key] = ((times[1] + times[2]) / 2, (times[0] + times[3]) / 2, times)
+            k8d_plain = cuda_ms(lambda: flash_gat_fwd_plain(csr, el, er, m, fs, h, GAT_SLOPE, bf16, True,
+                                                            GAT_PLAIN_EDGE_BLOCK, rate, seed), iters=1, warmup=1)
+            k9d_plain = cuda_ms(lambda: flash_gat_bwd_plain(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, bf16,
+                                                            GAT_PLAIN_EDGE_BLOCK, rate, seed), iters=1, warmup=1)
+            k8d_errs = {"max_abs_err": k8d_err, "err_over_mass": max(r for _, r, _ in stats)}
+            k9d_errs = {"dfs_max_abs_err": dfsd_a, "dfs_err_over_mass": dfsd_r, "dl_max_abs_err": dld_a,
+                        "dl_err_over_mass": dld_r}
+            for key, plain_ms, b, errs in (("K8", k8d_plain, b_aux, k8d_errs), ("K9", k9d_plain, b9, k9d_errs)):
+                ms, ms_none, times = turns[key]
+                print(f"{key.lower()}-dropout-main H={h} F={f} rate {rate}: {ms:.3f} ms against {ms_none:.3f} ms "
+                      f"without dropout, in turns none/dropout/dropout/none {[round(t, 3) for t in times]} "
+                      f"({100 * (ms / ms_none - 1):+.1f} %; plain {plain_ms:.1f} ms, no library call, bound "
+                      f"{b[0]:.3f} ms by {b[1]}); full-graph " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+                out[f"{key}_dropout"].append(dict(
+                    {"H": h, "F": f, "E": e, "N": n, "aux": True, "rate": rate, "ms": ms, "ms_without_dropout": ms_none,
+                     "turns_ms": times, "plain_ms": plain_ms, "library_ms": None, "bound_ms": b[0],
+                     "bound_by": b[1], "bytes": b[2], "ops": b[3]}, **errs))
+            worst["K8_dropout"] = max(worst["K8_dropout"], k8d_err)
+            worst["K9_dropout"] = max(worst["K9_dropout"], dfsd_a, dld_a)
             worst["K4"] = max(worst["K4"], k4_err)
             worst["K8"] = max(worst["K8"], k8_err)
             worst["K9"] = max(worst["K9"], dfs_a, dl_a)
@@ -1430,6 +1592,7 @@ def phase_gat_kernels_at_main_shapes(dev, gat):
     return out, worst
 
 
+@timed_phase
 def phase_gat_training(dev, args, base):
     """The GAT trained on the full graph with Adam(5e-3): the fourth main
     path. Every step launches K4, K8 (with aux) and K9 twice each."""
@@ -1468,6 +1631,131 @@ def phase_gat_training(dev, args, base):
                        "launches_per_step": per_step, "launches": counts}}
 
 
+@timed_phase
+def phase_gat_dropout_training(dev, args, base):
+    """gat-dropout-training, the twelfth main path: the GAT trained on the
+    full graph as the GAT paper trains it, ``feat_drop`` and ``attn_drop``
+    0.6 on both layers, Adam(5e-3), 1 warm step and 5 timed ones. Every
+    step launches K4, K8 (with aux) and K9 twice each, all of K8's and K9's
+    in the dropout mode; a profile of one step; then the peak device memory
+    of a step with ``attn_drop`` alone against the same model's step
+    without dropout."""
+    graph, feats, labels = base["graph"], base["feats"], base["labels"]
+    model = build_gat(graph, "auto", dev, args.seed, feat_drop=GAT_FEAT_DROP, attn_drop=GAT_ATTN_DROP).train()
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(model(feats, gen), labels)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return loss.item()
+
+    t = time.perf_counter()
+    warm_loss = step()
+    warm_s = time.perf_counter() - t
+    losses, times, per_step = [], [], []
+    reset_counts()
+    for _ in range(TRAIN_STEPS):
+        before = read_counts()
+        t = time.perf_counter()
+        losses.append(step())
+        times.append(time.perf_counter() - t)
+        per_step.append({k: v - before[k] for k, v in read_counts().items()})
+    counts = read_counts()
+    print(f"gat-dropout-train: feat_drop {GAT_FEAT_DROP}, attn_drop {GAT_ATTN_DROP}; warm step {warm_s:.3f} s "
+          f"(loss {warm_loss:.4f}); {TRAIN_STEPS} Adam steps, s per step {[round(v, 4) for v in times]}, losses "
+          f"{[round(v, 4) for v in losses]}, launches {counts}")
+    check(all(c == only(K4=2, K8=2, K9=2, K8_dropout=2, K9_dropout=2) for c in per_step),
+          f"a GAT dropout training step launched {per_step}, expected K4, K8 and K9 twice each, K8 and K9 in "
+          "the dropout mode")
+    check(all(np.isfinite(losses)) and np.isfinite(warm_loss), "non-finite GAT dropout training loss")
+    check(losses[-1] < losses[0], f"the GAT dropout loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    profile = phase_profile(step, "one GAT attention-dropout training step")
+    peaks = {}
+    for label, rate in (("attn_drop", GAT_ATTN_DROP), ("none", 0.0)):
+        for layer in model.layers:
+            layer.feat_drop, layer.attn_drop = 0.0, rate
+        step()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        peaks[label] = torch.cuda.max_memory_allocated()
+    extra = peaks["attn_drop"] - peaks["none"]
+    ok = extra <= DROPOUT_PEAK_SLACK
+    print(f"gat-dropout-memory: peak of a step with attn_drop {GAT_ATTN_DROP} {peaks['attn_drop'] / 2**30:.3f} GiB, "
+          f"without dropout {peaks['none'] / 2**30:.3f} GiB: {extra / 2**20:+.1f} MiB (at most "
+          f"{DROPOUT_PEAK_SLACK >> 20} MiB) {'ok' if ok else 'FAIL'}")
+    check(ok, f"an attention-dropout step peaks {extra / 2**20:.1f} MiB above the same step without dropout")
+    return {"counts": counts,
+            "record": {"warm_s": warm_s, "warm_loss": warm_loss, "step_s": times, "losses": losses,
+                       "launches_per_step": per_step, "launches": counts, "profile": profile,
+                       "peak_bytes": peaks, "peak_extra_bytes": extra}}
+
+
+@timed_phase
+def phase_gat_dropout_vs_plain(dev, args, workdir):
+    """The GAT with ``attn_drop`` at ``--scale 0.01``: logits and every
+    parameter's gradient on the flash route (K8's and K9's dropout mode, a
+    bf16 stream) against the same layers on the edge-domain route (plain
+    torch, f32) given the same hash masks: the seeds a twin generator draws,
+    hashed by ``edge_keep_mask`` over the CSR."""
+    from stgraph_tpu_torch.dataset import OgbNodeDataLoader
+    from stgraph_tpu_torch.graph import StaticGraph
+    from stgraph_tpu_torch.nn.gat_conv import attention_dropout_seed
+    from stgraph_tpu_torch.ops.attention import composed_gat_attention_dropout
+    from stgraph_tpu_torch.ops.flash_gat import edge_keep_mask
+
+    data = OgbNodeDataLoader(root=workdir, scale=0.01, seed=args.seed)
+    n = data.gdata["num_nodes"]
+    graph = StaticGraph(data.get_edges(), None, n, device=dev)
+    csr = graph.fwd_csr
+    x = torch.from_numpy(data.get_all_features()).to(dev)
+    y = torch.from_numpy(data.get_all_targets()).to(dev)
+    model = build_gat(graph, "auto", dev, args.seed, attn_drop=GAT_ATTN_DROP).train()
+    reset_counts()
+    out = model(x, torch.Generator(device=dev).manual_seed(args.seed + 17))
+    torch.nn.functional.cross_entropy(out, y).backward()
+    counts = read_counts()
+    check(counts == only(K4=2, K8=2, K9=2, K8_dropout=2, K9_dropout=2),
+          f"the scale-0.01 dropout GAT launched {counts}, expected K4, K8 and K9 twice each in the dropout mode")
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    twin = torch.Generator(device=dev).manual_seed(args.seed + 17)
+    h = x
+    for i, layer in enumerate(model.layers):
+        heads, f = layer.num_heads, layer.out_feats
+        feat_src = layer.fc(h).reshape(n, heads, f)
+        el = (feat_src * layer.attn_l).sum(-1, keepdim=True)
+        er = (feat_src * layer.attn_r).sum(-1, keepdim=True)
+        keep = edge_keep_mask(csr.cols, csr.rows, attention_dropout_seed(twin, dev), heads, GAT_ATTN_DROP)
+        h = composed_gat_attention_dropout(csr, el, er, feat_src, GAT_SLOPE, GAT_ATTN_DROP, keep=keep)
+        h = torch.nn.functional.elu(h).reshape(n, -1) if i < len(model.layers) - 1 else h.mean(1)
+    torch.nn.functional.cross_entropy(h, y).backward()
+    err = (out - h).detach().abs().max().item()
+    scale = h.detach().abs().max().item()
+    ok = err <= MODEL_TOL * scale
+    print(f"gat-dropout-model-check scale 0.01 (N={n}, E={graph.get_num_edges()}, attn_drop {GAT_ATTN_DROP}): "
+          f"flash route vs the edge-domain route with the same hash masks max_abs_err {err:.3e} (max |plain| "
+          f"{scale:.3f}, tol {MODEL_TOL:g} x that) {'ok' if ok else 'FAIL'}")
+    check(ok, "the dropout GAT's logits on the flash route disagree with the edge-domain route at scale 0.01")
+    worst, rows = 0.0, []
+    for k, p in model.named_parameters():
+        gerr = (grads[k] - p.grad).abs().max().item()
+        ratio = gerr / max(p.grad.abs().max().item(), 1e-30)
+        worst = max(worst, ratio)
+        rows.append({"tensor": k, "max_abs_err": gerr, "err_over_max": ratio})
+        print(f"gat-dropout-grad-check {k}: flash route vs edge-domain route max_abs_err {gerr:.3e}, {ratio:.2e} of "
+              f"the largest (tol {GRAD_TOL:g}) {'ok' if ratio <= GRAD_TOL else 'FAIL'}")
+    check(worst <= GRAD_TOL,
+          "a dropout GAT gradient on the flash route disagrees with the edge-domain route at scale 0.01")
+    return {"n": n, "e": graph.get_num_edges(), "launches": counts, "max_abs_err": err, "max_abs_plain": scale,
+            "grads": rows, "worst_grad_err_over_max": worst}
+
+
+@timed_phase
 def phase_gat_vs_plain(dev, args, workdir):
     """The GAT at ``--scale 0.01``: logits and every parameter's gradient on
     the flash route (bf16 stream) against the vertex program (f32)."""
@@ -1509,6 +1797,7 @@ def phase_gat_vs_plain(dev, args, workdir):
             "worst_grad_err_over_max": worst}
 
 
+@timed_phase
 def phase_pubmed_gat(dev, args, workdir):
     """``benchmarking/gat/train.py --dataset pubmed`` on the port: 8 heads x
     8 hidden, 1 output head, Adam(5e-3), 200 full-graph epochs, the flash
@@ -1648,6 +1937,7 @@ def check_graph(dev, rng, n, e, hub_deg):
     return build_csr(src, dst, n, capacity=e + 5, device=dev), empty
 
 
+@timed_phase
 def phase_composed_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=150_000):
     """K3 and K10 against their plain versions on a graph with a hub of
     ``hub_deg`` edges in each direction (so a 128-row block of each blocked
@@ -1741,6 +2031,7 @@ def gat_sampled_check(csr, layer, h_in, y, rows, elu, block=1 << 17):
     return err.max().item(), ratio, ref.abs().max().item(), int(deg.sum())
 
 
+@timed_phase
 def phase_composed_ogbn_serving(dev, args, base):
     """The GAT at the GAT paper's PPI widths behind a ``Predictor`` on the
     full graph: 3 requests, each launching K4, K3 and K10 three times; each
@@ -1910,6 +2201,7 @@ def ppi_graph(dev, seed):
     return graph, torch.from_numpy(feat).to(dev), torch.from_numpy(labels).to(dev)
 
 
+@timed_phase
 def phase_ppi_gat(dev, args):
     """The GAT paper's PPI model (``benchmarking/gat/train.py --num_layers 3
     --num_hidden 256 --num_heads 4 --num_out_heads 6``) on a PPI-sized graph:
@@ -2021,6 +2313,7 @@ def phase_ppi_gat(dev, args):
                        "worst_grad_err_over_max": worst}}
 
 
+@timed_phase
 def phase_composed_at_main_shapes(dev, ppi):
     """K3 and K10 at a PPI training step's shapes: K3 at K = 4 and 6 on the
     forward and transpose CSRs, K10 at 4 x 256 and 6 x 121 on both blocked
@@ -2139,6 +2432,7 @@ def wide_stream(bf16: bool):
         SK.WIDE_BF16_MIN_SLOTS = saved
 
 
+@timed_phase
 def phase_rowmask_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=150_000):
     """K5, K1's no-gather mode, K1's heads and denominator modes and K2's
     heads mode against their plain versions on the composed check graph:
@@ -2226,6 +2520,7 @@ def phase_rowmask_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=150
             "cases": results, "max_abs_err": worst}
 
 
+@timed_phase
 def phase_pubmed_rowmask(dev, args, workdir):
     """``benchmarking/gat/train.py --dataset pubmed --num_heads 32
     --num_hidden 4`` on the port: 500 -> 32 x 4 (ELU, heads concatenated)
@@ -2372,6 +2667,7 @@ def _library_multihead_bwd_ms(csr_t, w_t, g, fs, h, e):
         return None
 
 
+@timed_phase
 def phase_rowmask_ppi(dev, ppi):
     """The rowmask route at 32 x 4 on the PPI-sized graph (818,716 edges:
     the bf16 stream): ``sparse_gat_attention`` forward and backward with the
@@ -2557,6 +2853,7 @@ def rowid_bounds(cap: int, n: int, f: int, live: int):
     return out
 
 
+@timed_phase
 def phase_rowid_kernels_vs_plain(dev, rng, n=200_000, slots=2_000_000, hub_slots=150_000):
     """K6 and K7 against their plain versions on a live-sorted flat store with
     sentinel slots spread through it (5 %), tombstones (10 %, w = 0), 1000
@@ -2636,6 +2933,7 @@ def live_keys(store, key):
     return keys[counts == 1]
 
 
+@timed_phase
 def phase_dyn_step(dev, seed):
     """``bench.py``'s ``bench_dyn`` on the port: the lazy store pair at the
     wiki-talk scale (1.1M nodes, capacity 2.2M, tail 160k, ~2.0M initial
@@ -2723,6 +3021,7 @@ def phase_dyn_step(dev, seed):
                        "live_edges": len(want)}}
 
 
+@timed_phase
 def phase_rowid_at_main_shapes(dyn):
     """K6 and K7 on the dyn-step store after its 64 steps (tombstones and
     logs in use), F = 128: each kernel, its plain version and a library call
@@ -2850,6 +3149,7 @@ def link_loss(h, store, gen):
     return torch.where(mask, loss, 0.0).sum() / mask.sum().clamp(min=1)
 
 
+@timed_phase
 def phase_dtdg_training(dev, args, workdir, name):
     """``benchmarking/dynamic-temporal-tgcn/train.py --type lazy-scan`` on the
     port: the pair seeded from ``DeltaGraph.snapshot_store(lags - 1)``, the
@@ -3025,11 +3325,12 @@ def phase_dtdg_training(dev, args, workdir, name):
 def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, library=None, paths=None):
     """One kernel's entry of the kernels line: launches summed over the main
     paths' runs (``paths``, default all: K1's and K2's one-head and heads
-    modes count on their own paths), times summed over the launches of one
-    request (K1, K4) or one training step (K2, K8 with its aux outputs, K9;
-    K3 and K10: a step of the PPI GAT; K5, the no-gather sum and the heads
-    modes: a step of the rowmask route at PPI size) at the main path's
-    shapes."""
+    modes, and K8's and K9's modes with and without dropout, count on their
+    own paths), times summed over the launches of one request (K1, K4) or
+    one training step (K2, K8 with its aux outputs, K9, each also in the
+    dropout mode; K3 and K10: a step of the PPI GAT; K5, the no-gather sum
+    and the heads modes: a step of the rowmask route at PPI size) at the
+    main path's shapes."""
     by_path = {path: counts for path, counts in by_path.items() if paths is None or path in paths}
     return {
         "name": name,
@@ -3113,6 +3414,10 @@ def main() -> int:
             gat_train_counts = gat_trained["counts"]
             del gat_trained
             torch.cuda.empty_cache()
+            gat_dropout = phase_gat_dropout_training(dev, args, base)
+            record["gat_dropout_training"] = gat_dropout["record"]
+            del gat_dropout
+            torch.cuda.empty_cache()
             composed = phase_composed_ogbn_serving(dev, args, base)
             record["composed_serving"] = composed["record"]
             del base
@@ -3120,6 +3425,7 @@ def main() -> int:
             record["model_check"] = phase_model_vs_plain(dev, args, workdir)
             record["grad_check"] = phase_grads_vs_plain(dev, args, workdir)
             record["gat_check"] = phase_gat_vs_plain(dev, args, workdir)
+            record["gat_dropout_check"] = phase_gat_dropout_vs_plain(dev, args, workdir)
             record["cora"] = phase_cora(dev, args, workdir)
             record["pubmed_gat"] = phase_pubmed_gat(dev, args, workdir)
             record["pubmed_rowmask"] = phase_pubmed_rowmask(dev, args, workdir)
@@ -3153,12 +3459,15 @@ def main() -> int:
 
     by_path = {"serving": gcn_counts, "training": record["training"]["launches"],
                "gat-serving": record["gat_serving"]["launches"], "gat-training": gat_train_counts,
+               "gat-dropout-training": record["gat_dropout_training"]["launches"],
                "composed-serving": composed["counts"], "ppi-serving": record["ppi"]["serve_launches"],
                "ppi-training": record["ppi"]["train_launches"], "dyn-step": record["dyn_step"]["launches"],
                "pubmed-rowmask": record["pubmed_rowmask"]["launches"], "rowmask-ppi": rowmask_ppi["counts"]}
     by_path.update({f"dtdg-training:{name}": r["launches"] for name, r in record["dtdg_training"].items()})
     rowmask_paths = ("pubmed-rowmask", "rowmask-ppi")
     one_head_paths = tuple(path for path in by_path if path not in rowmask_paths)
+    dropout_paths = ("gat-dropout-training",)
+    undropped_paths = tuple(path for path in by_path if path not in dropout_paths)
     rowmask_main, rowmask_checks = rowmask_ppi["per_launch"], record["rowmask_checks"]["max_abs_err"]
     h, f = ROWMASK_PPI_TILING
     kernels = [
@@ -3211,10 +3520,19 @@ def main() -> int:
         kernel_entry("flash_gat_fwd (K8)", "stgraph_tpu_torch/csrc/flash_gat_fwd.cu",
                      "stgraph_tpu/ops/flash_gat.py:191", "K8", by_path,
                      max(record["gat_checks"]["max_abs_err"]["K8"], gat_err["K8"]), gat_launch["K8"],
-                     "torch.sparse.softmax + torch.sparse.mm, per head"),
+                     "torch.sparse.softmax + torch.sparse.mm, per head", paths=undropped_paths),
         kernel_entry("flash_gat_bwd (K9)", "stgraph_tpu_torch/csrc/flash_gat_bwd.cu",
                      "stgraph_tpu/ops/flash_gat.py:365", "K9", by_path,
-                     max(record["gat_checks"]["max_abs_err"]["K9"], gat_err["K9"]), gat_launch["K9"]),
+                     max(record["gat_checks"]["max_abs_err"]["K9"], gat_err["K9"]), gat_launch["K9"],
+                     paths=undropped_paths),
+        kernel_entry(f"flash_gat_fwd (K8, dropout mode: attn_drop {GAT_ATTN_DROP}, aux, bf16 stream)",
+                     "stgraph_tpu_torch/csrc/flash_gat_fwd.cu", "stgraph_tpu/ops/flash_gat.py:191", "K8_dropout",
+                     by_path, max(record["gat_checks"]["max_abs_err"]["K8_dropout"], gat_err["K8_dropout"]),
+                     gat_launch["K8_dropout"], paths=dropout_paths),
+        kernel_entry(f"flash_gat_bwd (K9, dropout mode: attn_drop {GAT_ATTN_DROP}, bf16 stream)",
+                     "stgraph_tpu_torch/csrc/flash_gat_bwd.cu", "stgraph_tpu/ops/flash_gat.py:365", "K9_dropout",
+                     by_path, max(record["gat_checks"]["max_abs_err"]["K9_dropout"], gat_err["K9_dropout"]),
+                     gat_launch["K9_dropout"], paths=dropout_paths),
         kernel_entry("segment_sum_blocked (K10)", "stgraph_tpu_torch/csrc/segment_sum_blocked.cu",
                      "stgraph_tpu/ops/spmm_pallas.py:61", "K10", by_path,
                      max(record["composed_checks"]["max_abs_err"]["K10"], composed_err["K10"],
@@ -3223,11 +3541,13 @@ def main() -> int:
     ]
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_start
+    record["phase_s"] = PHASE_SECONDS
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as fh:
             json.dump(record, fh, indent=1)
-    print(f"total {record['total_s']:.1f} s")
+    print(f"total {record['total_s']:.1f} s; longest phases " + ", ".join(
+        f"{name} {sec:.1f} s" for name, sec in sorted(PHASE_SECONDS, key=lambda p: -p[1])[:8]))
     print(record["environment"]["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

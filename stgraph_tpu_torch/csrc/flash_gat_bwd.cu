@@ -15,6 +15,18 @@
 // package does); d er comes from the forward's aux outputs and needs no
 // edge pass.
 //
+// Dropout mode (the JAX kernel's `dropped`, flash_gat.py:467-504): with
+// q the keep factor of (s, d, h) from edge_keep_mask.cuh, the same hash of
+// the same (src, dst) pair as the forward's (the transpose row is the
+// source), so the forward's mask comes back without a permutation:
+//
+//   dfs[s, c] += (w q) * gu[d, c]
+//   dl[s, h]  += w * (dw q - c[d, h]) * lp
+//
+// The forward's numerator took w q and its denominator w: out's cotangent
+// reaches fs through w q, and reaches the score through both, the
+// numerator's share scaled by q (dw q) and the normaliser's (c) not.
+//
 // Replaces the TPU kernel flash_gat._flash_bwd_b_kernel
 // (stgraph_tpu/ops/flash_gat.py:365, reached from flash_gat_attention at
 // pallas_call :663) on the GAT training path.
@@ -45,7 +57,16 @@
 //     own columns, and the warp reduces those sums by head once per item:
 //     sum_e w lp (dw - c) = sum_c sum_e (w lp) fs gu  -  sum_e (w lp) c. The
 //     roundings of the terms are the JAX kernel's; the sums run in another
-//     order;
+//     order. In dropout mode q is a factor of the edge, so it moves inside
+//     the column sum and stays out of the c term:
+//       sum_e w lp (dw q - c) = sum_c sum_e (w lp q) fs gu - sum_e (w lp) c,
+//     so the table holds w lp q where it held w lp, and the register sum of
+//     (w lp) c is unchanged;
+//   - in dropout mode the lane that forms w for (edge, head) hashes
+//     (s, d, head, seed) to q in registers (no plane) and writes w * q,
+//     rounded to the stream, where it wrote w. The mode is a template
+//     parameter, compiled into a library of its own (STG_DROPOUT_MODE
+//     below): the kernel without it is the one before;
 //   - in bf16-stream mode the wrapper casts gu to a bf16 table once (row
 //     stride padded to a multiple of 8); fs stays f32 and is rounded to bf16
 //     as it is read, and the products are formed two at a time by bf16x2
@@ -57,15 +78,17 @@
 //     and dl partials meet by atomicAdd in rows the wrapper zeroed.
 //
 // Rounding matches the JAX kernel in interpret mode: with a bf16 stream,
-// dfs's product of bf16 gu and bf16 w and dw's products of bf16 fs and
-// bf16 gu are rounded to bf16 (once, by the bf16x2 multiply) and summed in
-// f32; el, er, m, c, w and dl stay f32. With an f32 stream every step is
-// f32.
+// dfs's product of bf16 gu and bf16 w (w * q in dropout mode, the f32
+// product rounded once) and dw's products of bf16 fs and bf16 gu are
+// rounded to bf16 (once, by the bf16x2 multiply) and summed in f32; el, er,
+// m, c, w, q and dl stay f32. With an f32 stream every step is f32.
 //
 // Build (done by stgraph_tpu_torch/ops/kernel_lib.py at first use):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o build/kernels/libflash_gat_bwd-<hash>.so \
 //        flash_gat_bwd.cu
+// and, for the dropout mode, the same with -DSTG_DROPOUT_MODE=1 into
+// libflash_gat_bwd_dropout-<hash>.so.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,10 +96,20 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "edge_keep_mask.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
+
+// The dropout mode this library holds: the wrapper builds this source twice,
+// without and with -DSTG_DROPOUT_MODE=1 (two nvcc processes at once, each
+// compiling half the template variants), and loads the one a call needs.
+#ifndef STG_DROPOUT_MODE
+#define STG_DROPOUT_MODE 0
+#endif
+constexpr bool kDropMode = STG_DROPOUT_MODE != 0;
 
 __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
   return __uint_as_float(bits16 << 16);
@@ -197,7 +230,8 @@ constexpr int min_blocks() {
 // kKH: H rounded up to a power of two (<= 16). kOneHead: all of a lane's
 // columns lie in one head (H == 1, or consecutive columns with F a multiple
 // of kSlots). kPacked: bf16 table read by vector loads, bf16x2 products.
-template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead>
+// kDrop: the dropout mode (`seed` is read only there).
+template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead, bool kDrop>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32,
                                   min_blocks<T, kSlots, kVec>())
 flash_gat_bwd_kernel(const int32_t* __restrict__ indptr,
@@ -209,11 +243,13 @@ flash_gat_bwd_kernel(const int32_t* __restrict__ indptr,
                      const int32_t* __restrict__ item_row,
                      const int32_t* __restrict__ item_beg, int num_items,
                      float* __restrict__ dfs, float* __restrict__ dl, int h,
-                     int f, int hf, int ld, float slope, int chunk) {
+                     int f, int hf, int ld, float slope, int chunk,
+                     const int64_t* __restrict__ seed, float rate,
+                     float keep_scale) {
   constexpr bool kPacked = std::is_same<T, __nv_bfloat16>::value && kVec;
   constexpr int kStride = 32 / kKH;  // edges between one lane's weights
-  // Per warp: w as the stream carries it and w * lp (f32) of the current 32
-  // edges, by head.
+  // Per warp: w (w * q in dropout mode) as the stream carries it and w * lp
+  // (w * lp * q) in f32, of the current 32 edges, by head.
   __shared__ float sw[kWarpsPerBlock][32][kKH];
   __shared__ float sa[kWarpsPerBlock][32][kKH];
   const int warp = threadIdx.x >> 5;
@@ -234,6 +270,7 @@ flash_gat_bwd_kernel(const int32_t* __restrict__ indptr,
   const int wsub = lane / kKH;
   const bool wh_ok = wh < h;
   const float el_s = wh_ok ? __ldg(el + rh + wh) : 0.f;
+  const uint32_t seed_u = kDrop ? static_cast<uint32_t>(seed[0]) : 0u;
   float cterm = 0.f;  // sum over this lane's edges of (w lp) c, head wh
 
   int hs[kSlots];  // the head of each of the lane's columns
@@ -277,8 +314,17 @@ flash_gat_bwd_kernel(const int32_t* __restrict__ indptr,
         const float lk = s0 >= 0.f ? s0 : slope * s0;
         const float w = expf(fminf(lk - __ldg(fd + h + wh), 0.f));
         const float a = w * (s0 >= 0.f ? 1.f : slope);
-        sw[warp][j][wh] = stream_value<T>(w);
-        sa[warp][j][wh] = a;
+        if (kDrop) {
+          const float q = stg::edge_keep(static_cast<uint32_t>(row),
+                                         static_cast<uint32_t>(dst), seed_u,
+                                         static_cast<uint32_t>(wh), rate,
+                                         keep_scale);
+          sw[warp][j][wh] = stream_value<T>(__fmul_rn(w, q));
+          sa[warp][j][wh] = __fmul_rn(a, q);
+        } else {
+          sw[warp][j][wh] = stream_value<T>(w);
+          sa[warp][j][wh] = a;
+        }
         cterm += a * __ldg(fd + 2 * h + wh);
       }
     }
@@ -369,17 +415,24 @@ struct Args {
   int h, f, hf, ld;
   float slope;
   int chunk;
+  const int64_t* seed;  // null without dropout
+  float rate, keep_scale;
   cudaStream_t stream;
 };
 
-template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead>
-void launch_tile(const Args& a) {
+template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead, bool kDrop>
+void launch_mode(const Args& a) {
   const dim3 grid((a.num_items + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  flash_gat_bwd_kernel<T, kKH, kSlots, kVec, kOneHead>
+  flash_gat_bwd_kernel<T, kKH, kSlots, kVec, kOneHead, kDrop>
       <<<grid, kWarpsPerBlock * 32, 0, a.stream>>>(
           a.indptr, a.cols, a.el, a.fields, static_cast<const T*>(a.gu), a.fs,
           a.item_row, a.item_beg, a.num_items, a.dfs, a.dl, a.h, a.f, a.hf,
-          a.ld, a.slope, a.chunk);
+          a.ld, a.slope, a.chunk, a.seed, a.rate, a.keep_scale);
+}
+
+template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead>
+void launch_tile(const Args& a) {
+  launch_mode<T, kKH, kSlots, kVec, kOneHead, kDropMode>(a);
 }
 
 template <typename T, int kKH, int kSlots>
@@ -430,13 +483,16 @@ void launch(const Args& a) {
 // h * f, f32 or bf16 by `gu_bf16`, hf <= 256; `fs` is (n, hf) f32. `dfs` is
 // (n, hf) and `dl` (n, h), f32: the caller zeroes the rows of split work
 // items in both, and the kernel writes every element of every other row.
+// `seed`, `rate` and `keep_scale` as for stg_flash_gat_fwd: given to the
+// library built for the dropout mode, null to the other.
 extern "C" int stg_flash_gat_bwd(const void* indptr, const void* cols,
                                  const void* el, const void* fields,
                                  const void* gu, int gu_bf16, const void* fs,
                                  const void* item_row, const void* item_beg,
                                  int num_items, void* dfs, void* dl, int h,
                                  int f, int ld, float slope, int chunk,
-                                 void* stream) {
+                                 const void* seed, float rate,
+                                 float keep_scale, void* stream) {
   Args a;
   a.indptr = static_cast<const int32_t*>(indptr);
   a.cols = static_cast<const int32_t*>(cols);
@@ -455,7 +511,13 @@ extern "C" int stg_flash_gat_bwd(const void* indptr, const void* cols,
   a.ld = ld;
   a.slope = slope;
   a.chunk = chunk;
+  a.seed = static_cast<const int64_t*>(seed);
+  a.rate = rate;
+  a.keep_scale = keep_scale;
   a.stream = static_cast<cudaStream_t>(stream);
+  if ((seed != nullptr) != kDropMode) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (gu_bf16) {
     launch<__nv_bfloat16>(a);
   } else {

@@ -14,6 +14,16 @@
 //
 // where lp_e is 1 if el[src_e, h] + er[d, h] >= 0 and `slope` otherwise.
 //
+// Dropout mode (attention dropout on the normalised coefficients, the JAX
+// kernel's `dropped`, flash_gat.py:294-333): with q_e the keep factor of
+// (src_e, d, h) from edge_keep_mask.cuh (0 or 1 / (1 - rate)),
+//
+//   out[d,c] = sum_e (w_e q_e) fs[src_e, c] / max(den[d, h], FLT_MIN)
+//   u[d, c]  = sum_e (w_e lp_e q_e) fs[src_e, c]
+//
+// while den and p keep the UNdropped weights: dropout acts on the
+// normalised coefficients w_e / den, so it must not change den.
+//
 // Replaces the TPU kernel flash_gat._flash_fwd_kernel
 // (stgraph_tpu/ops/flash_gat.py:191, reached from flash_gat_attention at
 // pallas_call :663) on the GAT serving and training paths.
@@ -44,6 +54,12 @@
 //   - then the warp walks the 32 edges: src by shuffle, one row load, and
 //     the weight of the lane's head from the table (one read when all of a
 //     lane's columns lie in one head, the usual case);
+//   - in dropout mode the lane that forms w for (edge, head) also hashes
+//     (src, d, head, seed) to q in registers (about a dozen integer
+//     operations, no plane), writes w * q (and w * lp * q) to the table
+//     and adds the undropped w (and w * lp) to den (and p). The mode is a
+//     template parameter, compiled into a library of its own
+//     (STG_DROPOUT_MODE below): the kernel without it is the one before;
 //   - in bf16-stream mode the wrapper casts fs to a bf16 table once (row
 //     stride padded to a multiple of 8), halving the gathered bytes, and the
 //     products are formed two at a time by bf16x2 multiplies;
@@ -54,7 +70,8 @@
 //     other rows are normalised by their own warp at the end.
 //
 // Rounding matches the JAX kernel in interpret mode: with a bf16 stream,
-// fs and the weight (w, or w * lp for u) are bf16 and their product is
+// fs and the weight (w, or w * lp for u, each times q in dropout mode, the
+// f32 product rounded once) are bf16 and their product is
 // rounded to bf16 (a bf16x2 multiply rounds the exact product once, as
 // rounding an f32 product of two bf16 values does), summed in f32; el, er,
 // m, w, den and p stay f32. With an f32 stream every step is f32. Only the
@@ -64,6 +81,8 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o build/kernels/libflash_gat_fwd-<hash>.so \
 //        flash_gat_fwd.cu
+// and, for the dropout mode, the same with -DSTG_DROPOUT_MODE=1 into
+// libflash_gat_fwd_dropout-<hash>.so.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,10 +91,20 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "edge_keep_mask.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
+
+// The dropout mode this library holds: the wrapper builds this source twice,
+// without and with -DSTG_DROPOUT_MODE=1 (two nvcc processes at once, each
+// compiling half the template variants), and loads the one a call needs.
+#ifndef STG_DROPOUT_MODE
+#define STG_DROPOUT_MODE 0
+#endif
+constexpr bool kDropMode = STG_DROPOUT_MODE != 0;
 
 __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
   return __uint_as_float(bits16 << 16);
@@ -201,7 +230,9 @@ constexpr int min_blocks() {
 // kKH: H rounded up to a power of two (<= 16). kOneHead: all of a lane's
 // columns lie in one head (H == 1, or consecutive columns with F a multiple
 // of kSlots). kPacked: bf16 table read by vector loads, bf16x2 products.
-template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead, bool kAux>
+// kDrop: the dropout mode (`seed` is read only there).
+template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead, bool kAux,
+          bool kDrop>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32,
                                   min_blocks<T, kSlots, kVec>())
 flash_gat_fwd_kernel(const int32_t* __restrict__ indptr,
@@ -214,7 +245,9 @@ flash_gat_fwd_kernel(const int32_t* __restrict__ indptr,
                      const int32_t* __restrict__ item_beg, int num_items,
                      float* __restrict__ out, float* __restrict__ den,
                      float* __restrict__ u, float* __restrict__ p, int h,
-                     int f, int hf, int ld, float slope, int chunk) {
+                     int f, int hf, int ld, float slope, int chunk,
+                     const int64_t* __restrict__ seed, float rate,
+                     float keep_scale) {
   constexpr bool kPacked = std::is_same<T, __nv_bfloat16>::value && kVec;
   constexpr int kStride = 32 / kKH;  // edges between one lane's weights
   // Per warp: the weights of the current 32 edges, by head, as the stream
@@ -240,6 +273,7 @@ flash_gat_fwd_kernel(const int32_t* __restrict__ indptr,
   const bool wh_ok = wh < h;
   const float er_d = wh_ok ? __ldg(er + rh + wh) : 0.f;
   const float m_d = wh_ok ? __ldg(m + rh + wh) : 0.f;
+  const uint32_t seed_u = kDrop ? static_cast<uint32_t>(seed[0]) : 0u;
   float den_l = 0.f, p_l = 0.f;
 
   int hs[kSlots];  // the head of each of the lane's columns
@@ -264,12 +298,17 @@ flash_gat_fwd_kernel(const int32_t* __restrict__ indptr,
         const float s0 = __ldg(el + static_cast<int64_t>(src) * h + wh) + er_d;
         const float lk = s0 >= 0.f ? s0 : slope * s0;
         const float w = expf(fminf(lk - m_d, 0.f));
+        const float q =
+            kDrop ? stg::edge_keep(static_cast<uint32_t>(src),
+                                   static_cast<uint32_t>(row), seed_u,
+                                   static_cast<uint32_t>(wh), rate, keep_scale)
+                  : 1.f;
         den_l += w;
-        sw[warp][j][wh] = stream_value<T>(w);
+        sw[warp][j][wh] = stream_value<T>(kDrop ? __fmul_rn(w, q) : w);
         if (kAux) {
           const float wl = w * (s0 >= 0.f ? 1.f : slope);
           p_l += wl;
-          swl[warp][j][wh] = stream_value<T>(wl);
+          swl[warp][j][wh] = stream_value<T>(kDrop ? __fmul_rn(wl, q) : wl);
         }
       }
     }
@@ -377,26 +416,29 @@ struct Args {
   int h, f, hf, ld;
   float slope;
   int chunk;
+  const int64_t* seed;  // null without dropout
+  float rate, keep_scale;
   cudaStream_t stream;
 };
 
-template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead>
-void launch_tile(const Args& a) {
+template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead, bool kAux,
+          bool kDrop>
+void launch_mode(const Args& a) {
   const dim3 grid((a.num_items + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const dim3 block(kWarpsPerBlock * 32);
-  const T* fs = static_cast<const T*>(a.fs);
+  flash_gat_fwd_kernel<T, kKH, kSlots, kVec, kOneHead, kAux, kDrop>
+      <<<grid, block, 0, a.stream>>>(
+          a.indptr, a.cols, a.el, a.er, a.m, static_cast<const T*>(a.fs),
+          a.item_row, a.item_beg, a.num_items, a.out, a.den, a.u, a.p, a.h,
+          a.f, a.hf, a.ld, a.slope, a.chunk, a.seed, a.rate, a.keep_scale);
+}
+
+template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead>
+void launch_tile(const Args& a) {
   if (a.u != nullptr) {
-    flash_gat_fwd_kernel<T, kKH, kSlots, kVec, kOneHead, true>
-        <<<grid, block, 0, a.stream>>>(a.indptr, a.cols, a.el, a.er, a.m, fs,
-                                       a.item_row, a.item_beg, a.num_items,
-                                       a.out, a.den, a.u, a.p, a.h, a.f, a.hf,
-                                       a.ld, a.slope, a.chunk);
+    launch_mode<T, kKH, kSlots, kVec, kOneHead, true, kDropMode>(a);
   } else {
-    flash_gat_fwd_kernel<T, kKH, kSlots, kVec, kOneHead, false>
-        <<<grid, block, 0, a.stream>>>(a.indptr, a.cols, a.el, a.er, a.m, fs,
-                                       a.item_row, a.item_beg, a.num_items,
-                                       a.out, a.den, a.u, a.p, a.h, a.f, a.hf,
-                                       a.ld, a.slope, a.chunk);
+    launch_mode<T, kKH, kSlots, kVec, kOneHead, false, kDropMode>(a);
   }
 }
 
@@ -447,7 +489,11 @@ void launch(const Args& a) {
 // with ld >= hf = h * f, f32 or bf16 by `fs_bf16`, hf <= 256; `out` and `u`
 // are (n, hf) f32. `u` and `p` are null without aux. The caller zeroes the
 // `num_split` rows listed in `split_rows` (int64) in out, den, u and p; the
-// kernel writes every element of every other row.
+// kernel writes every element of every other row. `seed` (one int64 on the
+// device, its low 32 bits the hash's seed) is given, with `rate` and
+// `keep_scale` = f32(1 / (1 - rate)), to the library built for the dropout
+// mode, and null to the other; a call to the wrong library returns
+// cudaErrorInvalidValue and launches nothing.
 extern "C" int stg_flash_gat_fwd(const void* indptr, const void* cols,
                                  const void* el, const void* er,
                                  const void* m, const void* fs, int fs_bf16,
@@ -455,7 +501,8 @@ extern "C" int stg_flash_gat_fwd(const void* indptr, const void* cols,
                                  int num_items, const void* split_rows,
                                  int num_split, void* out, void* den, void* u,
                                  void* p, int h, int f, int ld, float slope,
-                                 int chunk, void* stream) {
+                                 int chunk, const void* seed, float rate,
+                                 float keep_scale, void* stream) {
   Args a;
   a.indptr = static_cast<const int32_t*>(indptr);
   a.cols = static_cast<const int32_t*>(cols);
@@ -476,7 +523,13 @@ extern "C" int stg_flash_gat_fwd(const void* indptr, const void* cols,
   a.ld = ld;
   a.slope = slope;
   a.chunk = chunk;
+  a.seed = static_cast<const int64_t*>(seed);
+  a.rate = rate;
+  a.keep_scale = keep_scale;
   a.stream = static_cast<cudaStream_t>(stream);
+  if ((seed != nullptr) != kDropMode) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (fs_bf16) {
     launch<__nv_bfloat16>(a);
   } else {
@@ -488,6 +541,47 @@ extern "C" int stg_flash_gat_fwd(const void* indptr, const void* cols,
                                   256, 0, a.stream>>>(
         static_cast<const int64_t*>(split_rows), num_split, a.den, a.out, h, f,
         a.hf);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+__global__ void edge_keep_mask_kernel(const int32_t* __restrict__ src,
+                                      const int32_t* __restrict__ dst,
+                                      int64_t e, int h,
+                                      const int64_t* __restrict__ seed,
+                                      float rate, float keep_scale,
+                                      float* __restrict__ out) {
+  const uint32_t seed_u = static_cast<uint32_t>(seed[0]);
+  const int64_t total = e * h;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t k = i / h;
+    out[i] = stg::edge_keep(static_cast<uint32_t>(src[k]),
+                            static_cast<uint32_t>(dst[k]), seed_u,
+                            static_cast<uint32_t>(i - k * h), rate,
+                            keep_scale);
+  }
+}
+
+}  // namespace
+
+// Writes the (e, h) f32 keep mask of the edges (src[k], dst[k]) from the
+// same device function K8 and K9 use, so that a check can hold the
+// in-kernel hash against the port's edge_keep_mask bit for bit. Not on any
+// model's path. Returns cudaGetLastError().
+extern "C" int stg_edge_keep_mask(const void* src, const void* dst, long long e,
+                                  int h, const void* seed, float rate,
+                                  float keep_scale, void* out, void* stream) {
+  const int64_t total = static_cast<int64_t>(e) * h;
+  if (total > 0) {
+    const int64_t blocks = (total + 255) / 256;
+    edge_keep_mask_kernel<<<static_cast<unsigned>(blocks < 65535 * 16 ? blocks : 65535 * 16),
+                            256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst), e, h,
+        static_cast<const int64_t*>(seed), rate, keep_scale,
+        static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,15 +17,30 @@ bias), and the attention takes one of the JAX layer's routes
     ``softmax_dst(leaky(el_src + er_dst))`` through the port's compiler.
 
 Dropout: ``feat_drop`` and ``attn_drop`` act in training mode, drawing
-from the ``generator`` given to ``forward``. Attention dropout takes the
-JAX layer's routes (``gat_conv.py:122-173``): the dense route where it
-applies, else the edge-domain route (``composed_gat_attention_dropout``,
-plain torch) on the CPU at every tiling, as the reference off its TPU, and
-on CUDA at the tilings off the reference's flash predicate
-(``flash_gat.reference_flash_tiling``). At those flash tilings the
-reference keeps dropout inside its flash kernels (the stateless
-``edge_keep_mask`` hash); K8's and K9's dropout mode is not ported yet, so
-there, on CUDA, it raises ``NotImplementedError``.
+from the ``generator`` given to ``forward`` (the default generator of the
+data's device when None), in this order: ``feat_drop``'s ``torch.rand``
+over the input, then attention dropout's draw (one seed, or a
+``torch.rand`` over the (capacity, H) coefficients). Attention dropout
+takes the JAX layer's routes on its TPU (``gat_conv.py:117-173``), by the
+tiling alone, on the CPU as on the card:
+
+  * the dense route where it applies, with ``torch.rand`` per
+    (dst, src, head);
+  * (a) at the reference's flash tilings (``flash_gat.reference_flash_tiling``)
+    that the port's flash kernels take (``flash_supported``): the flash
+    route with K8's and K9's dropout mode (their plain versions on the
+    CPU), on one uint32 seed drawn per call as a one-element tensor on the
+    generator's device, so no host sync (``attention_dropout_seed``); the
+    keep mask is ``edge_keep_mask``'s hash, the JAX kernels' bit for bit;
+  * (b) at the reference's flash tilings past the port's (such as 4 x 128,
+    8 x 64, 16 x 32, 1 x 384): the edge-domain route
+    (``composed_gat_attention_dropout``, plain torch) with the same hash
+    mask over the CSR, ``edge_keep_mask(cols, rows, seed, H, p)``;
+  * (c) every other tiling or ``impl``: the edge-domain route
+    with ``torch.rand`` from the generator, as the reference's
+    ``jax.random.bernoulli`` route.
+
+Evaluation mode draws nothing and takes the routes without dropout.
 """
 
 from __future__ import annotations
@@ -38,13 +53,22 @@ from torch import nn
 
 from stgraph_tpu_torch.compiler import STGraph, dsl
 from stgraph_tpu_torch.graph.csr import CSR
-from stgraph_tpu_torch.ops.flash_gat import reference_flash_tiling
+from stgraph_tpu_torch.ops.flash_gat import edge_keep_mask, flash_supported, reference_flash_tiling
 from stgraph_tpu_torch.utils.device import resolve_device
 
 # Same scale as ops.message._DENSE_BUDGET_BYTES: an (N, N) f32 mask.
 _DENSE_ATTN_BUDGET_BYTES = 64 * 1024 * 1024
 
-__all__ = ["GATConv"]
+__all__ = ["GATConv", "attention_dropout_seed"]
+
+
+def attention_dropout_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The seed of one layer call's hashed attention-dropout mask: a uint32
+    in a one-element int64 tensor, drawn from ``generator`` on its device
+    (from ``device``'s default generator when None), so that nothing waits
+    for the card. The JAX layer draws ``jax.random.bits(attn_rng, uint32)``."""
+    dev = generator.device if generator is not None else device
+    return torch.randint(0, 1 << 32, (1,), generator=generator, device=dev, dtype=torch.int64)
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -111,24 +135,24 @@ class GATConv(nn.Module):
         csr = graph if isinstance(graph, CSR) else graph.fwd_csr
         n = csr.num_nodes
         slope = self.negative_slope
+        heads, f = self.num_heads, self.out_feats
 
         if self.impl in ("auto", "dense") and n * n * 4 <= _DENSE_ATTN_BUDGET_BYTES:
             rst = A.dense_gat_attention(
                 csr, el, er, feat_src, negative_slope=slope,
                 attn_drop_rate=self.attn_drop if use_attn_drop else 0.0, generator=generator,
             )
-        elif (
-            use_attn_drop
-            and self.impl in ("auto", "sparse")
-            and feat.device.type != "cpu"
-            and reference_flash_tiling(self.num_heads, self.out_feats)
-        ):
-            raise NotImplementedError(
-                f"attention dropout at heads={self.num_heads}, F={self.out_feats} (a flash tiling of the "
-                "reference) on CUDA needs K8's and K9's dropout mode (the stateless edge_keep_mask hash), "
-                "kernel item E, which is not ported yet (ROADMAP.md); train with attn_drop=0"
-            )
-        elif use_attn_drop:
+        elif use_attn_drop and self.impl in ("auto", "sparse") and reference_flash_tiling(heads, f):
+            seed = attention_dropout_seed(generator, feat.device)
+            if flash_supported(heads, f):  # (a): K8's and K9's dropout mode
+                rst = A.sparse_gat_attention(
+                    csr, el, er, feat_src, negative_slope=slope, csr_t=getattr(graph, "bwd_csr", None),
+                    attn_drop_rate=self.attn_drop, attn_drop_seed=seed,
+                )
+            else:  # (b): the same hash mask on the edge-domain route
+                keep = edge_keep_mask(csr.cols, csr.rows, seed, heads, self.attn_drop)
+                rst = A.composed_gat_attention_dropout(csr, el, er, feat_src, slope, self.attn_drop, keep=keep)
+        elif use_attn_drop:  # (c)
             rst = A.composed_gat_attention_dropout(csr, el, er, feat_src, slope, self.attn_drop, generator)
         elif self.impl in ("auto", "sparse"):
             # the composed route reads the graph's blocked layouts, built on first use

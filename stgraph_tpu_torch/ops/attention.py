@@ -23,6 +23,13 @@ Counterpart of ``stgraph_tpu/ops/attention.py``:
 
 Every tiling runs on CUDA. On the CPU the same functions run the kernels'
 plain versions.
+
+Attention dropout: ``sparse_gat_attention`` takes it on the flash route
+only, inside K8 and K9 (the stateless ``flash_gat.edge_keep_mask`` hash,
+JAX's ``:115-188``); ``composed_gat_attention_dropout`` is the edge-domain
+route, plain torch, with a mask drawn by ``torch.rand`` or given as a
+precomputed plane (the same hash, where ``GATConv`` wants the reference's
+flash mask at a tiling past the port's flash kernels).
 """
 
 from __future__ import annotations
@@ -260,6 +267,8 @@ def sparse_gat_attention(
     blocked: Optional[BlockedCSR] = None,
     blocked_t: Optional[BlockedCSR] = None,
     csr_t: Optional[CSR] = None,
+    attn_drop_rate: float = 0.0,
+    attn_drop_seed=0,
 ) -> torch.Tensor:
     """Large-graph GAT attention: (N, H, 1), (N, H, 1), (N, H, F) -> (N, H, F).
 
@@ -271,6 +280,13 @@ def sparse_gat_attention(
     and ``(H * F) % 128 == 0``); else the composed route (``ComposedGat``,
     f32) over the blocked layouts ``blocked`` and ``blocked_t`` of ``csr``
     and of its transpose ``csr_t`` (each built once per CSR when not given).
+
+    ``attn_drop_rate`` > 0 (JAX's ``:115-188``) needs the flash route: the
+    normalised coefficients are dropped inside K8 and K9 by the hash of
+    (src, dst, head, ``attn_drop_seed``) (``flash_gat.edge_keep_mask``; the
+    seed a Python int or a one-element integer tensor on the data's
+    device). Other tilings raise ``ValueError``, as in JAX; ``GATConv``
+    takes its edge-domain route there.
     """
     from stgraph_tpu_torch.ops import spmm_cuda
 
@@ -278,9 +294,12 @@ def sparse_gat_attention(
     sdt = spmm_cuda._stream_dtype(csr, torch.float32)
     if flash_supported(h, f):
         out = flash_gat_attention(
-            csr, el[..., 0], er[..., 0], feat_src.reshape(n, h * f), h, negative_slope, sdt
+            csr, el[..., 0], er[..., 0], feat_src.reshape(n, h * f), h, negative_slope, sdt,
+            attn_drop_rate, attn_drop_seed,
         )
         return out.reshape(n, h, f).to(feat_src.dtype)
+    if attn_drop_rate > 0.0:
+        raise ValueError("attention dropout needs the flash path; gate on flash_path_available() before calling")
     if csr_t is None:
         csr_t = csr.transpose()
     scores = (el[..., 0].float(), er[..., 0].float(), feat_src.float(), csr, csr_t)
@@ -300,16 +319,28 @@ def composed_gat_attention_dropout(
     negative_slope: float,
     attn_drop_rate: float,
     generator: Optional[torch.Generator] = None,
+    keep: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The edge-domain route with attention dropout (the JAX ``GATConv``'s
     route off its flash tilings, ``gat_conv.py:146-173``): explicit per-edge
     coefficients, so the keep mask applies to each; plain torch on any
-    device, as JAX's is plain XLA, differentiated by autograd."""
+    device, as JAX's is plain XLA, differentiated by autograd.
+
+    The mask is ``torch.rand`` from ``generator`` (JAX's
+    ``jax.random.bernoulli``) unless ``keep`` gives it: a precomputed
+    (capacity, H) plane of keep factors in CSR order, 0 or 1/(1-p), such as
+    ``flash_gat.edge_keep_mask(csr.cols, csr.rows, seed, H, p)``, the flash
+    kernels' own mask."""
     n = csr.num_nodes
     s = M.gather_src(csr, el[..., 0]) + M.gather_dst(csr, er[..., 0])
     s = torch.where(s >= 0, s, negative_slope * s)
     alpha = seg.segment_softmax(s, csr.rows, n, edge_mask=csr.edge_mask)
-    keep = torch.rand(alpha.shape, generator=generator, device=alpha.device) < 1.0 - attn_drop_rate
-    alpha = torch.where(keep, alpha / (1.0 - attn_drop_rate), torch.zeros((), device=alpha.device))
+    if keep is not None:
+        if tuple(keep.shape) != tuple(alpha.shape):
+            raise ValueError(f"keep must be (capacity, H) = {tuple(alpha.shape)}, got {tuple(keep.shape)}")
+        alpha = alpha * keep
+    else:
+        keep = torch.rand(alpha.shape, generator=generator, device=alpha.device) < 1.0 - attn_drop_rate
+        alpha = torch.where(keep, alpha / (1.0 - attn_drop_rate), torch.zeros((), device=alpha.device))
     msg = M.gather_src(csr, feat_src) * alpha[:, :, None]
     return seg.segment_sum(msg, csr.rows, n, edge_mask=csr.edge_mask)

@@ -4,21 +4,23 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, under ``build/kernels/`` beside the
 package, at first use; the wrappers load it with ctypes. ``build()``
 starts one ``nvcc`` per stale source, all at once, and waits for them. A
-library's name carries a hash of its source, so an edited kernel is always
-rebuilt. Nothing here runs at import time.
+library's name carries a hash of its source and of every local header it
+includes (``#include "..."``, followed recursively), so an edited kernel or
+header is always rebuilt. Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, Iterable, List, Optional
 
 from stgraph_tpu_torch.utils.build import library_path
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build", "load"]
+__all__ = ["SOURCES", "DEFINES", "NVCC_FLAGS", "build", "load", "local_headers"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 
@@ -33,8 +35,18 @@ SOURCES: Dict[str, str] = {
     "spmm_rowid": "spmm_rowid.cu",  # K6
     "rowid_denom": "rowid_denom.cu",  # K7
     "flash_gat_fwd": "flash_gat_fwd.cu",  # K8
+    "flash_gat_fwd_dropout": "flash_gat_fwd.cu",  # K8's dropout mode
     "flash_gat_bwd": "flash_gat_bwd.cu",  # K9
+    "flash_gat_bwd_dropout": "flash_gat_bwd.cu",  # K9's dropout mode
     "segment_sum_blocked": "segment_sum_blocked.cu",  # K10
+}
+
+# nvcc's extra flags for a library built from a source another library
+# shares: K8's and K9's dropout mode, so that the two halves of each
+# source's template variants compile at once
+DEFINES: Dict[str, List[str]] = {
+    "flash_gat_fwd_dropout": ["-DSTG_DROPOUT_MODE=1"],
+    "flash_gat_bwd_dropout": ["-DSTG_DROPOUT_MODE=1"],
 }
 
 NVCC_FLAGS: List[str] = [
@@ -60,8 +72,33 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: str) -> List[str]:
+    """The headers ``source`` includes by ``#include "..."``, resolved
+    against the including file's directory, followed recursively, each once,
+    in the order first met."""
+    found: List[str] = []
+    todo = [source]
+    while todo:
+        path = todo.pop(0)
+        with open(path) as fh:
+            text = fh.read()
+        for rel in _INCLUDE.findall(text):
+            header = os.path.normpath(os.path.join(os.path.dirname(path), rel))
+            if header not in found and header != source:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def _paths(names: Iterable[str]) -> Dict[str, str]:
-    return {n: library_path("kernels", n, os.path.join(_CSRC, SOURCES[n])) for n in names}
+    paths = {}
+    for n in names:
+        source = os.path.join(_CSRC, SOURCES[n])
+        paths[n] = library_path("kernels", n, source, *local_headers(source), salt=" ".join(DEFINES.get(n, ())))
+    return paths
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
@@ -77,7 +114,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     procs = {}
     for name, out in todo.items():
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, SOURCES[name])]
+        cmd = [nvcc, *NVCC_FLAGS, *DEFINES.get(name, ()), "-o", tmp, os.path.join(_CSRC, SOURCES[name])]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,

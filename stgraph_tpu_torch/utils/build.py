@@ -3,9 +3,10 @@
 Both the host graph builder (``native/``) and the CUDA kernels (``csrc/``)
 are compiled at first use into ``build/`` beside the package directory (the
 repository root in a checkout; git ignores it). A library's file name
-carries a hash of its source, so an edited source never loads a stale
-build, and a finished build is moved into place atomically, so concurrent
-processes never load a half-written file.
+carries a hash of its source (and of the local headers it includes), so
+an edited source never loads a stale build, and a finished build is moved
+into place atomically, so concurrent processes never load a half-written
+file.
 """
 
 from __future__ import annotations
@@ -25,8 +26,12 @@ def build_dir(sub: str) -> str:
     return path
 
 
-def library_path(sub: str, name: str, source: str) -> str:
-    """Path of the shared library built from ``source`` (content-hashed)."""
-    with open(source, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:12]
-    return os.path.join(build_dir(sub), f"lib{name}-{tag}.so")
+def library_path(sub: str, name: str, source: str, *headers: str, salt: str = "") -> str:
+    """Path of the shared library built from ``source`` and the ``headers``
+    it includes (content-hashed, all of them, in order, after ``salt``: the
+    build's own flags, where they vary)."""
+    digest = hashlib.sha256(salt.encode())
+    for path in (source, *headers):
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(build_dir(sub), f"lib{name}-{digest.hexdigest()[:12]}.so")

@@ -1,9 +1,12 @@
 """K1 (with its heads, denominator and no-gather modes), K2 (with its heads
-mode), K3, K4, K5, K6, K7, K8, K9 and K10 on the card against their plain
-versions, and the GCN forward, a GCN training step, GAT training steps on
-the flash route and on the composed route's blocked and rowmask branches,
-and TGCN on a lazy dynamic store pair on CUDA against the CPU. Marked ``cuda``: they skip where no card is present. On a
-machine with a card and without jax they run without the suite's conftest:
+mode), K3, K4, K5, K6, K7, K8 and K9 (with their dropout mode, and the
+in-kernel keep-mask hash bit for bit) and K10 on the card against their
+plain versions, and the GCN forward, a GCN training step, GAT training
+steps on the flash route (with and without attention dropout) and on the
+composed route's blocked and rowmask branches, and TGCN on a lazy dynamic
+store pair on CUDA against the CPU. Marked ``cuda``: they skip where no card
+is present. On a machine with a card and without jax they run without the
+suite's conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest``.
 
 Tolerance: the kernel rounds as its plain version does (a bf16 stream
@@ -345,6 +348,54 @@ def test_k8_and_k9_match_plain_on_the_card(cuda, rng, h, f, stream):
     assert (FG.flash_gat_fwd.launches, FG.flash_gat_bwd.launches) == (before[0] + 2, before[1] + 1)
 
 
+def test_in_kernel_keep_mask_is_edge_keep_mask_bit_for_bit(cuda, rng):
+    """The hash K8 and K9 run in registers (``csrc/edge_keep_mask.cuh``,
+    through ``stg_edge_keep_mask``) against the port's ``edge_keep_mask``."""
+    e = 1_000_000
+    src = torch.from_numpy(rng.integers(0, 2**31 - 1, e)).int()
+    dst = torch.from_numpy(rng.integers(0, 2**31 - 1, e)).int()
+    for seed in (0, 2**32 - 1, 2_654_435_761):
+        for h, rate in ((8, 0.6), (1, 0.35), (21, 0.1)):
+            seed_dev = torch.tensor([seed], device=cuda)
+            out = FG.edge_keep_mask_kernel(src.to(cuda), dst.to(cuda), seed_dev, h, rate)
+            torch.cuda.synchronize()
+            ref = FG.edge_keep_mask(src, dst, seed, h, rate)
+            assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32)), (seed, h, rate)
+
+
+@pytest.mark.parametrize("h,f", [(8, 32), (1, 47), (8, 8), (4, 16), (3, 5)])
+@pytest.mark.parametrize("stream", [None, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.3, 0.6])
+def test_k8_and_k9_dropout_mode_match_plain_on_the_card(cuda, rng, h, f, stream, rate):
+    n = 3000
+    csr, el, er, c, fs, gu = _flash_inputs(rng, cuda, n, h, f)
+    seed = torch.tensor([3_000_000_019], device=cuda)
+    m = FG.stability_max(csr, el, er, 0.2)
+    before = FG.flash_gat_fwd.dropout_launches, FG.flash_gat_bwd.dropout_launches
+    for aux in (False, True):
+        outs = FG.flash_gat_fwd(csr, el, er, m, fs, h, 0.2, stream, aux=aux, rate=rate, seed=seed)
+        torch.cuda.synchronize()
+        refs = FG.flash_gat_fwd_plain(csr, el, er, m, fs, h, 0.2, stream, aux, None, rate, seed)
+        # out and u against their sums of absolute terms (the plain version on |fs|)
+        masses = FG.flash_gat_fwd_plain(csr, el, er, m, fs.abs(), h, 0.2, stream, aux, None, rate, seed)
+        for out, ref, mass in zip(outs, refs, masses):
+            if ref is not None:
+                assert ((out - ref).abs() <= 1e-4 * mass + 1e-6).all()
+        undropped = FG.flash_gat_fwd(csr, el, er, m, fs, h, 0.2, stream, aux=aux)
+        torch.cuda.synchronize()
+        _close(outs[1], undropped[1])  # den keeps the undropped weights
+        assert not torch.allclose(outs[0], undropped[0])
+    csr_t = csr.transpose()
+    dfs, dl = FG.flash_gat_bwd(csr_t, el, er, m, c, gu, fs, h, 0.2, stream, rate=rate, seed=seed)
+    torch.cuda.synchronize()
+    ref_dfs, ref_dl = FG.flash_gat_bwd_plain(csr_t, el, er, m, c, gu, fs, h, 0.2, stream, None, rate, seed)
+    mass_dfs, mass_dl = FG.flash_gat_bwd_plain(csr_t, el, er, m, -c.abs(), gu.abs(), fs.abs(), h, 0.2, stream, None,
+                                               rate, seed)
+    assert ((dfs - ref_dfs).abs() <= 1e-4 * mass_dfs + 1e-6).all()
+    assert ((dl - ref_dl).abs() <= 1e-4 * mass_dl + 1e-6).all()
+    assert (FG.flash_gat_fwd.dropout_launches, FG.flash_gat_bwd.dropout_launches) == (before[0] + 2, before[1] + 1)
+
+
 def test_gat_training_step_on_cuda_matches_cpu(cuda, rng):
     n, e = 5000, 250_000  # the flash kernels stream bf16
     edges = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)], 1)
@@ -372,6 +423,41 @@ def test_gat_training_step_on_cuda_matches_cpu(cuda, rng):
     for ref, out in zip(*grads):
         # the projections sum in another order on the card, so a streamed
         # value may round to the neighbouring bf16 number
+        assert (out - ref).abs().max().item() <= 2e-2 * max(1e-6, ref.abs().max().item())
+
+
+def test_attention_dropout_gat_training_step_on_cuda_matches_cpu(cuda, rng):
+    """GATConv(100, 32, 8) -> GATConv(256, 47, 1) with ``attn_drop`` 0.6:
+    route (a) on the card, K8's and K9's dropout mode (2 each, no plain
+    torch), against the same layers on the CPU with the same seeds (drawn
+    from a CPU generator on both sides)."""
+    n, e = 5000, 250_000
+    edges = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)], 1)
+    x = rng.standard_normal((n, 100)).astype(np.float32)
+    y = torch.from_numpy(rng.integers(0, 47, n))
+    gen = torch.Generator().manual_seed(0)
+    init = [GATConv(100, 32, 8, device="cpu", generator=gen).state_dict(),
+            GATConv(256, 47, 1, device="cpu", generator=gen).state_dict()]
+    counters = (segment_max_narrow, "launches"), (FG.flash_gat_fwd, "dropout_launches"), \
+        (FG.flash_gat_bwd, "dropout_launches")
+    grads = []
+    for dev in ("cpu", cuda):
+        convs = [GATConv(100, 32, 8, attn_drop=0.6, activation=torch.nn.functional.elu, device=dev),
+                 GATConv(256, 47, 1, attn_drop=0.6, device=dev)]
+        for conv, state in zip(convs, init):
+            conv.load_state_dict(state)
+            conv.train()
+        g = StaticGraph(edges, None, n, device=dev)
+        seeds = torch.Generator().manual_seed(7)
+        counts = [getattr(k, a) for k, a in counters]
+        h = convs[0](g, torch.from_numpy(x).to(dev), generator=seeds).reshape(n, -1)
+        logits = convs[1](g, h, generator=seeds).mean(1)
+        torch.nn.functional.cross_entropy(logits, y.to(dev)).backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert [getattr(k, a) - c for (k, a), c in zip(counters, counts)] == [2, 2, 2]
+        grads.append([p.grad.cpu() for c in convs for p in c.parameters()])
+    for ref, out in zip(*grads):
         assert (out - ref).abs().max().item() <= 2e-2 * max(1e-6, ref.abs().max().item())
 
 

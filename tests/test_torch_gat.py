@@ -327,7 +327,7 @@ def test_gatconv_routes_match_jax(rng, impl, jimpl, h, f):
         np.testing.assert_allclose(p.grad.numpy(), ref[k].numpy(), err_msg=k, **GRAD)
 
 
-def test_gatconv_init_dropout_and_the_flash_dropout_refusal(rng):
+def test_gatconv_init_dropout_and_the_flash_dropout_refusal(rng, monkeypatch):
     conv = GATConv(64, 32, 8, device="cpu", generator=torch.Generator().manual_seed(0))
     w = conv.fc.weight.detach()
     assert w.shape == (256, 64) and conv.fc.bias is None
@@ -341,16 +341,22 @@ def test_gatconv_init_dropout_and_the_flash_dropout_refusal(rng):
     assert torch.equal(a, b) and not torch.equal(a, drop.eval()(g, x))
     composed = GATConv(12, 100, 3, attn_drop=0.4, impl="sparse", device="cpu").train()
     assert composed(g, x, generator=torch.Generator().manual_seed(5)).shape == (150, 3, 100)
-    # the flash route's tilings train with attention dropout on the CPU, on
-    # the edge-domain route, as the JAX layer does off its TPU
+    # off the reference's flash tilings (2 x 4) attention dropout trains on
+    # the edge-domain route, the CPU as the card
     flash = GATConv(12, 4, 2, attn_drop=0.4, impl="sparse", device="cpu").train()
     assert flash(g, x, generator=torch.Generator().manual_seed(5)).shape == (150, 2, 4)
     assert flash.eval()(g, x).shape == (150, 2, 4)
-    # on a card the refusal stays at the reference's flash tilings (4 x 32),
-    # until K8's and K9's dropout mode (kernel item E)
+    # at a reference flash tiling (4 x 32) the refusal is gone: route (a),
+    # the flash kernels' dropout mode with one seed drawn on the data's
+    # device (meta tensors stand in for a card), on the CPU as on the card
+    calls = []
+    monkeypatch.setattr(A, "flash_gat_attention", lambda csr, el, er, fs, h, slope, sdt, rate, seed: calls.append(
+        (h, fs.shape[1] // h, rate, seed.device.type, tuple(seed.shape))) or fs)
     card = GATConv(12, 32, 4, attn_drop=0.4, impl="sparse", device="meta").train()
-    with pytest.raises(NotImplementedError, match="dropout.*item E"):
-        card(g, torch.empty(150, 12, device="meta"))
+    assert card(g, torch.empty(150, 12, device="meta")).shape == (150, 4, 32)
+    cpu = GATConv(12, 32, 4, attn_drop=0.4, impl="sparse", device="cpu").train()
+    assert cpu(g, x, generator=torch.Generator().manual_seed(5)).shape == (150, 4, 32)
+    assert calls == [(4, 32, 0.4, "meta", (1,)), (4, 32, 0.4, "cpu", (1,))]
 
 
 @pytest.mark.parametrize("impl,jimpl", [("sparse", "sparse"), ("dense", "dense")])

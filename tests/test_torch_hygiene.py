@@ -265,7 +265,9 @@ def test_kernel_build_starts_nothing_at_import():
         "spmm_rowid",  # K6
         "rowid_denom",  # K7
         "flash_gat_fwd",  # K8
+        "flash_gat_fwd_dropout",  # K8's dropout mode, from the same source
         "flash_gat_bwd",  # K9
+        "flash_gat_bwd_dropout",  # K9's dropout mode, from the same source
         "segment_sum_blocked",  # K10
     }
     for name in kernel_lib.SOURCES.values():

@@ -37,6 +37,7 @@ from stgraph_tpu_torch.convert import gat_params_from_jax
 from stgraph_tpu_torch.graph.csr import build_csr
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
 from stgraph_tpu_torch.nn import GATConv
+from stgraph_tpu_torch.nn.gat_conv import attention_dropout_seed
 from stgraph_tpu_torch.ops import attention as A
 from stgraph_tpu_torch.ops import flash_gat as FG
 from stgraph_tpu_torch.ops import message as M
@@ -387,11 +388,12 @@ def test_two_layer_rowmask_gat_and_an_adam_step_match_optax(rng, monkeypatch):
 
 @pytest.mark.parametrize("h,f", [(8, 8), (8, 32), (2, 100), (32, 4)])
 def test_attention_dropout_takes_the_reference_routes(rng, monkeypatch, h, f):
-    """The JAX layer trains with dropout on its edge-domain route wherever
-    its flash predicate fails, and everywhere off its TPU. The port: on the
-    CPU the edge-domain route at every tiling; on a card the same route off
-    the reference's flash tilings, and a refusal naming kernel item E at
-    them (8 x 32)."""
+    """The JAX layer trains with dropout on its flash kernels at its flash
+    tilings and on its edge-domain route elsewhere. The port routes by the
+    tiling alone, the CPU as a card: at the reference's flash tilings that
+    its own flash kernels take (8 x 32) the flash route with K8's and K9's
+    dropout mode, whose hash mask the edge-domain route reproduces; off
+    them the edge-domain route with ``torch.rand``. Nothing raises."""
     src, dst = _edges(rng, 300, 3000)
     g = StaticGraph(np.stack([src, dst], 1), None, 300, device="cpu")
     x = _t(rng.standard_normal((300, 12)).astype(np.float32))
@@ -400,23 +402,29 @@ def test_attention_dropout_takes_the_reference_routes(rng, monkeypatch, h, f):
     out = conv(g, x, generator=torch.Generator().manual_seed(2))
     out.sum().backward()
     assert out.shape == (300, h, f) and all(torch.isfinite(p.grad).all() for p in conv.parameters())
-    # the same keep mask through the edge-domain route itself
+    flash = FG.reference_flash_tiling(h, f)
+    assert flash == ((h, f) == (8, 32)) and (not flash or FG.flash_supported(h, f))
+    # the same keep mask through the edge-domain route itself: the hash of
+    # the seed a twin generator draws at the flash tiling, else torch.rand
     with torch.no_grad():
         fsrc = conv.fc(x).reshape(-1, h, f)
         el = (fsrc * conv.attn_l).sum(-1, keepdim=True)
         er = (fsrc * conv.attn_r).sum(-1, keepdim=True)
-        ref = A.composed_gat_attention_dropout(g.fwd_csr, el, er, fsrc, 0.2, 0.5, torch.Generator().manual_seed(2))
-    torch.testing.assert_close(out.detach(), ref)
+        twin = torch.Generator().manual_seed(2)
+        csr = g.fwd_csr
+        if flash:
+            seed = attention_dropout_seed(twin, "cpu")
+            keep = FG.edge_keep_mask(csr.cols, csr.rows, seed, h, 0.5)
+            ref = A.composed_gat_attention_dropout(csr, el, er, fsrc, 0.2, 0.5, keep=keep)
+        else:
+            ref = A.composed_gat_attention_dropout(csr, el, er, fsrc, 0.2, 0.5, twin)
+    torch.testing.assert_close(out.detach(), ref, **(MODEL if flash else {}))
     # on a card: routed by the reference's flash predicate alone
     reached = []
     monkeypatch.setattr(A, "composed_gat_attention_dropout",
-                        lambda csr, el, er, fs, *a: reached.append(fs.shape[1:]) or fs)
+                        lambda csr, el, er, fs, *a, **k: reached.append(("edge", fs.shape[1:])) or fs)
+    monkeypatch.setattr(A, "flash_gat_attention",
+                        lambda csr, el, er, fs, hh, slope, sdt, rate, seed: reached.append(("flash", rate)) or fs)
     card = GATConv(12, f, h, attn_drop=0.5, impl="sparse", device="meta").train()
-    meta_x = torch.empty(300, 12, device="meta")
-    if FG.reference_flash_tiling(h, f):
-        assert (h, f) == (8, 32)
-        with pytest.raises(NotImplementedError, match="item E"):
-            card(g, meta_x)
-    else:
-        card(g, meta_x)
-        assert reached == [(h, f)]
+    assert card(g, torch.empty(300, 12, device="meta")).shape == (300, h, f)
+    assert reached == ([("flash", 0.5)] if flash else [("edge", (h, f))])
