@@ -156,12 +156,48 @@ Phases (any failure exits nonzero and prints no result line):
     every gradient against the same layers on the edge-domain route given
     the same hash masks.
 
+38. dist-gcn-training, the thirteenth main path (after 10, the GCN models
+    released): ``benchmarking/dist/train.py --dataset ogbn-products`` on
+    the port's distribution layer at world size 1 over NCCL, on the graph
+    the GCN phases built: ``partition_edges`` at P = 1 (timed), the
+    3-layer GCN 100 -> 64 -> 64 -> 47 over ``dist_spmm(impl='kernel')``
+    with random weights from ``--seed``, the loss summed over the padded
+    rows and divided by their count, Adam(1e-2): 1 warm and 5 timed steps,
+    each launching K1's shard mode (``K1_traced``) 3 times and K1 on the
+    shard transposes 3 times (the empty frontier launches nothing); the
+    first loss against the single-device port's step on the global CSR
+    (same weights, f32 stream) to ``DIST_LOSS_TOL``; peak memory; a profile
+    of a step; K1's shard mode and K1 on the transpose at F = 64 and 47,
+    against their plain versions, timed with ``torch.sparse.mm`` beside;
+39. the distributed GCN at ``--scale 0.01`` (after 37): logits and every
+    parameter gradient on the kernel route (f32) against the plain route
+    in f64;
+40. dist-k1-traced-checks (after 32): K1's shard mode against its plain
+    version on one shard of a 4-way partition of a 4M-edge power-law check
+    graph: the interior CSR, a frontier CSR whose halo table is taller than
+    the shard and the local [local | halo] CSR; unweighted and weighted at
+    F = 64 and 47, and 4 x 32 weighted with the denominator; K2 on those
+    rectangular transposes; the empty frontier of a one-shard partition;
+41. dist-halo-2rank (last): two processes on the one card over gloo (the
+    exchange staged through the host, as gloo moves no device tensor) on
+    ``benchmarking/dist/train.py``'s default synthetic graph (100,000
+    nodes, 1,000,000 edges, 64 -> 64 -> 64 -> 16): the training step's loss
+    and gradients against the same step at world size 1, the GAT
+    attention's kernel route against its plain route at 4 x 32 (values and
+    gradients), and each rank's interior and frontier launches and the
+    halo rows and bytes it sent. The script starts the ranks as
+    ``chip_smoke.py --dist-worker RANK,WORLD,PORT,OUT,BACKEND``.
+    With a card for each rank the ranks take NCCL, one card each (the ring
+    on device tensors, no staging); ``chip_smoke.py --dist-ranks N`` runs
+    only this phase, with N ranks.
+
 Every path of the kernels line (serving, training, gat-serving,
 gat-training, gat-dropout-training, composed-serving, ppi-serving,
-ppi-training, dyn-step, dtdg-training on each dataset, pubmed-rowmask and
-rowmask-ppi) is driven with every launch count set to 0 just before it and
-read just after; K8's and K9's dropout-mode launches count apart
-(``K8_dropout``, ``K9_dropout``) as well as with all of theirs.
+ppi-training, dyn-step, dtdg-training on each dataset, pubmed-rowmask,
+rowmask-ppi and dist-gcn-training) is driven with every launch count set to
+0 just before it and read just after; K8's and K9's dropout-mode launches
+count apart (``K8_dropout``, ``K9_dropout``) as well as with all of theirs,
+and K1's shard mode apart from K1 (``K1_traced``).
 
 The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 ``--details PATH`` also writes every measurement of the run as JSON.
@@ -299,6 +335,27 @@ HIDDEN_TOL = 1e-3
 DTDG_GRAD_TOL = 1e-3
 
 
+# The distribution layer (benchmarking/dist/train.py --dataset ogbn-products:
+# 100 -> 64 -> 64 -> 47, --layers 3, Adam 1e-2), at world size 1 on NCCL
+DIST_DIMS, DIST_LR = (100, 64, 64, 47), 1e-2
+# benchmarking/dist/train.py's default synthetic graph (--nodes 100000 --edges
+# 1000000 --feat 64 --hidden 64 --layers 3, 16 classes, power-law sources)
+DIST_SMALL = dict(nodes=100_000, edges=1_000_000, feat=64, hidden=64, layers=3, classes=16)
+DIST_RANKS = 2  # two processes: gloo on one card, or NCCL on a card each
+DIST_GAT_TILING = (4, 32)
+DIST_CHECK_SHARDS = 4  # the K1 shard-mode checks' partition
+DIST_WORKER_TIMEOUT = 600
+# The distributed loss at world size 1 against the single-device step on
+# the global CSR: the same K1 in f32 over the same edge order (the shard
+# CSR at P = 1 is the global one), so only the atomics of split hub rows
+# may reorder a sum: 1e-5 of the loss
+DIST_LOSS_TOL = 1e-5
+# Two ranks against one, and the kernel route against the plain route: f32
+# throughout, only the order of the f32 sums differs; each tensor to 1e-4 of
+# its largest element
+DIST_TOL = 1e-4
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -338,6 +395,7 @@ def _counters():
            "K5": segment_kernels.segment_max_wide, "K1_nogather": segment_kernels.segment_sum_wide,
            "K6": rowid_kernels.spmm_rowid, "K7": rowid_kernels.dyn_degree, "K8": flash_gat.flash_gat_fwd,
            "K9": flash_gat.flash_gat_bwd, "K10": spmm_blocked.segment_sum_blocked}
+    fns["K1_traced"] = spmm_kernels.spmm_rowmask_traced
     counts = {k: (fn, "launches") for k, fn in fns.items()}
     counts["K8_dropout"] = (flash_gat.flash_gat_fwd, "dropout_launches")
     counts["K9_dropout"] = (flash_gat.flash_gat_bwd, "dropout_launches")
@@ -3322,6 +3380,519 @@ def phase_dtdg_training(dev, args, workdir, name):
             "loss_vs_naive": [loss_pair, loss_naive], "grad_err_over_max": grad_rows, "profile": profile}
 
 
+@contextlib.contextmanager
+def world_of_one(backend):
+    """A one-process group on ``backend`` for the phase inside, destroyed
+    after it."""
+    import socket
+
+    from stgraph_tpu_torch.parallel import launch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    launch.initialize(f"127.0.0.1:{port}", 1, 0, backend=backend)
+    try:
+        yield
+    finally:
+        launch.shutdown()
+
+
+def dist_params(dims, rng, dev):
+    """benchmarking/dist/train.py's parameters: w_i ~ 0.1 N(0, 1), b_i = 0,
+    drawn from ``rng`` in its order."""
+    params = {f"w{i}": torch.from_numpy((rng.standard_normal((a, b)) * 0.1).astype(np.float32))
+              for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))}
+    params.update({f"b{i}": torch.zeros(b) for i, b in enumerate(dims[1:])})
+    return {k: v.to(dev).requires_grad_() for k, v in params.items()}
+
+
+def dist_gcn_loss(mesh, dg, x, y, norm, params, impl):
+    """``build_step``'s model and loss on this rank's shard: each layer
+    ``(h @ w + b) * norm``, ``dist_spmm`` and ``* norm``, ReLU between;
+    softmax cross-entropy summed here and divided by the P·Ns padded rows,
+    so that the ranks' losses add up to ``train.py``'s mean. Returns (loss,
+    logits)."""
+    from stgraph_tpu_torch.parallel import dist_spmm
+
+    layers = len(params) // 2
+    h = x
+    for i in range(layers):
+        h = (h @ params[f"w{i}"] + params[f"b{i}"]) * norm
+        h = dist_spmm(mesh, dg, h, impl=impl) * norm
+        if i < layers - 1:
+            h = torch.relu(h)
+    return torch.nn.functional.cross_entropy(h, y, reduction="sum") / dg.padded_nodes, h
+
+
+def dist_train_data(seed, nodes, edges, feat, hidden, layers, classes):
+    """``benchmarking/dist/train.py``'s synthetic graph and parameters
+    (``run_once`` without ``--dataset``), drawn from ``seed`` in its order:
+    power-law sources, uniform destinations, features, labels, the norm,
+    then the weights."""
+    rng = np.random.default_rng(seed)
+    src = (nodes * rng.power(2.5, edges)).astype(np.int64) % nodes
+    dst = rng.integers(0, nodes, edges)
+    feats = rng.standard_normal((nodes, feat)).astype(np.float32)
+    labels = rng.integers(0, classes, nodes)
+    norm = (rng.random((nodes, 1)) + 0.5).astype(np.float32)
+    return src, dst, feats, labels, norm, rng, [feat] + [hidden] * (layers - 1) + [classes]
+
+
+def dist_batch(mesh, dg, data):
+    """This rank's shards of ``train.py``'s features, labels (padded with 0,
+    as ``run_once`` pads them) and norm."""
+    from stgraph_tpu_torch.parallel import shard_node_array
+
+    _, _, feats, labels, norm, _, _ = data
+    y = np.zeros(dg.padded_nodes, np.int64)
+    y[: len(labels)] = labels
+    return tuple(shard_node_array(mesh, torch.from_numpy(a), dg) for a in (feats, y, norm))
+
+
+def dist_step_grads(mesh, dg, batch, params, impl):
+    """One training step's loss (summed over the ranks) and every parameter's
+    gradient after ``reduce_replicated_grads``, on this rank."""
+    from stgraph_tpu_torch.parallel import reduce_replicated_grads
+    from stgraph_tpu_torch.parallel.mesh import staged_collective
+
+    for p in params.values():
+        p.grad = None
+    loss, _ = dist_gcn_loss(mesh, dg, *batch[:2], batch[2], params, impl)
+    loss.backward()
+    reduce_replicated_grads(mesh, params)
+    total = staged_collective(torch.distributed.all_reduce, loss.detach().clone(), None)
+    return float(total), {k: p.grad.detach().clone() for k, p in params.items()}
+
+
+def traced_agreement(out, csr, w, x, heads, den=None):
+    """K1's shard mode against its plain version on the same inputs (f32
+    stream): per output (max_abs_err, worst err / sum|terms|, max |plain|)."""
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_plain
+
+    block = PLAIN_EDGE_BLOCK
+    absw = None if w is None else w.abs()
+    if den is None:
+        ref = spmm_rowmask_plain(csr, w, x, torch.float32, block, heads=heads)
+        mass = spmm_rowmask_plain(csr, absw, x.abs(), torch.float32, block, heads=heads)
+        return _stats([out], [ref], [mass])
+    ref, ref_den = spmm_rowmask_plain(csr, w, x, torch.float32, block, heads=heads, with_denom=True)
+    mass, mass_den = spmm_rowmask_plain(csr, absw, x.abs(), torch.float32, block, heads=heads, with_denom=True)
+    return _stats([out, den], [ref, ref_den], [mass, mass_den])
+
+
+@timed_phase
+def phase_dist_k1_traced_checks(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000):
+    """K1's shard mode (``spmm_rowmask_traced``) and K2 on a rectangular
+    transpose against their plain versions, on one shard of a 4-way
+    partition of a power-law check graph (a 300k-edge hub row): the
+    interior CSR (square), the frontier CSR (its halo table taller than the
+    shard) and the local ``[local | halo]`` CSR; unweighted, weighted one
+    head and 4 x 32 weighted with the denominator, all f32 streams; and the
+    empty frontier of a one-shard partition, which must come out 0."""
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_bwd, spmm_rowmask_bwd_plain, spmm_rowmask_traced
+    from stgraph_tpu_torch.parallel import partition_edges
+
+    src = (n * rng.power(2.5, e)).astype(np.int64) % n
+    dst = rng.integers(0, n, e)
+    dst[:hub_deg] = 12_345
+    t = time.perf_counter()
+    dg = partition_edges(src, dst, n, DIST_CHECK_SHARDS)
+    part_s = time.perf_counter() - t
+    sh = dg.shard(0, dev)  # the hub's shard
+    ns, halo = dg.nodes_per_shard, dg.halo_total
+    check(halo > ns, f"the check partition's halo ({halo} rows) is not taller than a shard ({ns})")
+
+    def rand(*shape, positive=False):
+        a = rng.random(shape) if positive else rng.standard_normal(shape)
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    def slot_w(csr, heads):
+        w = rand(csr.capacity, heads, positive=heads > 1)
+        w[csr.num_edges:] = 0.0
+        return w.reshape(-1) if heads == 1 else w
+
+    h4, f4 = DIST_GAT_TILING
+    cases = [("interior", sh.interior_csr, ns, 64, 1, False), ("frontier", sh.frontier_csr, halo, 64, 1, False),
+             ("interior", sh.interior_csr, ns, 47, 1, True), ("frontier", sh.frontier_csr, halo, 47, 1, True),
+             ("local", sh.local_csr, ns + halo, h4 * f4, h4, True)]
+    results, worst = [], {"K1_traced": 0.0, "K2": 0.0}
+    for name, csr, rows, width, heads, weighted in cases:
+        x = rand(rows, width)
+        w = slot_w(csr, heads) if weighted else None
+        out, den = spmm_rowmask_traced(csr, w, x, heads=heads, with_denom=heads > 1)
+        torch.cuda.synchronize()
+        stats = traced_agreement(out, csr, w, x, heads, den)
+        r = max(s[1] for s in stats)
+        ok = r <= KERNEL_TOL
+        label = f"{name} ({csr.num_nodes} x {csr.num_cols}, {csr.num_edges} edges) " + (
+            f"{heads} x {width // heads}" if heads > 1 else f"F={width}") + (" weighted" if weighted else "")
+        print(f"dist-k1-traced-check {label}: max_abs_err {stats[0][0]:.3e} (err/sum|terms| {r:.2e}, max |plain| "
+              f"{stats[0][2]:.2f}) (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"K1's shard mode disagrees with its plain version: {label}")
+        worst["K1_traced"] = max(worst["K1_traced"], *(s[0] for s in stats))
+        results.append({"kernel": "K1_traced", "csr": name, "H": heads, "F": width // heads, "weighted": weighted,
+                        "rows": csr.num_nodes, "cols": csr.num_cols, "edges": csr.num_edges,
+                        "max_abs_err": stats[0][0], "err_over_mass": r})
+        # K2 on the rectangular transpose: dh over the table's rows, dw per edge
+        if weighted:
+            csr_t = csr.transpose()
+            perm_t = csr.edge_perms()[0].long()
+            w_t = w.index_select(0, perm_t)
+            g = rand(csr.num_nodes, width)
+            dh, dw = spmm_rowmask_bwd(csr_t, w_t, g, x, heads=heads)
+            torch.cuda.synchronize()
+            block = K2_PLAIN_EDGE_BLOCK
+            refs = spmm_rowmask_bwd_plain(csr_t, w_t, g, x, torch.float32, block, heads=heads)
+            masses = spmm_rowmask_bwd_plain(csr_t, w_t.abs(), g.abs(), x.abs(), torch.float32, block, heads=heads)
+            (ha, hr, _), (wa, wr, _) = _stats([dh, dw], refs, masses)
+            ok = max(hr, wr) <= KERNEL_TOL and not dw[csr_t.num_edges:].any().item()
+            print(f"dist-k2-check {name} transpose ({csr_t.num_nodes} x {csr_t.num_cols}): dh max_abs_err {ha:.3e} "
+                  f"({hr:.2e}), dw max_abs_err {wa:.3e} ({wr:.2e}) (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"K2 on the rectangular {name} transpose disagrees with its plain version")
+            worst["K2"] = max(worst["K2"], ha, wa)
+            results.append({"kernel": "K2", "csr": name + " transpose", "H": heads, "F": width // heads,
+                            "dh_err_over_mass": hr, "dw_err_over_mass": wr})
+            del csr_t, w_t, g, dh, dw, refs, masses
+        del x, w, out, den
+    one = partition_edges(src[:1000] % 1000, dst[:1000] % 1000, 1000, 1).shard(0, dev)
+    out, _ = spmm_rowmask_traced(one.frontier_csr, None, torch.ones(one.frontier_csr.num_cols, 64, device=dev))
+    torch.cuda.synchronize()
+    ok = one.frontier_csr.num_edges == 0 and tuple(out.shape) == (1000, 64) and not out.any().item()
+    print(f"dist-k1-traced-check empty frontier (P = 1, {one.frontier_csr.capacity} padding slots, a halo of "
+          f"{one.frontier_csr.num_cols} rows): zeros {'ok' if ok else 'FAIL'}")
+    check(ok, "K1's shard mode did not write zeros over an empty frontier")
+    return {"graph": {"n": n, "e": e, "hub_deg": hub_deg, "shards": DIST_CHECK_SHARDS, "nodes_per_shard": ns,
+                      "halo_total": halo, "partition_s": part_s}, "cases": results, "max_abs_err": worst}
+
+
+def dist_kernel_timings(csr, f, dev, traced):
+    """One K1 launch at the main path's shapes: K1's shard mode over the
+    shard CSR (``traced``) or K1 over its transpose, f32, unweighted; the
+    plain version and ``torch.sparse.mm`` on the same CSR timed beside it."""
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_plain, spmm_rowmask_traced
+
+    n, e = csr.num_nodes, csr.num_edges
+    gen = torch.Generator(device=dev).manual_seed(f)
+    x = torch.randn(csr.num_cols, f, device=dev, generator=gen)
+    if traced:
+        run = lambda: spmm_rowmask_traced(csr, None, x)  # noqa: E731
+    else:
+        run = lambda: spmm_rowmask(csr, None, x, stream_dtype=torch.float32)  # noqa: E731
+    out, _ = run()
+    torch.cuda.synchronize()
+    (err, ratio, max_ref), = traced_agreement(out, csr, None, x, 1)
+    check(ratio <= KERNEL_TOL, f"K1 ({'shard mode' if traced else 'transpose'}) at F={f} disagrees: {ratio}")
+    del out
+    ms = cuda_ms(run, iters=10, warmup=2)
+    plain_ms = cuda_ms(lambda: spmm_rowmask_plain(csr, None, x, torch.float32, edge_block=PLAIN_EDGE_BLOCK),
+                       iters=2, warmup=1)
+    lib_a = torch.sparse_csr_tensor(csr.indptr, csr.cols[:e], torch.ones(e, device=dev), size=(n, csr.num_cols),
+                                    check_invariants=False)
+    try:  # a timed yardstick only; the port never calls it
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(lib_a, x), iters=5, warmup=1)
+    except RuntimeError as exc:
+        print(f"library yardstick unavailable at F={f}: {exc}")
+        lib_ms = None
+    bound_ms, bound_by, nbytes, ops = k1_bound(n, e, f, weighted=False)
+    where = "shard forward" if traced else "shard transpose"
+    print(f"dist-k1-main {where} F={f}: {ms:.3f} ms (plain {plain_ms:.1f} ms, torch.sparse.mm {lib_ms} ms, bound "
+          f"{bound_ms:.3f} ms by {bound_by}); max_abs_err {err:.3e} (max |plain| {max_ref:.2f}), worst "
+          f"err/sum|terms| {ratio:.2e}")
+    return {"where": where, "F": f, "H": 1, "E": e, "N": n, "stream": "f32", "longest_item": longest_item(csr),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "ops": ops, "max_abs_err": err, "err_over_mass": ratio}
+
+
+@timed_phase
+def phase_dist_gcn_training(dev, args, base):
+    """dist-gcn-training: ``benchmarking/dist/train.py --dataset
+    ogbn-products`` on the port at world size 1 over NCCL, on the graph the
+    GCN phases built: the partition, 1 warm and 5 timed Adam(1e-2) steps
+    (3 K1 shard-mode launches and 3 K1 launches on the shard transposes a
+    step; every loss finite), the loss against the single-device step on
+    the global CSR, a
+    profile of a step, and K1's shard mode and K1 on the transpose timed at
+    the step's shapes."""
+    from stgraph_tpu_torch.ops.spmm_cuda import _RowmaskSpmm
+    from stgraph_tpu_torch.parallel import make_mesh, partition_edges, reduce_replicated_grads, shard_node_array
+    from stgraph_tpu_torch.parallel.halo import exchange as halo_exchange
+
+    graph, feats, labels = base["graph"], base["feats"], base["labels"]
+    csr = graph.fwd_csr
+    _, rows, cols, _ = csr.host_arrays()
+    n, e = csr.num_nodes, csr.num_edges
+    with world_of_one("nccl"):
+        mesh = make_mesh()
+        check(torch.distributed.get_backend() == "nccl", "the world of one is not on NCCL")
+        t = time.perf_counter()
+        dg = partition_edges(cols[:e], rows[:e], n, 1)
+        partition_s = time.perf_counter() - t
+        t = time.perf_counter()
+        shard = dg.shard(0, dev)
+        interior, frontier = shard.interior_csr, shard.frontier_csr
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t
+        print(f"dist partition: N={n} E={e} P=1 in {partition_s:.2f} s (shard CSRs on the card {upload_s:.2f} s); "
+              f"interior {interior.num_edges} edges (capacity {interior.capacity}), frontier "
+              f"{frontier.num_edges} edges over a halo of {dg.halo_total} rows")
+        check(interior.num_edges == e and frontier.num_edges == 0, "P = 1 must keep every edge interior")
+        rng = np.random.default_rng(args.seed)
+        norm = torch.from_numpy((rng.random((n, 1)) + 0.5).astype(np.float32)).to(dev)
+        params = dist_params(DIST_DIMS, rng, dev)
+        x, y, nn_ = (shard_node_array(mesh, a, dg) for a in (feats, labels, norm))
+
+        # the single-device port's step on the global CSR, same widths,
+        # weights and f32 stream (K1 with stream None on f32 features)
+        with torch.no_grad():
+            h = feats
+            for i in range(len(DIST_DIMS) - 1):
+                h = (h @ params[f"w{i}"] + params[f"b{i}"]) * norm
+                h = _RowmaskSpmm.apply(h, None, csr, None, 1) * norm
+                if i < len(DIST_DIMS) - 2:
+                    h = torch.relu(h)
+            single_loss = torch.nn.functional.cross_entropy(h, labels).item()
+            del h
+
+        opt = torch.optim.Adam(params.values(), lr=DIST_LR)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss, _ = dist_gcn_loss(mesh, dg, x, y, nn_, params, "kernel")
+            loss.backward()
+            reduce_replicated_grads(mesh, params)
+            opt.step()
+            torch.cuda.synchronize()
+            return loss.item()
+
+        t = time.perf_counter()
+        warm_loss = step()
+        warm_s = time.perf_counter() - t
+        rel = abs(warm_loss - single_loss) / abs(single_loss)
+        ok = rel <= DIST_LOSS_TOL
+        print(f"dist-loss-check: world-size-1 loss {warm_loss:.7f}, single-device step on the global CSR "
+              f"{single_loss:.7f}, relative difference {rel:.2e} (tol {DIST_LOSS_TOL:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, "the distributed loss at world size 1 differs from the single-device step")
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        reset_counts()
+        halo_exchange.rows = halo_exchange.bytes = 0
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            losses.append(step())
+            times.append(time.perf_counter() - t)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"dist-train: warm step {warm_s:.3f} s (loss {warm_loss:.4f}); {TRAIN_STEPS} Adam steps, s per step "
+              f"{[round(v, 4) for v in times]}, losses {[round(v, 4) for v in losses]}, launches {counts}, peak "
+              f"{peak / 2**30:.2f} GiB, halo rows sent {halo_exchange.rows}")
+        check(counts == only(K1_traced=3 * TRAIN_STEPS, K1=3 * TRAIN_STEPS),
+              f"the distributed step launched {counts}, expected 3 K1_traced + 3 K1 a step")
+        # train.py's model sums unnormalised (norm in [0.5, 1.5], no degree
+        # scaling), so at ogbn-products' ~10^6-edge hubs its logits reach
+        # ~10^10 and Adam(1e-2) makes the loss oscillate rather than fall
+        # (scale 0.1 on the card: 3.4e10, 1.9e10, 3.9e10, ...): the check is
+        # that every step is finite and moves the parameters.
+        check(all(np.isfinite([warm_loss] + losses)), f"non-finite distributed loss: {losses}")
+        check(len(set([warm_loss] + losses)) > 1, f"the distributed steps did not move the loss: {losses}")
+        total = torch.tensor([losses[-1]], device=dev)
+        torch.distributed.all_reduce(total)  # one NCCL collective at world size 1
+        check(abs(total.item() - losses[-1]) <= 1e-6 * abs(losses[-1]), "an all_reduce over one rank changed it")
+        profile = phase_profile(step, "one distributed GCN training step")
+        per_launch = {"K1_traced": [], "K1": []}
+        for f in DIST_DIMS[1:]:
+            per_launch["K1_traced"].append(dist_kernel_timings(interior, f, dev, traced=True))
+            per_launch["K1"].append(dist_kernel_timings(interior.transpose(), f, dev, traced=False))
+        del opt, params, x, y, nn_, shard, dg
+    torch.cuda.empty_cache()
+    return {"n": n, "e": e, "partition_s": partition_s, "upload_s": upload_s, "warm_s": warm_s,
+            "warm_loss": warm_loss, "single_device_loss": single_loss, "loss_rel_diff": rel, "step_s": times,
+            "losses": losses, "launches": counts, "peak_bytes": peak, "profile": profile, "per_launch": per_launch}
+
+
+@timed_phase
+def phase_dist_vs_plain(dev, args, workdir):
+    """The distributed GCN at ``--scale 0.01`` (world size 1, NCCL): logits
+    and every parameter's gradient on the kernel route (f32) against the
+    plain route run in f64 on the same inputs and weights, each tensor to
+    ``DIST_TOL`` of its largest element. (The plain route in f32 is no
+    yardstick here: it sums a row in one f32 sequence, so over the hub rows
+    ``train.py``'s unnormalised sums make its own error larger than the
+    kernel's, whose 1024-edge chunks meet by atomics.)"""
+    from stgraph_tpu_torch.dataset import OgbNodeDataLoader
+    from stgraph_tpu_torch.parallel import make_mesh, partition_edges, shard_node_array
+
+    data = OgbNodeDataLoader(root=workdir, scale=0.01, seed=args.seed)
+    n = data.gdata["num_nodes"]
+    edges = data.get_edges()
+    feats = torch.from_numpy(data.get_all_features()).to(dev)
+    labels = torch.from_numpy(data.get_all_targets()).to(dev)
+    rng = np.random.default_rng(args.seed)
+    norm = torch.from_numpy((rng.random((n, 1)) + 0.5).astype(np.float32)).to(dev)
+    with world_of_one("nccl"):
+        mesh = make_mesh()
+        dg = partition_edges(edges[:, 0], edges[:, 1], n, 1)
+        x, y, nn_ = (shard_node_array(mesh, a, dg) for a in (feats, labels, norm))
+        res = {}
+        for impl, dt in (("kernel", torch.float32), ("torch", torch.float64)):
+            params = {k: v.detach().to(dt).requires_grad_()
+                      for k, v in dist_params(DIST_DIMS, np.random.default_rng(args.seed + 1), dev).items()}
+            loss, logits = dist_gcn_loss(mesh, dg, x.to(dt), y, nn_.to(dt), params, impl)
+            loss.backward()
+            res[impl] = {"logits": logits.detach(), **{k: p.grad for k, p in params.items()}}
+    worst = {}
+    for key, ref in res["torch"].items():
+        worst[key] = ((res["kernel"][key].double() - ref).abs().max() / ref.abs().max().clamp(min=1e-300)).item()
+    ok = max(worst.values()) <= DIST_TOL
+    print(f"dist-check scale 0.01 (N={n}, E={len(edges)}): kernel route (f32) vs plain route (f64), err / max per "
+          f"tensor { {k: f'{v:.2e}' for k, v in worst.items()} } (tol {DIST_TOL:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, "the distributed GCN's kernel route disagrees with its plain route at scale 0.01")
+    return {"n": n, "e": len(edges), "err_over_max": worst}
+
+
+def dist_worker(rank, world, port, out_path, seed, backend):
+    """One of ``phase_dist_halo_2rank``'s ranks on ``backend`` (gloo on the
+    one card, or NCCL on a card each), ``train.py``'s
+    synthetic graph split in ``world``; the training step's loss and
+    gradients (kernel route), ``dist_gat_attention`` at 4 x 32 on both
+    routes, values and gradients, and what this rank launched and sent."""
+    from stgraph_tpu_torch.parallel import (
+        dist_gat_attention,
+        launch,
+        make_mesh,
+        partition_edges,
+        shard_node_array,
+    )
+    from stgraph_tpu_torch.parallel.halo import exchange
+    from stgraph_tpu_torch.parallel.mesh import mesh_device
+
+    launch.initialize(f"127.0.0.1:{port}", world, rank, backend=backend)
+    try:
+        mesh = make_mesh()
+        dev = mesh_device(mesh)
+        data = dist_train_data(seed, **DIST_SMALL)
+        t = time.perf_counter()
+        dg = partition_edges(data[0], data[1], DIST_SMALL["nodes"], world)
+        partition_s = time.perf_counter() - t
+        shard = dg.shard(rank, dev)
+        params = dist_params(data[6], data[5], dev)
+        batch = dist_batch(mesh, dg, data)
+        reset_counts()
+        exchange.rows = exchange.bytes = 0
+        loss, grads = dist_step_grads(mesh, dg, batch, params, "kernel")
+        torch.cuda.synchronize()
+        step_counts = read_counts()
+        step_rows, step_bytes = exchange.rows, exchange.bytes
+        step_s = []
+        for _ in range(3):  # the same step again, timed (the ranks in lockstep)
+            t = time.perf_counter()
+            dist_step_grads(mesh, dg, batch, params, "kernel")
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+        h, f = DIST_GAT_TILING
+        grng = np.random.default_rng(seed + 3)
+        nodes = DIST_SMALL["nodes"]
+        arrays = [grng.standard_normal(s).astype(np.float32)
+                  for s in ((nodes, h), (nodes, h), (nodes, h, f), (nodes, h, f))]
+        el, er, fs, g = (shard_node_array(mesh, torch.from_numpy(a), dg) for a in arrays)
+        gat = {}
+        for impl in ("kernel", "torch"):
+            a, b, c = (t_.clone().requires_grad_() for t_ in (el, er, fs))
+            out = dist_gat_attention(mesh, dg, a, b, c, impl=impl)
+            (out * g).sum().backward()
+            gat[impl] = [out.detach(), a.grad, b.grad, c.grad]
+        gat_err = [(k - p).abs().max().item() for k, p in zip(gat["kernel"], gat["torch"])]
+        gat_max = [p.abs().max().item() for p in gat["torch"]]
+        np.savez(out_path, loss=loss, partition_s=partition_s, step_s=step_s, gat_err=gat_err, gat_max=gat_max,
+                 interior_edges=shard.interior_csr.num_edges, frontier_edges=shard.frontier_csr.num_edges,
+                 halo_total=dg.halo_total, rows_sent=step_rows, bytes_sent=step_bytes,
+                 counts=json.dumps(step_counts), **{f"grad_{k}": v.cpu().numpy() for k, v in grads.items()})
+    finally:
+        launch.shutdown()
+
+
+@timed_phase
+def phase_dist_halo_2rank(dev, args, workdir, n_ranks=DIST_RANKS):
+    """dist-halo-2rank: ``n_ranks`` processes, NCCL on a card each where
+    there are as many cards, else gloo on the one card, on
+    ``benchmarking/dist/train.py``'s default synthetic graph: the training
+    step's loss and gradients against the same step at world size 1 (f32,
+    only the order of sums differs), the GAT attention's kernel route
+    against its plain route at 4 x 32, and each rank's launches, halo
+    traffic and step time. A failure in any rank fails the phase."""
+    import socket
+
+    from stgraph_tpu_torch.parallel import make_mesh, partition_edges
+
+    backend = "nccl" if torch.cuda.device_count() >= n_ranks else "gloo"
+    data = dist_train_data(args.seed, **DIST_SMALL)
+    with world_of_one("nccl"):
+        mesh = make_mesh()
+        dg1 = partition_edges(data[0], data[1], DIST_SMALL["nodes"], 1)
+        ref_loss, ref_grads = dist_step_grads(mesh, dg1, dist_batch(mesh, dg1, data), dist_params(data[6], data[5], dev),
+                                              "kernel")
+        del dg1
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t = time.perf_counter()
+    outs = [os.path.join(workdir, f"dist_rank{r}.npz") for r in range(n_ranks)]
+    # the ranks share the host's cores: torch's default threads in each
+    # would oversubscribe them
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // n_ranks)))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(args.seed), "--dist-worker",
+                               f"{r},{n_ranks},{port},{outs[r]},{backend}"], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env) for r in range(n_ranks)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=DIST_WORKER_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall_s = time.perf_counter() - t
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0 and os.path.exists(outs[r]), f"dist rank {r} failed ({proc.returncode}):\n{log}")
+    ranks = [dict(np.load(o)) for o in outs]
+    loss = float(ranks[0]["loss"])
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    grad_err = {}
+    for k, ref in ref_grads.items():
+        ref = ref.cpu().numpy()
+        for rk in ranks:
+            err = float(np.abs(rk[f"grad_{k}"] - ref).max() / max(np.abs(ref).max(), 1e-30))
+            grad_err[k] = max(grad_err.get(k, 0.0), err)
+    gat_err = [max(float(rk["gat_err"][i]) for rk in ranks) / max(max(float(rk["gat_max"][i]) for rk in ranks), 1e-30)
+               for i in range(4)]
+    per_rank = [{"interior_edges": int(rk["interior_edges"]), "frontier_edges": int(rk["frontier_edges"]),
+                 "launches": json.loads(str(rk["counts"])), "rows_sent": int(rk["rows_sent"]),
+                 "bytes_sent": int(rk["bytes_sent"]), "partition_s": float(rk["partition_s"]),
+                 "step_s": [float(v) for v in rk["step_s"]]} for rk in ranks]
+    where = "one card" if backend == "gloo" else f"{n_ranks} cards"
+    print(f"dist-halo-2rank: {n_ranks} {backend} ranks on {where} in {wall_s:.1f} s; loss {loss:.7f} against "
+          f"{ref_loss:.7f} at world size 1 (relative {rel:.2e}); gradients err/max "
+          f"{ {k: f'{v:.2e}' for k, v in grad_err.items()} }; GAT {DIST_GAT_TILING[0]} x {DIST_GAT_TILING[1]} "
+          f"kernel vs plain route err/max (out, d el, d er, d fs) {[f'{v:.2e}' for v in gat_err]}")
+    for r, pr in enumerate(per_rank):
+        print(f"  rank {r}: interior {pr['interior_edges']} edges, frontier {pr['frontier_edges']} edges, halo "
+              f"{int(ranks[r]['halo_total'])} rows; a step launched {pr['launches']}, sent {pr['rows_sent']} "
+              f"rows ({pr['bytes_sent']} bytes); step s {[round(v, 4) for v in pr['step_s']]}")
+    losses_agree = all(abs(float(rk["loss"]) - loss) <= 1e-7 * abs(loss) for rk in ranks)
+    ok = rel <= DIST_LOSS_TOL and losses_agree and max(grad_err.values()) <= DIST_TOL and max(gat_err) <= DIST_TOL
+    check(ok, "the two-rank step or GAT attention disagrees with its reference")
+    for r, pr in enumerate(per_rank):
+        splits = (pr["interior_edges"] > 0) + (pr["frontier_edges"] > 0)
+        want = only(K1_traced=3 * splits, K1=3 * splits)  # each non-empty split forward and on its transpose
+        check(pr["launches"] == want, f"rank {r} launched {pr['launches']} in a step, expected {want}")
+        check(pr["rows_sent"] == 2 * 3 * int(ranks[r]["halo_total"]),
+              f"rank {r} sent {pr['rows_sent']} halo rows in a step, expected 6 x {int(ranks[r]['halo_total'])}")
+    return {"n_ranks": n_ranks, "backend": backend, "wall_s": wall_s, "loss": loss, "loss_world_of_one": ref_loss,
+            "loss_rel_diff": rel,
+            "grad_err_over_max": grad_err, "gat_err_over_max": gat_err, "ranks": per_rank}
+
+
 def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, library=None, paths=None):
     """One kernel's entry of the kernels line: launches summed over the main
     paths' runs (``paths``, default all: K1's and K2's one-head and heads
@@ -3353,11 +3924,23 @@ def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, 
     }
 
 
+def write_details(record, args) -> None:
+    """``record``, with every phase's seconds, to ``--details`` if given."""
+    record["phase_s"] = PHASE_SECONDS
+    if args.details:
+        os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
+        with open(args.details, "w") as fh:
+            json.dump(record, fh, indent=1)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--scale", type=float, default=1.0, help="synthetic ogbn-products scale")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--details", help="write every measurement of the run to this JSON file")
+    ap.add_argument("--dist-worker", help=argparse.SUPPRESS)  # RANK,WORLD,PORT,OUT,BACKEND: one rank of dist-halo
+    ap.add_argument("--dist-ranks", type=int,
+                    help="run only dist-halo-2rank, with this many ranks (NCCL on a card each where there are enough)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3373,6 +3956,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 GEMMs stay f32 (the reference's arithmetic)
+    if args.dist_worker:
+        rank, world, port, out, backend = args.dist_worker.split(",")
+        dist_worker(int(rank), int(world), int(port), out, args.seed, backend)
+        return 0
     rng = np.random.default_rng(args.seed)
     record = {"args": vars(args)}
     build_root = os.path.join(ROOT, "build")
@@ -3380,6 +3967,13 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         record["environment"] = phase_environment(port)
+        if args.dist_ranks:  # only the rank phase; no kernels line
+            with tempfile.TemporaryDirectory(dir=build_root) as workdir:
+                record["dist_halo_2rank"] = phase_dist_halo_2rank(dev, args, workdir, args.dist_ranks)
+            write_details(record, args)
+            print(record["environment"]["nvidia_smi"])
+            print(json.dumps({"dist_halo_2rank": record["dist_halo_2rank"]}))
+            return 0
         record["k1_checks"] = phase_k1_vs_plain(dev, rng)
         record["k2_checks"] = phase_k2_vs_plain(dev, rng)
         record["gat_checks"] = phase_gat_kernels_vs_plain(dev, rng)
@@ -3402,6 +3996,7 @@ def main() -> int:
             gcn_counts = served["counts"]
             del served, trained
             torch.cuda.empty_cache()
+            record["dist_gcn_training"] = phase_dist_gcn_training(dev, args, base)
             gat = phase_gat_serving(dev, args, base)
             record["gat_serving"] = gat["record"]
             gat_launch, gat_err = phase_gat_kernels_at_main_shapes(dev, gat)
@@ -3426,6 +4021,7 @@ def main() -> int:
             record["grad_check"] = phase_grads_vs_plain(dev, args, workdir)
             record["gat_check"] = phase_gat_vs_plain(dev, args, workdir)
             record["gat_dropout_check"] = phase_gat_dropout_vs_plain(dev, args, workdir)
+            record["dist_check"] = phase_dist_vs_plain(dev, args, workdir)
             record["cora"] = phase_cora(dev, args, workdir)
             record["pubmed_gat"] = phase_pubmed_gat(dev, args, workdir)
             record["pubmed_rowmask"] = phase_pubmed_rowmask(dev, args, workdir)
@@ -3433,6 +4029,7 @@ def main() -> int:
         # The composed GAT route at PPI size, the ogbn graph released
         record["composed_checks"] = phase_composed_kernels_vs_plain(dev, np.random.default_rng(args.seed + 5))
         record["rowmask_checks"] = phase_rowmask_kernels_vs_plain(dev, np.random.default_rng(args.seed + 7))
+        record["dist_k1_traced_checks"] = phase_dist_k1_traced_checks(dev, np.random.default_rng(args.seed + 9))
         ppi = phase_ppi_gat(dev, args)
         record["ppi"] = ppi["record"]
         composed_launch, composed_err = phase_composed_at_main_shapes(dev, ppi)
@@ -3453,6 +4050,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=build_root) as workdir:
             record["dtdg_training"] = {name: phase_dtdg_training(dev, args, workdir, name)
                                        for name in DTDG_DATASETS}
+            record["dist_halo_2rank"] = phase_dist_halo_2rank(dev, args, workdir)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3462,13 +4060,16 @@ def main() -> int:
                "gat-dropout-training": record["gat_dropout_training"]["launches"],
                "composed-serving": composed["counts"], "ppi-serving": record["ppi"]["serve_launches"],
                "ppi-training": record["ppi"]["train_launches"], "dyn-step": record["dyn_step"]["launches"],
-               "pubmed-rowmask": record["pubmed_rowmask"]["launches"], "rowmask-ppi": rowmask_ppi["counts"]}
+               "pubmed-rowmask": record["pubmed_rowmask"]["launches"], "rowmask-ppi": rowmask_ppi["counts"],
+               "dist-gcn-training": record["dist_gcn_training"]["launches"]}
     by_path.update({f"dtdg-training:{name}": r["launches"] for name, r in record["dtdg_training"].items()})
     rowmask_paths = ("pubmed-rowmask", "rowmask-ppi")
-    one_head_paths = tuple(path for path in by_path if path not in rowmask_paths)
+    dist_paths = ("dist-gcn-training",)
+    one_head_paths = tuple(path for path in by_path if path not in rowmask_paths + dist_paths)
     dropout_paths = ("gat-dropout-training",)
     undropped_paths = tuple(path for path in by_path if path not in dropout_paths)
     rowmask_main, rowmask_checks = rowmask_ppi["per_launch"], record["rowmask_checks"]["max_abs_err"]
+    dist_main = record["dist_gcn_training"]["per_launch"]
     h, f = ROWMASK_PPI_TILING
     kernels = [
         kernel_entry("spmm_rowmask (K1, one head: H=1, F=128, 128, 47, bf16 stream)",
@@ -3482,7 +4083,7 @@ def main() -> int:
         kernel_entry("spmm_sddmm_rowmask (K2, one head: H=1, F=128, 128, 47, bf16 stream)",
                      "stgraph_tpu_torch/csrc/spmm_sddmm_rowmask.cu",
                      "stgraph_tpu/ops/segment_pallas.py:1248", "K2", by_path,
-                     max(record["k2_checks"]["max_abs_err"], k2_err),
+                     max(record["k2_checks"]["max_abs_err"], k2_err, record["dist_k1_traced_checks"]["max_abs_err"]["K2"]),
                      # a training step's three launches: F = 128, 128, 47
                      [dict(p, H=1) for f_ in (128, 128, 47) for p in k2_launch if p["F"] == f_],
                      paths=one_head_paths),
@@ -3533,6 +4134,15 @@ def main() -> int:
                      "stgraph_tpu_torch/csrc/flash_gat_bwd.cu", "stgraph_tpu/ops/flash_gat.py:365", "K9_dropout",
                      by_path, max(record["gat_checks"]["max_abs_err"]["K9_dropout"], gat_err["K9_dropout"]),
                      gat_launch["K9_dropout"], paths=dropout_paths),
+        kernel_entry("spmm_rowmask_traced (K1's shard mode: H=1, F=64, 64, 47, f32 stream)",
+                     "stgraph_tpu_torch/csrc/spmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:1136", "K1_traced",
+                     by_path, max(record["dist_k1_traced_checks"]["max_abs_err"]["K1_traced"],
+                                  *(p["max_abs_err"] for p in dist_main["K1_traced"])),
+                     dist_main["K1_traced"], "torch.sparse.mm on the shard CSR", paths=dist_paths),
+        kernel_entry("spmm_rowmask (K1 on the shard transposes: H=1, F=64, 64, 47, f32 stream)",
+                     "stgraph_tpu_torch/csrc/spmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:761", "K1", by_path,
+                     max(p["max_abs_err"] for p in dist_main["K1"]), dist_main["K1"],
+                     "torch.sparse.mm on the transpose CSR", paths=dist_paths),
         kernel_entry("segment_sum_blocked (K10)", "stgraph_tpu_torch/csrc/segment_sum_blocked.cu",
                      "stgraph_tpu/ops/spmm_pallas.py:61", "K10", by_path,
                      max(record["composed_checks"]["max_abs_err"]["K10"], composed_err["K10"],
@@ -3541,11 +4151,7 @@ def main() -> int:
     ]
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_start
-    record["phase_s"] = PHASE_SECONDS
-    if args.details:
-        os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
-        with open(args.details, "w") as fh:
-            json.dump(record, fh, indent=1)
+    write_details(record, args)
     print(f"total {record['total_s']:.1f} s; longest phases " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in sorted(PHASE_SECONDS, key=lambda p: -p[1])[:8]))
     print(record["environment"]["nvidia_smi"])

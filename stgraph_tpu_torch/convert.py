@@ -26,6 +26,13 @@ vectors carry over as they are.
 kernel is (in, out) and an ``nn.Linear`` weight (out, in): it is
 transposed.
 
+``dist_gcn_params_from_jax``, ``dist_gat_params_from_jax`` and
+``dist_tgcn_params_from_jax`` carry the functional parameter dicts of the
+JAX distribution layer (``stgraph_tpu.parallel.layers``' ``dist_*_params``,
+leaves as numpy) into the port's ``parallel.layers``: the same keys and the
+same layouts (``fc`` stays (in, H*F): the layers multiply by it as JAX
+does), as f32 tensors on ``device``.
+
 ``lazy_pair_from_jax`` carries a JAX ``LazyPair`` (its two ``LazyStore``s,
 leaves as numpy: ``jax.tree_util.tree_map(np.asarray, pair)``) into the
 port's ``LazyPair`` on ``device``, so that both packages start from the same
@@ -45,7 +52,15 @@ from stgraph_tpu_torch.graph.lazy_store import LazyStore
 from stgraph_tpu_torch.ops.dyn_spmm import LazyPair
 from stgraph_tpu_torch.utils.device import resolve_device
 
-__all__ = ["gat_params_from_jax", "gcn_params_from_jax", "lazy_pair_from_jax", "tgcn_params_from_jax"]
+__all__ = [
+    "dist_gat_params_from_jax",
+    "dist_gcn_params_from_jax",
+    "dist_tgcn_params_from_jax",
+    "gat_params_from_jax",
+    "gcn_params_from_jax",
+    "lazy_pair_from_jax",
+    "tgcn_params_from_jax",
+]
 
 _LAYER = re.compile(r"^GCNConv_(\d+)$")
 _GAT_LAYER = re.compile(r"^GATConv_(\d+)$")
@@ -115,6 +130,31 @@ def tgcn_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out[f"linear_{gate}.weight"] = _tensor(dense["kernel"]).T.contiguous()
         out[f"linear_{gate}.bias"] = _tensor(dense["bias"])
     return out
+
+
+def _dist_tree(params: Mapping[str, Any], keys, kind: str, device) -> Dict[str, Any]:
+    if set(params) != set(keys):
+        raise ValueError(f"not a dist {kind} parameter dict: keys {sorted(params)}")
+    dev = resolve_device(device)
+    return {k: (_dist_tree(v, v.keys(), kind, dev) if isinstance(v, Mapping) else _tensor(v).to(dev))
+            for k, v in params.items()}
+
+
+def dist_gcn_params_from_jax(params: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """``dist_gcn_params``' dict (numpy leaves) as tensors on ``device``
+    (default ``cuda``)."""
+    return _dist_tree(params, ("weight", "bias"), "GCN", device)
+
+
+def dist_gat_params_from_jax(params: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """``dist_gat_params``' dict (numpy leaves) as tensors on ``device``."""
+    return _dist_tree(params, ("fc", "attn_l", "attn_r", "bias"), "GAT", device)
+
+
+def dist_tgcn_params_from_jax(params: Mapping[str, Any], device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``dist_tgcn_params``' nested dict (numpy leaves) as tensors on
+    ``device``."""
+    return _dist_tree(params, [f"{kind}_{g}" for kind in ("conv", "lin") for g in "zrh"], "TGCN", device)
 
 
 def _lazy_store_from_jax(store, device):

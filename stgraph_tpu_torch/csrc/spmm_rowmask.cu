@@ -13,6 +13,11 @@
 // composed GAT route's rowmask branch (heads > 1 and the denominator,
 // stgraph_tpu/ops/attention.py:250-256). Its no-gather mode, the same TPU
 // kernel run on an (E, K) plane without weights, is csrc/segment_sum_wide.cu.
+// It is also the traced variant, spmm_rowmask_traced (segment_pallas.py:1136,
+// pallas_call at :1223), which the distribution layer runs on each shard's
+// rectangular CSR (ops/spmm_kernels.spmm_rowmask_traced): nothing here
+// assumes a square graph, since `feats` is indexed by `cols` alone and `out`
+// by the work items' rows, and the traced metadata is the work list.
 //
 // What bounds it on an H100: memory. It does 2 operations per gathered
 // element, while the gather of feats[cols[e]] touches E * H * F elements

@@ -7,6 +7,12 @@ holds torch int32 tensors on one device. Padding edges carry the sentinel
 row/col id ``num_nodes`` and the eid ``capacity``, exactly as in the JAX
 package, so both packages build equal arrays from the same edge list.
 
+A CSR may be rectangular: its columns index ``num_cols`` rows of a table
+(default ``num_nodes``), as the distribution layer's shard CSRs do
+(``parallel/partition.py``: ``[local | halo]`` columns, or the halo buffer
+alone). Those pad ``cols`` with 0 as the JAX partitioner does, so only
+``rows`` marks padding, and only the first ``num_edges`` slots are real.
+
 The pytree protocol has no counterpart: torch needs none. ``to(device)``
 takes its place for moving the structure.
 """
@@ -23,6 +29,7 @@ from stgraph_tpu_torch.utils.device import resolve_device
 __all__ = [
     "CSR",
     "build_csr",
+    "csr_order",
     "pad_edges",
     "round_up",
 ]
@@ -42,11 +49,14 @@ class CSR:
     Attributes:
       indptr:  (num_nodes + 1,) int32 — row offsets into the edge arrays.
       rows:    (capacity,) int32 — row id per edge; ``num_nodes`` on padding.
-      cols:    (capacity,) int32 — col id per edge; ``num_nodes`` on padding.
+      cols:    (capacity,) int32 — col id per edge; ``num_cols`` on padding
+               (or 0, in the shard CSRs).
       eids:    (capacity,) int32 — original edge id per edge; ``capacity`` on
                padding.
-      num_nodes: int.
-      num_edges: number of real (non-padding) edges.
+      num_nodes: int, the rows (destinations).
+      num_edges: number of real (non-padding) edges, the first slots.
+      num_cols: int, the rows of the table the columns index (sources);
+               ``num_nodes`` unless given.
     """
 
     def __init__(
@@ -55,10 +65,12 @@ class CSR:
         num_nodes: int,
         num_edges: int,
         device: torch.device,
+        num_cols: Optional[int] = None,
     ) -> None:
         self._host = tuple(np.ascontiguousarray(a, np.int32) for a in host)
         self.num_nodes = int(num_nodes)
         self.num_edges = int(num_edges)
+        self.num_cols = self.num_nodes if num_cols is None else int(num_cols)
         self.indptr, self.rows, self.cols, self.eids = (
             torch.from_numpy(a).to(device) for a in self._host
         )
@@ -89,10 +101,10 @@ class CSR:
         return self.indptr[1:] - self.indptr[:-1]
 
     def col_degrees(self) -> torch.Tensor:
-        """(num_nodes,) int32 — per-col edge counts."""
-        n = self.num_nodes
-        cols = self._host[2]
-        counts = np.bincount(cols[cols < n], minlength=n).astype(np.int32)
+        """(num_cols,) int32 — per-col edge counts over the real edges."""
+        _, rows, cols, _ = self._host
+        real = cols[rows < self.num_nodes]
+        counts = np.bincount(real, minlength=self.num_cols).astype(np.int32)
         return torch.from_numpy(counts).to(self.device)
 
     def cached(self, key: str, make: Callable[[], Any]) -> Any:
@@ -106,11 +118,11 @@ class CSR:
 
     @property
     def cols_clamped(self) -> torch.Tensor:
-        """``cols`` with the sentinel clamped to ``num_nodes - 1``: a safe
+        """``cols`` with the sentinel clamped to ``num_cols - 1``: a safe
         gather index (torch raises, and CUDA asserts, on the sentinel where
         XLA clamps). Padding entries must still be masked by the caller."""
         return self.cached(
-            "cols_clamped", lambda: self.cols.clamp(max=max(self.num_nodes - 1, 0))
+            "cols_clamped", lambda: self.cols.clamp(max=max(self.num_cols - 1, 0))
         )
 
     @property
@@ -128,35 +140,28 @@ class CSR:
             device.index is None and device.type == self.device.type
         ):
             return self
-        return CSR(self._host, self.num_nodes, self.num_edges, device)
+        return CSR(self._host, self.num_nodes, self.num_edges, device, self.num_cols)
 
     def transpose(self) -> "CSR":
-        """The transposed CSR (rows<->cols), keeping ``eids``.
+        """The transposed CSR (rows<->cols, ``num_nodes``<->``num_cols``),
+        keeping ``eids``.
 
-        Built on the host with a stable sort by (col, row), as the JAX
-        package does for a concrete CSR; padding (col == n) sorts last. The
-        native counting sort, where it builds, gives the same order as
-        numpy's ``lexsort``.
+        Built on the host with a stable sort of the real edges by (col,
+        row), as the JAX package does for a concrete CSR; the padding slots
+        follow, with the sentinels ``num_cols`` (rows) and ``num_nodes``
+        (cols). The native counting sort, where it builds, gives the same
+        order as numpy's ``lexsort``.
         """
 
         def make():
-            from stgraph_tpu_torch import native
-
-            n = self.num_nodes
-            _, rows, cols, eids = self._host
-            e = self.num_edges
-            built = native.build_csr_arrays(rows[:e], cols[:e], n, self.capacity)
-            if built is not None:
-                # build_csr_arrays labels each edge by its input position
-                indptr, t_rows, t_cols, t_eids = built
-                t_eids[:e] = eids[t_eids[:e]]
-            else:
-                order = np.lexsort((rows, cols))
-                t_rows, t_cols, t_eids = cols[order], rows[order], eids[order]
-                counts = np.bincount(t_rows[t_rows < n], minlength=n)
-                indptr = np.zeros(n + 1, dtype=np.int32)
-                np.cumsum(counts, out=indptr[1:])
-            return CSR((indptr, t_rows, t_cols, t_eids), n, self.num_edges, self.device)
+            e, n, m = self.num_edges, self.num_nodes, self.num_cols
+            _, rows, cols, eids = (a[:e] for a in self._host)
+            order, indptr = csr_order(cols, rows, m, n)
+            t_rows = np.full(self.capacity, m, np.int32)
+            t_cols = np.full(self.capacity, n, np.int32)
+            t_eids = np.full(self.capacity, self.capacity, np.int32)
+            t_rows[:e], t_cols[:e], t_eids[:e] = cols[order], rows[order], eids[order]
+            return CSR((indptr, t_rows, t_cols, t_eids), m, e, self.device, num_cols=n)
 
         return self.cached("transpose", make)
 
@@ -185,6 +190,33 @@ class CSR:
             return tuple(torch.from_numpy(a).to(self.device) for a in (perm_t, perm_f, emask))
 
         return self.cached("edge_perms", make)
+
+
+def csr_order(
+    dst: np.ndarray, src: np.ndarray, num_rows: int, num_cols: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The stable (dst, src) order of an edge list, ``np.lexsort((src,
+    dst))``'s, and the ``indptr`` of its ``num_rows`` rows.
+
+    ``dst`` must lie in ``[0, num_rows)`` and ``src`` in ``[0, num_cols)``.
+    The native counting sort gives the order where it builds (``lexsort``
+    costs tens of seconds at 10^8 edges), numpy's ``lexsort`` otherwise.
+    """
+    from stgraph_tpu_torch import native
+
+    dst = np.ascontiguousarray(dst, np.int32)
+    src = np.ascontiguousarray(src, np.int32)
+    e = dst.shape[0]
+    if e and not (0 <= dst.min() and dst.max() < num_rows and 0 <= src.min() and src.max() < num_cols):
+        raise ValueError(f"edge ids out of range: dst must lie in [0, {num_rows}) and src in [0, {num_cols})")
+    built = native.build_csr_arrays(src, dst, max(num_rows, num_cols), e) if e else None
+    if built is not None:
+        # the labels of a positional edge list are its sorted order
+        return built[3], np.ascontiguousarray(built[0][: num_rows + 1])
+    order = np.lexsort((src, dst))
+    indptr = np.zeros(num_rows + 1, np.int32)
+    np.cumsum(np.bincount(dst, minlength=num_rows), out=indptr[1:])
+    return order, indptr
 
 
 def pad_edges(
@@ -225,25 +257,14 @@ def build_csr(
     e = len(src)
     if capacity is None:
         capacity = round_up(max(e, 1), pad_multiple)
-
-    from stgraph_tpu_torch import native
-
-    built = native.build_csr_arrays(src, dst, int(num_nodes), int(capacity))
-    if built is not None:
-        return CSR(built, int(num_nodes), e, device)
-
     if capacity < e:
         raise ValueError(f"capacity {capacity} < num_edges {e}")
     # Stable sort by (dst, src); eid = original user position.
-    order = np.lexsort((src, dst))
+    order, indptr = csr_order(dst, src, int(num_nodes), int(num_nodes))
     rows = np.full(capacity, num_nodes, dtype=np.int32)
     cols = np.full(capacity, num_nodes, dtype=np.int32)
     eids = np.full(capacity, capacity, dtype=np.int32)
     rows[:e] = dst[order]
     cols[:e] = src[order]
-    eids[:e] = np.arange(e, dtype=np.int32)[order]
-
-    counts = np.bincount(dst, minlength=num_nodes).astype(np.int64)
-    indptr = np.zeros(num_nodes + 1, dtype=np.int32)
-    np.cumsum(counts, out=indptr[1:])
+    eids[:e] = order
     return CSR((indptr, rows, cols, eids), int(num_nodes), e, device)

@@ -25,9 +25,9 @@ import torch
 from stgraph_tpu_torch.graph.csr import CSR
 from stgraph_tpu_torch.ops import message as _msg
 from stgraph_tpu_torch.ops.spmm_blocked import rowmask_eligible, spmm_multihead
-from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_bwd
+from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_bwd, spmm_rowmask_traced
 
-__all__ = ["spmm"]
+__all__ = ["spmm", "spmm_traced"]
 
 # f32 inputs on graphs at least this large stream bf16 through K1 and K2
 # (f32 sums), as in the JAX package: it halves the dominant gathered stream.
@@ -43,14 +43,21 @@ def _stream_dtype(csr: CSR, dt: torch.dtype) -> Optional[torch.dtype]:
 class _RowmaskSpmm(torch.autograd.Function):
     """K1 forward; K1 on the transpose (unweighted) or K2 (weighted) backward.
 
-    ``h`` is (N, heads * F) and ``w`` (capacity,) for one head or
-    (capacity, heads). The cotangent streams bf16 exactly when the
-    forward's features did.
+    ``h`` is (num_cols, heads * F) and ``w`` (capacity,) for one head or
+    (capacity, heads); the CSR may be rectangular, and its transpose then
+    is too. The cotangent streams bf16 exactly when the forward's features
+    did. ``traced`` runs the forward on K1's shard mode
+    (``spmm_rowmask_traced``: the stream is ``h``'s dtype, ``stream_dtype``
+    is ignored): ``spmm_traced`` is that entry.
     """
 
     @staticmethod
-    def forward(ctx, h, w, csr, stream_dtype, heads):
-        out, _ = spmm_rowmask(csr, w, h, heads=heads, stream_dtype=stream_dtype)
+    def forward(ctx, h, w, csr, stream_dtype, heads, traced=False):
+        if traced:
+            out, _ = spmm_rowmask_traced(csr, w, h, heads=heads)
+            stream_dtype = torch.bfloat16 if h.dtype == torch.bfloat16 else torch.float32
+        else:
+            out, _ = spmm_rowmask(csr, w, h, heads=heads, stream_dtype=stream_dtype)
         ctx.csr, ctx.stream_dtype, ctx.heads = csr, stream_dtype, heads
         ctx.save_for_backward(h, w)
         return out
@@ -63,14 +70,14 @@ class _RowmaskSpmm(torch.autograd.Function):
         g = g.contiguous()
         if w is None:  # constant ones: the plain transpose pass, no SDDMM
             dh, _ = spmm_rowmask(csr_t, None, g, stream_dtype=ctx.stream_dtype)
-            return dh.to(h.dtype), None, None, None, None
+            return dh.to(h.dtype), None, None, None, None, None
         perm_t, perm_f, emask = csr.edge_perms()
         w_t = w.index_select(0, perm_t)
         dh, dw_t = spmm_rowmask_bwd(csr_t, w_t, g, h, stream_dtype=ctx.stream_dtype, heads=heads)
         dw = None
         if ctx.needs_input_grad[1]:
             dw = (dw_t.index_select(0, perm_f) * emask.reshape((-1,) + (1,) * (dw_t.dim() - 1))).to(w.dtype)
-        return dh.to(h.dtype), dw, None, None, None
+        return dh.to(h.dtype), dw, None, None, None, None
 
 
 def spmm(
@@ -108,3 +115,17 @@ def spmm(
             return _msg.spmm(csr, node_feat, edge_weight, reduce=reduce, impl="torch")
     out = _RowmaskSpmm.apply(node_feat, w, csr, _stream_dtype(csr, node_feat.dtype), 1)
     return out.to(node_feat.dtype)
+
+
+def spmm_traced(csr: CSR, h: torch.Tensor, w: Optional[torch.Tensor] = None, heads: int = 1) -> torch.Tensor:
+    """``out[d, c] = sum_e w[e, c // F] * h[col_e, c]`` on K1's shard mode
+    (``spmm_rowmask_traced``), differentiable in ``h`` and ``w``: the
+    distribution layer's shard reduction.
+
+    ``csr`` may be rectangular: ``h`` has ``csr.num_cols`` rows and the
+    result ``csr.num_nodes``. ``w`` is None (unweighted), (capacity,) for one
+    head or (capacity, heads). The stream is ``h``'s dtype (bf16 or f32), as
+    JAX's traced kernel streams the gathered dtype; the backward runs K1 on
+    the transpose (unweighted) or K2 (weighted) on the same stream.
+    """
+    return _RowmaskSpmm.apply(h, w, csr, None, heads, True).to(h.dtype)

@@ -35,6 +35,24 @@ the same kind: memory, about 1.6 ms at ogbn-products size and F = 128.
 With ``heads`` heads (``:1434-1560``) ``w_t`` and ``dw_t`` are (capacity, H)
 and each head's columns form their own dot product.
 
+Every wrapper takes a rectangular CSR (``graph.csr``): the table has
+``csr.num_cols`` rows and the output ``csr.num_nodes``; a square CSR is the
+case ``num_cols == num_nodes``.
+
+``spmm_rowmask_traced`` is K1's shard mode, the counterpart of
+``segment_pallas.spmm_rowmask_traced`` (``:1136``, ``pallas_call`` at
+``:1223``), which the distribution layer (``parallel/halo.py``) runs on each
+shard's interior, frontier and local CSRs. On the TPU it is a kernel apart:
+Mosaic cannot gather, so the caller pre-gathers a (cap_pad, H * F) plane
+(31.7 GB at ogbn-products size, F = 64, in f32) and passes the shard's
+block metadata as traced values. Here it is K1 itself, on the same C entry:
+the gather is inside the kernel and the work items, made once per shard CSR
+on the host, take the place of the traced metadata. What makes it a mode is
+the contract: the stream is the table's dtype (f32 unless the table is
+bf16), never the large-graph bf16 rule of ``spmm_cuda``, as JAX's traced
+kernel streams the gathered dtype (``:1173-1175``), and its launches count
+apart (``spmm_rowmask_traced.launches``).
+
 Each wrapper takes the plain version only because the tensor it was given
 lies on the CPU. For a CUDA tensor it launches the kernel or raises;
 nothing falls back.
@@ -59,6 +77,7 @@ __all__ = [
     "spmm_rowmask_bwd",
     "spmm_rowmask_bwd_plain",
     "spmm_rowmask_plain",
+    "spmm_rowmask_traced",
 ]
 
 # Edges one warp takes from a row; longer rows are split into several work
@@ -140,8 +159,11 @@ def spmm_rowmask_plain(
     ``edge_block`` bounds the (edges, F) temporaries: rows are taken in
     groups of about that many edges (at ogbn-products size one group of
     all edges would need some 63 GB). The result does not depend on it.
+
+    ``node_feats`` is the table the columns index (``csr.num_cols`` rows);
+    the output has ``csr.num_nodes`` rows.
     """
-    n, width = node_feats.shape
+    n, width = csr.num_nodes, node_feats.shape[1]
     f = _head_width(width, heads, "spmm_rowmask")
     if with_denom and w is None:
         raise ValueError("with_denom requires weights")
@@ -228,45 +250,25 @@ def _edge_weights(w: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return w.reshape(-1).to(torch.float32).contiguous()
 
 
-def spmm_rowmask(
-    csr: CSR,
-    w: Optional[torch.Tensor],
-    node_feats: torch.Tensor,
-    heads: int = 1,
-    with_denom: bool = False,
-    stream_dtype=None,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """``out[d, c] = sum_e w[e, c // F] * node_feats[src_e, c]``, f32, as
-    ``(out, den)``.
-
-    ``w`` is (capacity,) or (capacity, 1) in CSR order for one head,
-    (capacity, heads) for several, or None for the unweighted path.
-    ``node_feats`` is (N, heads * F); several heads need ``128 % F == 0``
-    and ``(heads * F) % 128 == 0`` (``ValueError`` otherwise, as in the JAX
-    package). ``with_denom`` also returns ``den[d, h] = sum_e w[e, h]``
-    (N, heads) f32, summed from the unrounded weights in the same pass;
-    otherwise ``den`` is None. ``stream_dtype=torch.bfloat16`` streams the
-    features as bf16 with f32 sums (the JAX package's rule for large
-    graphs).
-    """
-    if node_feats.dim() != 2 or node_feats.shape[0] != csr.num_nodes:
+def _check_k1(csr: CSR, w: Optional[torch.Tensor], node_feats: torch.Tensor, heads: int, with_denom: bool) -> None:
+    if node_feats.dim() != 2 or node_feats.shape[0] != csr.num_cols:
         raise ValueError(
-            f"node_feats must be (num_nodes={csr.num_nodes}, F), got {tuple(node_feats.shape)}"
+            f"node_feats must be (num_cols={csr.num_cols}, F), got {tuple(node_feats.shape)}"
         )
     _head_width(node_feats.shape[1], heads, "spmm_rowmask")
     if w is not None and w.numel() != csr.capacity * heads:
         raise ValueError(f"w must hold {heads} weight(s) per edge slot ({csr.capacity} slots)")
     if with_denom and w is None:
         raise ValueError("with_denom requires weights")
-    if node_feats.device.type == "cpu":
-        res = spmm_rowmask_plain(csr, w, node_feats, stream_dtype, heads=heads, with_denom=with_denom)
-        return res if with_denom else (res, None)
 
+
+def _launch_k1(counter, csr, w, node_feats, heads, with_denom, stream_dtype):
+    """K1 on the card, adding one to ``counter.launches`` when it launches."""
     lib = kernel_lib.load("spmm_rowmask", _SIGNATURES)
     dev = node_feats.device
     table, ld, bf16 = _gathered_table(csr, node_feats, stream_dtype, "K1")
     wt = None if w is None else _edge_weights(w, dev)
-    n, f = node_feats.shape
+    n, f = csr.num_nodes, node_feats.shape[1]
     out = torch.empty(n, f, dtype=torch.float32, device=dev)
     den = torch.empty(n, heads, dtype=torch.float32, device=dev) if with_denom else None
     if n == 0 or f == 0:
@@ -294,12 +296,71 @@ def spmm_rowmask(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"K1 (spmm_rowmask) launch failed with cudaError {rc}")
-    spmm_rowmask.launches += 1
+        raise RuntimeError(f"K1 ({counter.__name__}) launch failed with cudaError {rc}")
+    counter.launches += 1
     return out, den
 
 
+def spmm_rowmask(
+    csr: CSR,
+    w: Optional[torch.Tensor],
+    node_feats: torch.Tensor,
+    heads: int = 1,
+    with_denom: bool = False,
+    stream_dtype=None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``out[d, c] = sum_e w[e, c // F] * node_feats[src_e, c]``, f32, as
+    ``(out, den)``.
+
+    ``w`` is (capacity,) or (capacity, 1) in CSR order for one head,
+    (capacity, heads) for several, or None for the unweighted path.
+    ``node_feats`` is (num_cols, heads * F); several heads need
+    ``128 % F == 0`` and ``(heads * F) % 128 == 0`` (``ValueError``
+    otherwise, as in the JAX package). ``out`` is (num_nodes, heads * F).
+    ``with_denom`` also returns ``den[d, h] = sum_e w[e, h]``
+    (num_nodes, heads) f32, summed from the unrounded weights in the same
+    pass; otherwise ``den`` is None. ``stream_dtype=torch.bfloat16`` streams
+    the features as bf16 with f32 sums (the JAX package's rule for large
+    graphs).
+    """
+    _check_k1(csr, w, node_feats, heads, with_denom)
+    if node_feats.device.type == "cpu":
+        res = spmm_rowmask_plain(csr, w, node_feats, stream_dtype, heads=heads, with_denom=with_denom)
+        return res if with_denom else (res, None)
+    return _launch_k1(spmm_rowmask, csr, w, node_feats, heads, with_denom, stream_dtype)
+
+
 spmm_rowmask.launches = 0  # kernel launches since the count was last reset
+
+
+def spmm_rowmask_traced(
+    csr: CSR,
+    w: Optional[torch.Tensor],
+    table: torch.Tensor,
+    heads: int = 1,
+    with_denom: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1's shard mode: ``spmm_rowmask`` over one shard's CSR, as ``(out,
+    den)``, streaming the table's own dtype.
+
+    ``csr`` is a shard CSR (``DistGraph.shard``): its columns index
+    ``table``'s ``csr.num_cols`` rows (``[local | halo]``, the halo buffer,
+    or the local rows) and ``out`` has its ``csr.num_nodes`` rows. The
+    stream is bf16 when ``table`` is bf16 and f32 otherwise, as JAX's
+    ``spmm_rowmask_traced`` streams the dtype of its pre-gathered rows. ``w``,
+    ``heads`` and ``with_denom`` are as for ``spmm_rowmask``. A CSR with no
+    edges gives zeros (the kernel writes every row). Launches count on
+    ``spmm_rowmask_traced.launches``, not on ``spmm_rowmask``'s.
+    """
+    _check_k1(csr, w, table, heads, with_denom)
+    stream = torch.bfloat16 if table.dtype == torch.bfloat16 else torch.float32
+    if table.device.type == "cpu":
+        res = spmm_rowmask_plain(csr, w, table, stream, heads=heads, with_denom=with_denom)
+        return res if with_denom else (res, None)
+    return _launch_k1(spmm_rowmask_traced, csr, w, table.to(stream), heads, with_denom, stream)
+
+
+spmm_rowmask_traced.launches = 0  # kernel launches since the count was last reset
 
 
 def spmm_rowmask_bwd_plain(
@@ -350,17 +411,20 @@ def spmm_rowmask_bwd(
     """K2: ``(dh, dw_t)`` of a weighted SpMM in one pass over ``csr_t``.
 
     Call it on the TRANSPOSE CSR with the weights ``w_t`` in transpose edge
-    order, the output cotangent ``g`` and the forward's input features
-    ``fs`` (both (N, heads * F)). ``dh`` is (N, heads * F) f32; ``dw_t`` is
+    order, the output cotangent ``g`` ((csr_t.num_cols, heads * F): the
+    forward's rows) and the forward's input features ``fs``
+    ((csr_t.num_nodes, heads * F): the forward's table). ``dh`` is
+    (csr_t.num_nodes, heads * F) f32; ``dw_t`` is
     in transpose edge order, 0 on padding slots: (capacity,) f32 for one
     head, (capacity, heads) for several (the tiling rule of
     ``spmm_rowmask``). ``stream_dtype`` as for ``spmm_rowmask`` (it decides
     from ``g``'s dtype when None).
     """
     n = csr_t.num_nodes
-    if g.dim() != 2 or g.shape[0] != n or fs.shape != g.shape:
+    if g.dim() != 2 or g.shape[0] != csr_t.num_cols or fs.shape != (n, g.shape[1]):
         raise ValueError(
-            f"g and fs must both be (num_nodes={n}, F), got {tuple(g.shape)} and {tuple(fs.shape)}"
+            f"g must be (num_cols={csr_t.num_cols}, F) and fs (num_nodes={n}, F), "
+            f"got {tuple(g.shape)} and {tuple(fs.shape)}"
         )
     _head_width(g.shape[1], heads, "spmm_rowmask_bwd")
     if w_t.numel() != csr_t.capacity * heads:

@@ -575,3 +575,91 @@ def test_tgcn_on_a_lazy_pair_on_cuda_matches_cpu(cuda, rng, weighted):
         results.append([h.detach()] + [p.grad for p in layer.parameters()] + [v.grad for v in x])
     for ref, out in zip(*results):
         _close(out.cpu(), ref, tol=1e-4)
+
+
+@pytest.mark.parametrize("which", ["interior", "frontier", "local"])
+@pytest.mark.parametrize("heads", [0, 1, 4])
+def test_k1_shard_mode_and_k2_on_the_rectangular_transpose_match_plain_on_the_card(cuda, rng, which, heads):
+    """K1's shard mode (``spmm_rowmask_traced``, f32 stream) on one shard's
+    CSRs of a 3-way partition (unweighted when ``heads`` is 0; 4 heads of 32
+    with the denominator), and K2 on their rectangular transposes."""
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_traced
+    from stgraph_tpu_torch.parallel import partition_edges
+
+    n, e = 3000, 60_000
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
+    csr = getattr(partition_edges(src, dst, n, 3).shard(0, cuda), f"{which}_csr")
+    h = max(heads, 1)
+    width = 128 if heads > 1 else 47
+    x = torch.from_numpy(rng.standard_normal((csr.num_cols, width)).astype(np.float32)).to(cuda)
+    w = None
+    if heads:
+        w = torch.from_numpy(rng.random((csr.capacity, h)).astype(np.float32)).to(cuda)
+        w[csr.num_edges:] = 0.0
+        w = w.reshape(-1) if h == 1 else w
+    before = spmm_rowmask_traced.launches, spmm_rowmask.launches
+    out, den = spmm_rowmask_traced(csr, w, x, heads=h, with_denom=heads > 1)
+    torch.cuda.synchronize()
+    assert (spmm_rowmask_traced.launches, spmm_rowmask.launches) == (before[0] + 1, before[1])
+    assert out.shape == (csr.num_nodes, width)
+    absw = None if w is None else w.abs()
+    if heads > 1:
+        ref, ref_den = spmm_rowmask_plain(csr, w, x, torch.float32, heads=h, with_denom=True)
+        _within_mass(den, ref_den, ref_den)
+    else:
+        ref = spmm_rowmask_plain(csr, w, x, torch.float32)
+    _within_mass(out, ref, spmm_rowmask_plain(csr, absw, x.abs(), torch.float32, heads=h))
+    if heads:
+        csr_t = csr.transpose()
+        w_t = w.index_select(0, csr.edge_perms()[0].long())
+        g = torch.from_numpy(rng.standard_normal((csr.num_nodes, width)).astype(np.float32)).to(cuda)
+        dh, dw = spmm_rowmask_bwd(csr_t, w_t, g, x, heads=h)
+        torch.cuda.synchronize()
+        ref_dh, ref_dw = spmm_rowmask_bwd_plain(csr_t, w_t, g, x, torch.float32, heads=h)
+        mass_dh, mass_dw = spmm_rowmask_bwd_plain(csr_t, w_t.abs(), g.abs(), x.abs(), torch.float32, heads=h)
+        _within_mass(dh, ref_dh, mass_dh)
+        _within_mass(dw, ref_dw, mass_dw)
+
+
+def test_dist_gcn_step_at_world_size_one_on_cuda_matches_cpu(cuda, rng):
+    """``benchmarking/dist/train.py``'s step at world size 1 (a one-process
+    gloo group): the kernel route on the card (K1's shard mode forward, K1
+    on the transpose backward) against the plain route on the CPU, loss and
+    gradients."""
+    import socket
+
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_traced
+    from stgraph_tpu_torch.parallel import dist_spmm, launch, make_mesh, partition_edges
+
+    n, e, dims = 3000, 60_000, (16, 32, 32, 5)
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
+    x = rng.standard_normal((n, dims[0])).astype(np.float32)
+    y = rng.integers(0, dims[-1], n)
+    norm = (rng.random((n, 1)) + 0.5).astype(np.float32)
+    ws = [(rng.standard_normal((a, b)) * 0.1).astype(np.float32) for a, b in zip(dims[:-1], dims[1:])]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    launch.initialize(f"127.0.0.1:{port}", 1, 0, backend="gloo")
+    try:
+        mesh = make_mesh(device="cuda")
+        dg = partition_edges(src, dst, n, 1)
+        res = {}
+        for dev, impl in ((cuda, "kernel"), (torch.device("cpu"), "torch")):
+            params = [torch.from_numpy(w).to(dev).requires_grad_() for w in ws]
+            h = torch.from_numpy(x).to(dev)
+            nn_ = torch.from_numpy(norm).to(dev)
+            before = spmm_rowmask_traced.launches, spmm_rowmask.launches
+            for i, w in enumerate(params):
+                h = dist_spmm(mesh, dg, (h @ w) * nn_, impl=impl) * nn_
+                h = torch.relu(h) if i < len(params) - 1 else h
+            loss = torch.nn.functional.cross_entropy(h, torch.from_numpy(y).to(dev))
+            loss.backward()
+            if impl == "kernel":
+                torch.cuda.synchronize()
+                assert (spmm_rowmask_traced.launches - before[0], spmm_rowmask.launches - before[1]) == (3, 3)
+            res[impl] = [loss.detach().cpu()] + [w.grad.cpu() for w in params]
+    finally:
+        launch.shutdown()
+    for got, want in zip(res["kernel"], res["torch"]):
+        assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())

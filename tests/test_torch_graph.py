@@ -104,6 +104,17 @@ def test_static_graph_takes_a_list_of_pairs(rng):
     _assert_same_csr(a.fwd_csr, b.fwd_csr)
 
 
+@pytest.mark.parametrize("sort", ["native", "lexsort"])
+def test_build_csr_refuses_out_of_range_ids(monkeypatch, sort):
+    """An id outside [0, num_nodes) raises ``ValueError`` before the sort:
+    the native counting sort would index its counts with it."""
+    if sort == "lexsort":
+        monkeypatch.setattr(native, "build_csr_arrays", lambda *a: None)
+    for src, dst in (([0, 5], [1, 2]), ([0, 1], [-1, 2]), ([3, 1], [0, 2])):
+        with pytest.raises(ValueError, match="out of range"):
+            build_csr(src, dst, 3, device="cpu")
+
+
 def test_csr_to_device_is_identity_on_same_device(rng):
     src, dst = _graph(rng)
     c = build_csr(src, dst, 50, device="cpu")

@@ -54,7 +54,11 @@ def _port_files():
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     bad = []
-    for path in _port_files():
+    files = _port_files()
+    scanned = {p.relative_to(ROOT).as_posix() for p in files}
+    for module in ("halo", "launch", "layers", "mesh", "partition"):
+        assert f"stgraph_tpu_torch/parallel/{module}.py" in scanned
+    for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             if top in FORBIDDEN:
@@ -86,6 +90,30 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda):
         GATConv(4, 4, 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Predictor.build(lambda p, x: x, {}, (torch.ones(1),))
+
+
+@pytest.mark.parametrize("layer, args", [("gcn", (4, 3)), ("gat", (4, 3, 2)), ("tgcn", (4, 3))])
+def test_dist_params_default_to_cuda_and_land_on_the_device_asked(monkeypatch, layer, args):
+    """The distribution layer's ``dist_*_params`` are entry points: without
+    ``device`` they ask for CUDA (and raise without it), whatever device the
+    generator draws on; with one, every tensor lands there."""
+    from stgraph_tpu_torch import parallel
+
+    make = getattr(parallel, f"dist_{layer}_params")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make(torch.Generator(), *args)
+    params = make(torch.Generator().manual_seed(0), *args, device="meta")
+    leaves = list(_tensors(params))
+    assert leaves and all(t.device.type == "meta" for t in leaves)
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    else:
+        for v in tree.values():
+            yield from _tensors(v)
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch, tmp_path):
@@ -273,3 +301,46 @@ def test_kernel_build_starts_nothing_at_import():
     for name in kernel_lib.SOURCES.values():
         assert (ROOT / "stgraph_tpu_torch" / "csrc" / name).exists()
     assert "arch=compute_90a,code=sm_90a" in kernel_lib.NVCC_FLAGS
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version_on_the_shard_route(monkeypatch, tmp_path):
+    """K1's shard mode as the others: a tensor that is not on the CPU goes to
+    the kernel or raises, through the wrapper, ``spmm_cuda.spmm_traced`` and
+    ``dist_spmm``/``dist_gat_attention(impl='kernel')`` at one rank."""
+    import socket
+
+    from stgraph_tpu_torch import parallel
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(kernel_lib, "_nvcc", no_nvcc)
+    monkeypatch.setattr(kernel_lib, "_loaded", {})
+    monkeypatch.setattr(kernel_lib, "_paths", lambda names: {n: str(tmp_path / f"{n}.so") for n in names})
+    monkeypatch.setattr(spmm_kernels, "spmm_rowmask_plain", plain)
+    monkeypatch.setattr(spmm_kernels, "spmm_rowmask_bwd_plain", plain)
+    dg = parallel.partition_edges([0, 1, 2, 2], [1, 2, 0, 1], 3, 1)
+    sh = dg.shard(0, "meta")
+    feats = torch.empty(3, 8, device="meta")
+    before = spmm_kernels.spmm_rowmask_traced.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        spmm_kernels.spmm_rowmask_traced(sh.interior_csr, None, feats)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        spmm_cuda.spmm_traced(sh.interior_csr, feats)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    parallel.launch.initialize(f"127.0.0.1:{port}", 1, 0, backend="gloo")
+    try:
+        mesh = parallel.make_mesh(device="cpu")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            parallel.dist_spmm(mesh, dg, feats, impl="kernel")
+        el = torch.empty(3, 1, device="meta")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            parallel.dist_gat_attention(mesh, dg, el, el, feats.reshape(3, 1, 8), impl="kernel")
+    finally:
+        parallel.launch.shutdown()
+    assert spmm_kernels.spmm_rowmask_traced.launches == before
