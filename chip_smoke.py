@@ -71,7 +71,12 @@ Phases (any failure exits nonzero and prints no result line):
     f32 stream): train accuracy at least ``PUBMED_ACC_FLOOR``;
 23. K6 and K7 against their plain versions on a flat store with sentinel
     slots spread through it, tombstones, empty rows and a 150k-slot hub row,
-    weighted, unweighted and w = None, K6 at F in {8, 32, 128};
+    weighted, unweighted and w = None, K6 at F in {8, 32, 128}, also on an
+    adversarial store (an all-sentinel chunk, a row over three chunks with
+    sentinels inside its run, a tombstone-only row across a chunk boundary,
+    empty rows across one, rows after the last live slot); K6's chunk plan
+    bit for bit against ``rowid_chunk_plan``, its output in a block
+    poisoned with NaN;
 24. dyn-step, the fifth main path: ``bench.py``'s ``bench_dyn`` on the
     port (the lazy store pair at 1.1M nodes, capacity 2.2M, 64 steps of 10k
     adds and 10k deletes, ``lazy_spmm`` at F = 128): one K6 a step; per-step
@@ -79,7 +84,8 @@ Phases (any failure exits nonzero and prints no result line):
     the initial edges; after the 64 steps the live sets of both stores must
     equal the generator's;
 25. K6 and K7 at that path's shapes: each kernel, its plain version and a
-    library call timed, full outputs compared;
+    library call timed, full outputs compared (K6 into a poisoned block, its
+    plan bit for bit);
 26. dtdg-training, the sixth main path, on England-COVID (weighted, 53
     timesteps) and the wiki-talk-shaped stream (unweighted, 4): the
     lazy-scan epoch of ``benchmarking/dynamic-temporal-tgcn/train.py``
@@ -100,13 +106,15 @@ Phases (any failure exits nonzero and prints no result line):
     each layer's output in the first request held against an f64
     recomputation on 1024 sampled rows and the largest hub; the peak device
     memory; a profile of one request; K3 and K10 at the first layer's shapes
-    with its own weights and features (kernel, plain version, library call,
-    full outputs compared);
+    with its own weights and features (kernel, plain version, library calls:
+    for K10 one ``torch.sparse.mm`` over the block-diagonal-by-head pattern
+    and, beside it, H calls of one head each; full outputs compared);
 28. K3 and K10 against their plain versions (run after 15): K3 at K in
     {1, 4, 6, 16} on the forward and transpose CSRs of a graph with a
     150k-edge hub in each direction, empty rows, empty row blocks and padding
-    slots; K10 at (H, F) in {(4, 256), (6, 121), (3, 20)} on both blocked
-    layouts (a block of over 10^5 slots in each);
+    slots; K10 at (H, F) in {(4, 256), (6, 121), (3, 20), (3, 7), (40, 4)}
+    on both blocked layouts (a block of over 10^5 slots in each), each
+    output in a block poisoned with NaN;
 29. ppi-serving and ppi-training, the eighth and ninth main paths: the same
     model at the PPI widths (50 -> 4x256 -> 4x256 -> 6x121) on a synthetic
     graph of PPI's size (56,944 nodes, 818,716 edges; Chung-Lu degrees as in
@@ -115,7 +123,8 @@ Phases (any failure exits nonzero and prints no result line):
     logits and one step's gradients against the vertex program with K3's
     and K4's plain versions;
 30. K3 and K10 at a PPI training step's shapes: kernel, plain version and
-    library call timed, full outputs compared;
+    library calls timed (K10's as in 27), full outputs compared (K10's in a
+    poisoned block);
 31. pubmed-rowmask, the tenth main path (run after 22):
     ``benchmarking/gat/train.py --dataset pubmed --num_heads 32 --num_hidden
     4`` (500 -> 32 x 4 with ELU -> 1 x 3, Adam 5e-3, 200 epochs): the 32 x 4
@@ -292,7 +301,7 @@ PPI_HIDDEN, PPI_HEADS = 256, (4, 4, 6)
 PPI_DIMS = (PPI_FEATS, PPI_HIDDEN, PPI_CLASSES)
 OGBN_FEATS, OGBN_CLASSES = 100, 47
 K3_CHECK_K = (1, 4, 6, 16)
-COMPOSED_CHECKS = ((4, 256), (6, 121), (3, 20))  # (H, F) of K10's checks
+COMPOSED_CHECKS = ((4, 256), (6, 121), (3, 20), (3, 7), (40, 4))  # (H, F) of K10's checks
 COMPOSED_SAMPLE_ROWS = 1024
 COMPOSED_PLAIN_EDGE_BLOCK = 1 << 18  # bounds the plain K10's (slots, H*F) temporaries (~5 GB)
 # The composed route (f32, its kernels' atomics in run-dependent order) vs
@@ -454,6 +463,22 @@ def k2_bound(n: int, e: int, f: int):
 
 def _err_over_mass(err, mass):
     return (err / mass.clamp(min=1e-30)).masked_fill(err == 0, 0.0).max().item()
+
+
+def poisoned_call(shape, fn):
+    """``fn()`` after a block of ``shape`` f32 was filled with NaN and freed:
+    the caching allocator hands that block to the kernel's output, so a row
+    the kernel failed to write shows as NaN. Fails unless the output took
+    the block and holds no NaN; returns the output."""
+    torch.cuda.empty_cache()
+    t = torch.full(shape, float("nan"), dtype=torch.float32, device="cuda")
+    ptr = t.data_ptr()
+    del t
+    out = fn()
+    res = out[0] if isinstance(out, tuple) else out
+    check(res.data_ptr() == ptr, f"the poisoned block of {shape} went elsewhere: the check would be vacuous")
+    check(not bool(res.isnan().any().item()), f"the kernel left output rows of {shape} unwritten (NaN)")
+    return out
 
 
 def k1_agreement(out, csr, w, x, stream, edge_block=None):
@@ -2001,8 +2026,8 @@ def phase_composed_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=15
     ``hub_deg`` edges in each direction (so a 128-row block of each blocked
     layout holds more than 10^5 slots), 1000 empty rows, ten empty row
     blocks and padding slots: K3 at K in {1, 4, 6, 16} on the forward and
-    transpose CSRs, K10 at (H, F) in {(4, 256), (6, 121), (3, 20)} on both
-    blocked layouts."""
+    transpose CSRs, K10 at (H, F) in ``COMPOSED_CHECKS`` on both blocked
+    layouts, each into an output block poisoned with NaN (``poisoned_call``)."""
     from stgraph_tpu_torch.graph.blocked import build_blocked
     from stgraph_tpu_torch.ops.segment_kernels import segment_sum_narrow
     from stgraph_tpu_torch.ops.spmm_blocked import segment_sum_blocked
@@ -2027,8 +2052,7 @@ def phase_composed_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=15
         for h, f in COMPOSED_CHECKS:
             x = torch.from_numpy(rng.standard_normal((n, h * f)).astype(np.float32)).to(dev)
             w = torch.from_numpy(rng.random((blk.capacity, h)).astype(np.float32)).to(dev)
-            out = segment_sum_blocked(blk, w, x, h)
-            torch.cuda.synchronize()
+            out = poisoned_call((n, h * f), lambda: segment_sum_blocked(blk, w, x, h))
             a, r, mx = k10_agreement(out, blk, w, x, h)
             ok = r <= KERNEL_TOL and (name == "transpose" or not out[n - empty:].any().item())
             print(f"k10-check {name} layout H={h} F={f} (largest block {slots} slots): max_abs_err {a:.3e} "
@@ -2189,7 +2213,8 @@ def phase_composed_ogbn_serving(dev, args, base):
         main["K3"] = {"K": h, "E": e, "N": n, "ms": k3_ms, "plain_ms": k3_plain, "library_ms": k3_lib,
                       "bound_ms": b3[0], "bound_by": b3[1], "bytes": b3[2], "ops": b3[3], "max_abs_err": a3,
                       "err_over_mass": r3}
-        k10_lib = _library_multihead_ms(csr, w, fs, h, e)
+        k10_lib_heads = _library_multihead_ms(csr, w, fs, h, e)
+        k10_lib = _library_blockdiag_ms(csr, w, fs, h, e)
         wb = _to_blocked_w_mh(blocked, csr, w)
         del w
         a10, r10, _ = k10_agreement(segment_sum_blocked(blocked, wb, fs, h), blocked, wb, fs, h)
@@ -2199,11 +2224,12 @@ def phase_composed_ogbn_serving(dev, args, base):
                             iters=1, warmup=0)
         del wb
         b10 = k10_bound(n, e, blocked.capacity, h, f)
-        print(f"k10-ogbn H={h} F={f}: {k10_ms:.3f} ms (plain {k10_plain:.1f} ms, {h} x sparse.mm {k10_lib} ms, "
+        print(f"k10-ogbn H={h} F={f}: {k10_ms:.3f} ms (plain {k10_plain:.1f} ms, one block-diagonal sparse.mm "
+              f"{k10_lib} ms, {h} x sparse.mm {k10_lib_heads} ms, "
               f"bound {b10[0]:.3f} ms by {b10[1]}); full-graph max_abs_err {a10:.3e} (err/sum|terms| {r10:.2e}); "
               f"gathered rows {e * h * f * 4 / 1e9:.1f} GB, {e * h * f * 4 / (k10_ms * 1e-3) / 1e12:.2f} TB/s")
         main["K10"] = {"H": h, "F": f, "E": e, "N": n, "CB": blocked.capacity, "ms": k10_ms, "plain_ms": k10_plain,
-                       "library_ms": k10_lib, "bound_ms": b10[0], "bound_by": b10[1], "bytes": b10[2],
+                       "library_ms": k10_lib, "library_heads_ms": k10_lib_heads, "bound_ms": b10[0], "bound_by": b10[1], "bytes": b10[2],
                        "ops": b10[3], "max_abs_err": a10, "err_over_mass": r10}
         del fs
     del model
@@ -2244,6 +2270,51 @@ def _library_multihead_ms(csr, w, x, h, e):
         return total
     except (RuntimeError, TypeError) as exc:
         print(f"library yardstick sparse.mm unavailable: {exc}")
+        return None
+
+
+def blockdiag_by_head(csr, w, h, e):
+    """The (N*H, N*H) CSR matrix whose row ``d*H + k`` holds, for each real
+    edge ``s -> d``, the value ``w[edge, k]`` at column ``s*H + k``: one
+    ``torch.sparse.mm`` of it against ``x.view(N*H, F)`` computes the
+    multi-head weighted sum ``out[d, k*F:(k+1)*F] = sum w[edge, k] *
+    x[s, k*F:(k+1)*F]`` in a single call. Int32 indices."""
+    n, dev = csr.num_nodes, csr.device
+    indptr = csr.indptr.long()
+    deg = indptr[1:] - indptr[:-1]
+    k = torch.arange(h, device=dev)
+    crow = torch.empty(n * h + 1, dtype=torch.int64, device=dev)
+    crow[:-1] = ((h * indptr[:-1])[:, None] + k[None, :] * deg[:, None]).reshape(-1)
+    crow[-1] = h * e
+    rows = csr.rows[:e].long()
+    start = indptr[rows]
+    pos = (h * start + torch.arange(e, device=dev) - start)[:, None] + k[None, :] * deg[rows][:, None]
+    del start
+    pos = pos.reshape(-1)
+    col2 = torch.empty(e * h, dtype=torch.int32, device=dev)
+    col2[pos] = (csr.cols[:e].long()[:, None] * h + k[None, :]).reshape(-1).int()
+    val2 = torch.empty(e * h, dtype=torch.float32, device=dev)
+    val2[pos] = w[:e].reshape(-1).float()
+    del pos, rows
+    return torch.sparse_csr_tensor(crow.int(), col2, val2, size=(n * h, n * h), check_invariants=False)
+
+
+def _library_blockdiag_ms(csr, w, x, h, e, iters=3):
+    """One ``torch.sparse.mm`` over ``blockdiag_by_head`` against the free
+    view ``x.view(N*H, F)``: the single library call that computes K10's
+    (and K1's heads mode's) function, a timed yardstick only (building the
+    pattern is not timed). None, printed as unavailable, where it cannot run
+    (out of memory at ogbn-products size)."""
+    try:
+        n = csr.num_nodes
+        a = blockdiag_by_head(csr, w, h, e)
+        xv = x.float().reshape(n * h, x.shape[1] // h)
+        ms = cuda_ms(lambda: torch.sparse.mm(a, xv), iters=iters)
+        del a, xv
+        return ms
+    except (RuntimeError, TypeError) as exc:  # torch.cuda.OutOfMemoryError is a RuntimeError
+        print(f"library yardstick sparse.mm (one call, block-diagonal by head) unavailable: {exc}")
+        torch.cuda.empty_cache()
         return None
 
 
@@ -2410,18 +2481,23 @@ def phase_composed_at_main_shapes(dev, ppi):
                 w = torch.rand(c.capacity, h, device=dev, generator=gen)
                 # the weights in the layout's slot order, as the route routes them (by user edge id)
                 wb = w.index_select(0, positions_in(c, blk.eids))
-                a, r, _ = k10_agreement(segment_sum_blocked(blk, wb, x, h), blk, wb, x, h)
+                out = poisoned_call((n, h * f), lambda: segment_sum_blocked(blk, wb, x, h))
+                a, r, _ = k10_agreement(out, blk, wb, x, h)
+                del out
                 check(r <= KERNEL_TOL, f"K10 at the PPI shape ({name}, H={h}, F={f}) disagrees: {r}")
                 ms = cuda_ms(lambda: segment_sum_blocked(blk, wb, x, h), iters=20, warmup=2)
                 plain_ms = cuda_ms(lambda: segment_sum_blocked_plain(blk, wb, x, h, COMPOSED_PLAIN_EDGE_BLOCK),
                                    iters=2, warmup=1)
-                lib = _library_multihead_ms(c, w, x, h, e)
+                lib = _library_blockdiag_ms(c, w, x, h, e, iters=10)
+                lib_heads = _library_multihead_ms(c, w, x, h, e)
                 b = k10_bound(n, e, blk.capacity, h, f)
-                print(f"k10-main {name} layout H={h} F={f}: {ms:.4f} ms (plain {plain_ms:.2f} ms, {h} x sparse.mm "
-                      f"{lib} ms, bound {b[0]:.4f} ms by {b[1]}); max_abs_err {a:.3e} (err/sum|terms| {r:.2e})")
+                print(f"k10-main {name} layout H={h} F={f}: {ms:.4f} ms (plain {plain_ms:.2f} ms, one block-diagonal "
+                      f"sparse.mm {lib} ms, {h} x sparse.mm {lib_heads} ms, bound {b[0]:.4f} ms by {b[1]}); "
+                      f"max_abs_err {a:.3e} (err/sum|terms| {r:.2e})")
                 worst["K10"] = max(worst["K10"], a)
                 k10[(name, h)] = {"layout": name, "H": h, "F": f, "E": e, "N": n, "CB": blk.capacity, "ms": ms,
-                                  "plain_ms": plain_ms, "library_ms": lib, "bound_ms": b[0], "bound_by": b[1],
+                                  "plain_ms": plain_ms, "library_ms": lib, "library_heads_ms": lib_heads,
+                                  "bound_ms": b[0], "bound_by": b[1],
                                   "bytes": b[2], "ops": b[3], "max_abs_err": a, "err_over_mass": r}
                 del x, w, wb
     h0, h2 = PPI_HEADS[0], PPI_HEADS[-1]
@@ -2814,8 +2890,8 @@ def phase_rowmask_ppi(dev, ppi):
              lambda: spmm_rowmask_plain(csr, w, fs2, stream, block, heads=h, with_denom=True),
              lambda: (spmm_rowmask_plain(csr, w, fs2.abs(), stream, block, heads=h),
                       spmm_rowmask_plain(csr, w, fs2, stream, block, heads=h, with_denom=True)[1]),
-             lambda: _library_multihead_ms(csr, w, fs2, h, e), rowmask_bound(n, e, h, f),
-             "torch.sparse.mm, one call a head"),
+             lambda: _library_blockdiag_ms(csr, w, fs2, h, e, iters=10), rowmask_bound(n, e, h, f),
+             "torch.sparse.mm, one call over the block-diagonal-by-head pattern"),
             ("K2", "transpose", csr_t,
              lambda: spmm_rowmask_bwd(csr_t, w_t, gu, fs2, stream_dtype=stream, heads=h),
              lambda: spmm_rowmask_bwd_plain(csr_t, w_t, gu, fs2, stream, block, heads=h),
@@ -2856,6 +2932,9 @@ def phase_rowmask_ppi(dev, ppi):
                  "longest_item": item, "ms": ms, "plain_ms": plain_ms, "library_ms": lib, "library": lib_name,
                  "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops, "max_abs_err": a,
                  "err_over_mass": r})
+        # beside the single call, the H calls of one head each
+        records["K1"][0]["library_heads_ms"] = _library_multihead_ms(csr, w, fs2, h, e)
+        print(f"K1-ppi forward {h} x {f}: {h} x sparse.mm {records['K1'][0]['library_heads_ms']} ms")
     return {"counts": counts, "errors": errs, "step_s": step_s, "per_launch": records, "max_abs_err": worst}
 
 
@@ -2911,13 +2990,46 @@ def rowid_bounds(cap: int, n: int, f: int, live: int):
     return out
 
 
+def adversarial_rowid_store(rng, n, chunk):
+    """A live-sorted store in K6's chunks of ``chunk`` slots: random rows
+    below 100 in chunk 0, an all-sentinel chunk 1, row 150 over chunks 2-4
+    with sentinels inside its run, row 151 of tombstones alone across the
+    boundary of chunk 5, rows 201-299 without slots across the boundary of
+    chunks 5 and 6, the last live row 400, then sentinel chunks (rows 401 to
+    n - 1 have no slot). Weights in [0.1, 1.1), 0 on sentinels and
+    tombstones."""
+    c = chunk
+    rows = np.full(9 * c, n, np.int64)
+    rows[: c - 20] = np.sort(rng.integers(0, 100, c - 20))
+    rows[2 * c:5 * c] = 150
+    rows[2 * c + rng.choice(3 * c, 40, replace=False)] = n
+    rows[5 * c - 30:5 * c + 30] = 151
+    rows[5 * c + 30:6 * c] = np.sort(rng.integers(152, 201, c - 30))
+    rows[6 * c:7 * c - 50] = np.sort(rng.integers(300, 401, c - 50))
+    rows[6 * c], rows[7 * c - 51] = 300, 400
+    cols = np.where(rows < n, rng.integers(0, n, rows.size), n)
+    w = (rng.random(rows.size) + 0.1).astype(np.float32)
+    w[(rows >= n) | (rows == 151)] = 0.0
+    return rows, cols, w
+
+
 @timed_phase
 def phase_rowid_kernels_vs_plain(dev, rng, n=200_000, slots=2_000_000, hub_slots=150_000):
     """K6 and K7 against their plain versions on a live-sorted flat store with
     sentinel slots spread through it (5 %), tombstones (10 %, w = 0), 1000
-    empty rows and a hub row of ``hub_slots`` slots; weighted, unweighted
-    (w in {0, 1}, the lazy store's) and w = None, at F in {8, 32, 128}."""
-    from stgraph_tpu_torch.ops.rowid_kernels import dyn_degree, dyn_degree_plain, spmm_rowid, spmm_rowid_plain
+    empty rows and a hub row of ``hub_slots`` slots, and K6 also on
+    ``adversarial_rowid_store``; weighted, unweighted (w in {0, 1}, the lazy
+    store's) and w = None, at F in {8, 32, 128}. K6's chunk plan (launch 1)
+    is held bit for bit against ``rowid_chunk_plan``, and each K6 output
+    takes a block poisoned with NaN (``poisoned_call``)."""
+    from stgraph_tpu_torch.ops.rowid_kernels import (
+        EDGE_CHUNK,
+        dyn_degree,
+        dyn_degree_plain,
+        rowid_chunk_plan,
+        spmm_rowid_plain,
+        spmm_rowid_with_plan,
+    )
 
     empty = 1000
     rows = rng.integers(0, n - empty, slots)
@@ -2929,29 +3041,36 @@ def phase_rowid_kernels_vs_plain(dev, rng, n=200_000, slots=2_000_000, hub_slots
     w = (rng.random(slots) + 0.1).astype(np.float32)
     w[sentinel] = 0.0
     w[rng.random(slots) < 0.1] = 0.0
+    stores = {"random": (rows, cols, w), "adversarial": adversarial_rowid_store(rng, n, EDGE_CHUNK)}
+    results, worst = [], {"K6": 0.0, "K7": 0.0}
+    for store, (r_np, c_np, w_np) in stores.items():
+        rows_t, cols_t = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (r_np, c_np))
+        w_t = torch.from_numpy(w_np).to(dev)
+        modes = {"weighted": w_t, "unweighted": (w_t > 0).float(), "w=None": None}
+        plan = rowid_chunk_plan(rows_t, n)
+        for f in ROWID_CHECK_F:
+            x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(dev)
+            for mode, ww in modes.items():
+                out, *got = poisoned_call((n, f), lambda: spmm_rowid_with_plan(rows_t, cols_t, ww, x, n))
+                check(all(torch.equal(a, b) for a, b in zip(got, plan)),
+                      f"K6's chunk plan differs from rowid_chunk_plan ({store} store)")
+                ref = spmm_rowid_plain(rows_t, cols_t, ww, x, n, ROWID_PLAIN_EDGE_BLOCK)
+                mass = spmm_rowid_plain(rows_t, cols_t, None if ww is None else ww.abs(), x.abs(), n,
+                                        ROWID_PLAIN_EDGE_BLOCK)
+                err = (out - ref).abs()
+                ratio = _err_over_mass(err, mass)
+                ok = ratio <= KERNEL_TOL and not out[n - empty:].any().item()
+                print(f"k6-check {store} store F={f} {mode}: plan bit-equal, no NaN; max_abs_err "
+                      f"{err.max().item():.3e} (max |plain| {ref.abs().max().item():.1f}), worst err/sum|terms| "
+                      f"{ratio:.2e} (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"K6 disagrees with its plain version at F={f} {mode} ({store} store)")
+                worst["K6"] = max(worst["K6"], err.max().item())
+                results.append({"kernel": "K6", "store": store, "F": f, "mode": mode,
+                                "max_abs_err": err.max().item(), "err_over_mass": ratio})
+                del out, ref, mass, err
     rows_t, cols_t = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (rows, cols))
     w_t = torch.from_numpy(w).to(dev)
     modes = {"weighted": w_t, "unweighted": (w_t > 0).float(), "w=None": None}
-    results, worst = [], {"K6": 0.0, "K7": 0.0}
-    for f in ROWID_CHECK_F:
-        x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(dev)
-        for mode, ww in modes.items():
-            out = spmm_rowid(rows_t, cols_t, ww, x, n)
-            torch.cuda.synchronize()
-            ref = spmm_rowid_plain(rows_t, cols_t, ww, x, n, ROWID_PLAIN_EDGE_BLOCK)
-            mass = spmm_rowid_plain(rows_t, cols_t, None if ww is None else ww.abs(), x.abs(), n,
-                                    ROWID_PLAIN_EDGE_BLOCK)
-            err = (out - ref).abs()
-            ratio = _err_over_mass(err, mass)
-            ok = ratio <= KERNEL_TOL and not out[n - empty:].any().item()
-            print(f"k6-check F={f} {mode}: max_abs_err {err.max().item():.3e} (max |plain| "
-                  f"{ref.abs().max().item():.1f}), worst err/sum|terms| {ratio:.2e} (tol {KERNEL_TOL:g}) "
-                  f"{'ok' if ok else 'FAIL'}")
-            check(ok, f"K6 disagrees with its plain version at F={f} {mode}")
-            worst["K6"] = max(worst["K6"], err.max().item())
-            results.append({"kernel": "K6", "F": f, "mode": mode, "max_abs_err": err.max().item(),
-                            "err_over_mass": ratio})
-            del out, ref, mass, err
     for mode, ww in modes.items():
         den = dyn_degree(rows_t, ww, n)
         torch.cuda.synchronize()
@@ -3083,8 +3202,16 @@ def phase_dyn_step(dev, seed):
 def phase_rowid_at_main_shapes(dyn):
     """K6 and K7 on the dyn-step store after its 64 steps (tombstones and
     logs in use), F = 128: each kernel, its plain version and a library call
-    timed, full outputs compared."""
-    from stgraph_tpu_torch.ops.rowid_kernels import dyn_degree, dyn_degree_plain, spmm_rowid, spmm_rowid_plain
+    timed, full outputs compared (K6's into a poisoned block, its chunk plan
+    bit for bit against ``rowid_chunk_plan``)."""
+    from stgraph_tpu_torch.ops.rowid_kernels import (
+        dyn_degree,
+        dyn_degree_plain,
+        rowid_chunk_plan,
+        spmm_rowid,
+        spmm_rowid_plain,
+        spmm_rowid_with_plan,
+    )
 
     st, feats = dyn["pair"].fwd, dyn["feats"]
     n, f = feats.shape
@@ -3094,8 +3221,10 @@ def phase_rowid_at_main_shapes(dyn):
     (b6, by6, bytes6, ops6), (b7, by7, bytes7, ops7) = rowid_bounds(cap, n, f, live)
     out = {}
     with torch.no_grad():
-        res = spmm_rowid(rows, cols, w, feats, n)
-        torch.cuda.synchronize()
+        res, *got = poisoned_call((n, f), lambda: spmm_rowid_with_plan(rows, cols, w, feats, n))
+        check(all(torch.equal(a, b) for a, b in zip(got, rowid_chunk_plan(rows, n))),
+              "K6's chunk plan at the dyn-step shape differs from rowid_chunk_plan")
+        del got
         ref = spmm_rowid_plain(rows, cols, w, feats, n, ROWID_PLAIN_EDGE_BLOCK)
         err = (res - ref).abs()
         k6_err = err.max().item()
@@ -3893,7 +4022,8 @@ def phase_dist_halo_2rank(dev, args, workdir, n_ranks=DIST_RANKS):
             "grad_err_over_max": grad_err, "gat_err_over_max": gat_err, "ranks": per_rank}
 
 
-def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, library=None, paths=None):
+def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, library=None, paths=None,
+                 **extra):
     """One kernel's entry of the kernels line: launches summed over the main
     paths' runs (``paths``, default all: K1's and K2's one-head and heads
     modes, and K8's and K9's modes with and without dropout, count on their
@@ -3903,6 +4033,8 @@ def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, 
     and the heads modes: a step of the rowmask route at PPI size) at the
     main path's shapes."""
     by_path = {path: counts for path, counts in by_path.items() if paths is None or path in paths}
+    if all(p.get("library_heads_ms") is not None for p in per_launch):  # H per-head calls (K10, K1 heads)
+        extra["library_heads_ms"] = sum(p["library_heads_ms"] for p in per_launch)
     return {
         "name": name,
         "route": "cuda",
@@ -3918,9 +4050,10 @@ def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, 
         "library_ms": (None if any(p["library_ms"] is None for p in per_launch)
                        else sum(p["library_ms"] for p in per_launch)),
         "library": library,
-        "per_launch": [{k: p[k] for k in ("where", "H", "F", "aux", "stream", "longest_item", "ms", "plain_ms",
-                                          "bound_ms", "library_ms") if k in p}
+        "per_launch": [{k: p[k] for k in ("where", "layout", "H", "F", "aux", "stream", "longest_item", "ms",
+                                          "plain_ms", "bound_ms", "library_ms", "library_heads_ms") if k in p}
                        for p in per_launch],
+        **extra,
     }
 
 
@@ -4113,7 +4246,8 @@ def main() -> int:
                      max(record["rowid_checks"]["max_abs_err"]["K6"], rowid_err["K6"],
                          *(r["kernel_max_abs_err"]["K6"] for r in record["dtdg_training"].values())),
                      rowid_launch["K6"],
-                     "torch.sparse.mm on a CSR built from the store (the build timed apart)"),
+                     "torch.sparse.mm on a CSR built from the store (the build timed apart)",
+                     kernels_per_call=2, kernels_of_a_call=["rowid_chunk_plan_kernel", "spmm_rowid_kernel"]),
         kernel_entry("rowid_denom (K7)", "stgraph_tpu_torch/csrc/rowid_denom.cu",
                      "stgraph_tpu/ops/dyn_spmm.py:382", "K7", by_path,
                      max(record["rowid_checks"]["max_abs_err"]["K7"], rowid_err["K7"]), rowid_launch["K7"],
@@ -4147,7 +4281,8 @@ def main() -> int:
                      "stgraph_tpu/ops/spmm_pallas.py:61", "K10", by_path,
                      max(record["composed_checks"]["max_abs_err"]["K10"], composed_err["K10"],
                          composed["max_abs_err"]["K10"]), composed_launch["K10"],
-                     "torch.sparse.mm, one call a head"),
+                     "torch.sparse.mm, one call over the block-diagonal-by-head pattern (library_heads_ms: one "
+                     "call a head)"),
     ]
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_start

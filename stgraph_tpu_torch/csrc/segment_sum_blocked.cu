@@ -3,56 +3,63 @@
 //   out[d, c] = sum_{slots s with dst[s] == d} w[s, c / F] * feats[cols[s], c]
 //
 // for c < H * F, over the blocked layout of graph/blocked.py: row blocks of
-// 128 destinations, each block's slots in CSR order (so sorted by dst) and
-// padded with sentinel slots (dst = cols = n) to a multiple of 1024. `w` is
-// (CB, H) f32 in slot order, `feats` the (n, H * F) f32 node table, `out`
-// (n, H * F) f32. Sentinel slots add nothing and are never gathered (their
-// cols = n is out of the table's bounds).
+// 128 destinations, each block's slots in CSR order and padded with sentinel
+// slots to a multiple of 1024. `w` is the weights head-major, (H, CB) f32
+// in slot order, `feats` the (n, H * F) f32 node table, `out` (n, H * F)
+// f32.
 //
 // Replaces the TPU kernel spmm_pallas._seg_matmul_kernel
 // (stgraph_tpu/ops/spmm_pallas.py:61, reached from segment_sum_blocked at
 // pallas_call :196) on the composed GAT route: the forward's weighted
-// aggregation, and d feat on the transpose layout in backward, for the
-// head tilings the row-wise kernel's multi-head mode would not take (H > 1
-// with 128 % F != 0 or (H * F) % 128 != 0; the GAT paper's PPI widths,
-// 4 x 256 and 6 x 121). The TPU kernel multiplied a 0/1 selection matrix
-// into rows that XLA had gathered before it; here the gather is inside the
-// kernel, as in K1 and K6: at ogbn-products size and H * F = 1024 the
+// aggregation, and d feat on the transpose layout in backward, for the head
+// tilings the row-wise kernel's multi-head mode does not take (the GAT
+// paper's PPI widths, 4 x 256 and 6 x 121). The TPU kernel multiplied a 0/1
+// selection matrix into rows that XLA had gathered before it; here the
+// gather is inside the kernel: at ogbn-products size and H * F = 1024 the
 // gathered rows would be a 507 GB intermediate.
 //
-// What bounds it on an H100: memory. Two operations per gathered element;
-// the compulsory bytes (dst, cols, w, the table once, the output once) give
-// about 7 ms at ogbn-products size and H * F = 1024, while the gathered rows
-// (one 4 KB row per slot) are about 25 times the table, so the time is set by
-// how many row reads the card keeps in flight.
+// What bounds it on an H100: memory. Two operations per gathered element.
+// The compulsory bytes (the slot indices and weights, the table once, the
+// output once) give about 7 ms at ogbn-products size and H * F = 1024, but
+// each slot gathers a whole row: 25 times the table at that size. So the
+// time is set by where the gathered rows come from. At PPI size the (N, 1024)
+// table is 233 MB, five times the 50 MB L2, but a 128-column slice of it
+// (29 MB) fits; at ogbn-products size nothing does, and L2 holds only the
+// hot rows, more of them the narrower the slice.
 //
-// What the design does about it (K6's edge-chunk design):
-//   - a warp takes a fixed run of `chunk` slots and one tile of 128 columns
-//     (blockIdx.y), lanes across the columns, 4 a lane (one 16 B load where
-//     H * F % 4 == 0): a gathered row tile is one coalesced 512 B read;
-//   - the warp loads 32 slots' (dst, col) at once and broadcasts them with
-//     shuffles, then gathers up to kUnroll rows before it adds any, so
-//     several row reads are in flight per warp;
-//   - the head of each column is c / F, computed per column, never per tile:
-//     at F = 121 head boundaries fall inside a tile and inside a lane's four
-//     columns;
-//   - it sums runs of equal dst in registers (a row's slots are contiguous
-//     and dst-sorted within a block) and stores a run that lies wholly
-//     inside its chunk; only a row that also owns the slot just before or
-//     just after the chunk is shared with another warp, and that row's run
-//     meets the others by atomicAdd in the output, which the wrapper zeroed.
-//     So a hub block of 10^5-10^6 slots is spread over many warps, and most
-//     rows cost one store a column. The order of the atomics, and so the
-//     last bits of a row split between chunks, varies from run to run;
-//   - where a lane's four columns lie in one head (F % 4 == 0) it reads one
-//     weight a slot, else one a column;
-//   - sentinel slots (dst >= n) are skipped before the gather, wherever they
-//     sit, so the layout's chunk padding costs only their (dst, col) reads;
-//     the blocks' offsets and counts are not needed.
+// What the design does about it (K1's row-wise design over the layout's
+// real slots):
+//   - the work is a host-built list of items (ops/spmm_blocked.py,
+//     k10_work_items): a row's slots are contiguous in the layout, so an
+//     item is a slot range of one row, at most K10_CHUNK long; a longer row
+//     is split into several items, and an empty row has an empty item. The
+//     layout's sentinel slots are never visited and `dst` is never read;
+//   - one warp an item holds a panel of at most 128 columns of one head in
+//     registers, lanes across the columns in pieces of 32 * V (V = 4, 2 or
+//     1 columns a lane, one 16, 8 or 4 B load), and blockIdx.y walks the
+//     heads' panels, so the whole grid gathers one panel's slice of the
+//     table before the next; that slice stays in L2 at PPI size. A slot
+//     needs one weight a panel, read for 32 slots at once from the
+//     head-major weights (a (CB, H) read would bring every head's weights
+//     into L2 with each panel and evict the slice). Where F % V != 0 (121,
+//     47) the panel starts at the head's first column rounded down to V,
+//     so the loads stay aligned, and a lane keeps its columns inside the
+//     head. The host (ops/spmm_blocked.py, k10_panels) picks V and the
+//     panel. A head narrower than a piece leaves lanes idle, and each head
+//     walks its items' slots once: narrow heads cost several times their
+//     share;
+//   - a warp loads 32 slots' column ids and weights at once and broadcasts
+//     them by shuffle, and gathers the rows of 8 slots before it adds any,
+//     so several KB are in flight a warp;
+//   - each row is stored once, by one vector store a piece, so no output is
+//     zeroed beforehand and a row's sum is the same from run to run. Only a
+//     row split over several items meets the others by atomicAdd, into rows
+//     the wrapper zeroed; the order of those atomics, and so the last bits
+//     of such a row, varies from run to run.
 //
 // The stream is f32 (the JAX package streams bf16 only on the rowmask
-// route), the products and sums are f32; only the sums' order differs from
-// the plain version's.
+// route); products and sums are f32, only the sums' order differs from the
+// plain version's.
 //
 // Build (done by stgraph_tpu_torch/ops/kernel_lib.py at first use):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -65,161 +72,226 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kTile = 128;  // columns a warp covers per pass
-constexpr int kUnroll = 8;  // row gathers in flight per warp
+constexpr int kWarpsPerBlock = 4;
+constexpr int kUnroll = 8;  // row gathers in flight a warp
 constexpr unsigned kFull = 0xffffffffu;
 
-// kVec: lane l owns columns 4l..4l+3 of the tile (needs hf % 4 == 0 and a
-// 16 B aligned table); otherwise columns l, l+32, l+64, l+96.
-// kOneHead (with kVec, when f % 4 == 0): a lane's four columns lie in one
-// head, so it reads one weight a slot instead of four.
-template <bool kVec, bool kOneHead>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-segment_sum_blocked_kernel(const int32_t* __restrict__ dst,
-                           const int32_t* __restrict__ cols,
-                           const float* __restrict__ w,
-                           const float* __restrict__ feats,
-                           float* __restrict__ out, int64_t cb, int n, int hf,
-                           int f, int heads, int chunk) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int64_t beg = warp * chunk;
-  if (beg >= cb) return;  // warp-uniform
-  const int64_t end = beg + chunk < cb ? beg + chunk : cb;
-  const int c0 = blockIdx.y * kTile;
-  // A row's slots are contiguous, so only a row that also owns the slot
-  // just before or just after the chunk is shared with another warp.
-  const int prev_dst = beg > 0 ? dst[beg - 1] : -1;
-  const int next_dst = end < cb ? dst[end] : -1;
+template <int kV>
+__device__ __forceinline__ void load_v(const float* p, float (&v)[kV]) {
+  if constexpr (kV == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (kV == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
 
-  // this lane's columns within the tile, and the head of each
-  int cidx[4];
-  int head[4];
-  bool live[4];
+template <int kV>
+__device__ __forceinline__ void store_v(float* p, const float (&v)[kV]) {
+  if constexpr (kV == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (kV == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// kV columns a lane loads at once; kPieces pieces of 32 * kV columns make
+// the panel a warp holds. blockIdx.y = head * per_head + panel of the head.
+// kCross: F % kV != 0, so the head's panels start at its first column
+// rounded down to kV, and a piece at either end of the head holds columns
+// of the next or the last head, which the lane neither adds nor stores. It
+// is a template parameter on purpose: with the masks worked out at run time
+// for every F, nvcc 12.8 scheduled the gathers worse and 4 x 256 ran
+// markedly slower on an H100.
+template <int kV, int kPieces, bool kCross>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 4)
+segment_sum_blocked_kernel(const int32_t* __restrict__ item_row,
+                           const int32_t* __restrict__ item_beg,
+                           const int32_t* __restrict__ item_end,
+                           int num_items, const int32_t* __restrict__ cols,
+                           const float* __restrict__ w, int64_t cb,
+                           const float* __restrict__ feats,
+                           float* __restrict__ out, int hf, int f,
+                           int per_head) {
+  constexpr int kPiece = 32 * kV;
+  const int lane = threadIdx.x & 31;
+  const int item = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (item >= num_items) return;  // warp-uniform
+  const int coded = item_row[item];
+  const bool split = coded < 0;  // the row spans several items
+  const int64_t row = split ? ~coded : coded;
+  const int beg = item_beg[item];
+  const int end = item_end[item];
+  const int panel_head = blockIdx.y / per_head;
+  const int c_beg = panel_head * f;
+  const int c_end = c_beg + f;
+  const int c0 = (kCross ? c_beg / kV * kV : c_beg) + (blockIdx.y % per_head) * kPieces * kPiece + lane * kV;
+
+  // Per piece: whether it holds a column of the head, and (head * 16 +
+  // mask) the mask of its columns inside the head. The head is packed in,
+  // and the weights' address formed inside the slot loop, on purpose: with
+  // the mask alone, or the head's weight pointer hoisted out of the loop,
+  // nvcc 12.8 scheduled the gathers worse and 6 x 121 ran markedly slower
+  // on an H100.
+  bool live[kPieces];
+  int hc[kPieces];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    cidx[k] = kVec ? lane * 4 + k : k * 32 + lane;
-    live[k] = c0 + cidx[k] < hf;
-    head[k] = live[k] ? (c0 + cidx[k]) / f : 0;
+  for (int p = 0; p < kPieces; ++p) {
+    const int c = c0 + p * kPiece;
+    live[p] = c < c_end && (!kCross || c + kV > c_beg);
+    int x = (1 << kV) - 1;
+    if (kCross) {
+      x = 0;
+#pragma unroll
+      for (int k = 0; k < kV; ++k) x |= (c + k >= c_beg && c + k < c_end) << k;
+    }
+    hc[p] = panel_head * 16 + x;
   }
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  int cur = -1;  // dst of the run in acc, -1 before the first
+  float acc[kPieces][kV];
+#pragma unroll
+  for (int p = 0; p < kPieces; ++p) {
+#pragma unroll
+    for (int k = 0; k < kV; ++k) acc[p][k] = 0.f;
+  }
 
-  // A run wholly inside the chunk is stored; a shared row meets the other
-  // warps' partial sums by atomicAdd in the zeroed output.
-  auto flush = [&]() {
-    if (cur < 0) return;
-    float* o = out + static_cast<int64_t>(cur) * hf + c0;
-    if (cur == prev_dst || cur == next_dst) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (live[k]) atomicAdd(o + cidx[k], acc[k]);
-      }
-    } else if (kVec) {
-      if (live[0]) *reinterpret_cast<float4*>(o + cidx[0]) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (live[k]) o[cidx[k]] = acc[k];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[k] = 0.f;
-  };
-
-  for (int64_t base = beg; base < end; base += 32) {
-    const int64_t s = base + lane;
-    int my_dst = -1;
-    int my_col = 0;
-    if (s < end) {
-      const int d = dst[s];
-      if (d < n) {  // a sentinel slot is skipped before any gather
-        my_dst = d;
-        my_col = cols[s];
-      }
-    }
-    const int cnt = static_cast<int>(end - base < 32 ? end - base : 32);
+  for (int base = beg; base < end; base += 32) {
+    const int my_col = base + lane < end ? cols[base + lane] : 0;
+    const float my_w = base + lane < end ? __ldg(w + panel_head * cb + base + lane) : 0.f;
+    const int cnt = min(32, end - base);  // warp-uniform
     for (int j0 = 0; j0 < cnt; j0 += kUnroll) {
-      int d[kUnroll];
-      float v[kUnroll][4];
-      float wt[kUnroll][kOneHead ? 1 : 4];
+      float v[kUnroll][kPieces][kV];
+      float wl[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const int j = j0 + u;  // warp-uniform
-        d[u] = -1;
-        int col = 0;
-        if (j < cnt) {
-          d[u] = __shfl_sync(kFull, my_dst, j);
-          col = __shfl_sync(kFull, my_col, j);
-        }
-        const float* p = feats + static_cast<int64_t>(col) * hf + c0;
-        // the weights of one slot sit in one 64 B line that every lane
-        // reads, so after the first read these are L1 hits
-        const float* ws = w + (base + j) * heads;
-        if (d[u] >= 0 && kVec && live[0]) {
-          const float4 q = __ldg(reinterpret_cast<const float4*>(p + cidx[0]));
-          v[u][0] = q.x;
-          v[u][1] = q.y;
-          v[u][2] = q.z;
-          v[u][3] = q.w;
-        } else {
+        const bool on = j0 + u < cnt;  // warp-uniform
+        const int src = __shfl_sync(kFull, my_col, (j0 + u) & 31);
+        wl[u] = __shfl_sync(kFull, my_w, (j0 + u) & 31);
+        const float* x = feats + static_cast<int64_t>(src) * hf + c0;
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            v[u][k] = (!kVec && d[u] >= 0 && live[k]) ? __ldg(p + cidx[k]) : 0.f;
+        for (int p = 0; p < kPieces; ++p) {
+          if (on && live[p]) {
+            load_v<kV>(x + p * kPiece, v[u][p]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < kV; ++k) v[u][p][k] = 0.f;
           }
         }
-#pragma unroll
-        for (int k = 0; k < (kOneHead ? 1 : 4); ++k) {
-          wt[u][k] = (d[u] >= 0 && live[k]) ? __ldg(ws + head[k]) : 0.f;
-        }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        if (d[u] < 0) continue;  // warp-uniform
-        if (d[u] != cur) {
-          flush();
-          cur = d[u];
-        }
+        if (j0 + u >= cnt) break;  // warp-uniform
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[k] += __fmul_rn(v[u][k], wt[u][kOneHead ? 0 : k]);
+        for (int p = 0; p < kPieces; ++p) {
+          const float lo = wl[u];
+#pragma unroll
+          for (int k = 0; k < kV; ++k) {
+            acc[p][k] += __fmul_rn(v[u][p][k], lo);
+          }
+        }
       }
     }
   }
-  flush();
+
+  float* o = out + row * hf + c0;
+#pragma unroll
+  for (int p = 0; p < kPieces; ++p) {
+    if (!live[p]) continue;
+    const int mask = kCross ? hc[p] & 15 : (1 << kV) - 1;  // the columns this panel owns
+    if (split) {
+#pragma unroll
+      for (int k = 0; k < kV; ++k) {
+        if ((mask >> k) & 1) atomicAdd(o + p * kPiece + k, acc[p][k]);
+      }
+    } else if (mask == (1 << kV) - 1) {
+      store_v<kV>(o + p * kPiece, acc[p]);
+    } else {  // a piece at a head boundary: its columns inside the head
+#pragma unroll
+      for (int k = 0; k < kV; ++k) {
+        if ((mask >> k) & 1) o[p * kPiece + k] = acc[p][k];
+      }
+    }
+  }
+}
+
+template <int kV, int kPieces>
+int launch(const int32_t* item_row, const int32_t* item_beg,
+           const int32_t* item_end, int num_items, const int32_t* cols,
+           const float* w, int64_t cb, const float* x, float* out, int hf,
+           int f, int heads, int per_head, cudaStream_t stream) {
+  // the head's panels must cover it from its first column rounded down
+  const int span = f % kV ? f + kV - 1 : f;
+  if (hf % kV || static_cast<int64_t>(per_head) * kPieces * 32 * kV < span ||
+      static_cast<int64_t>(heads) * per_head > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (reinterpret_cast<uintptr_t>(x) % (4 * kV) || reinterpret_cast<uintptr_t>(out) % (4 * kV)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const dim3 grid((num_items + kWarpsPerBlock - 1) / kWarpsPerBlock, heads * per_head);
+  if (kV > 1 && f % kV) {
+    segment_sum_blocked_kernel<kV, kPieces, true><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+        item_row, item_beg, item_end, num_items, cols, w, cb, x, out, hf, f, per_head);
+  } else {
+    segment_sum_blocked_kernel<kV, kPieces, false><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+        item_row, item_beg, item_end, num_items, cols, w, cb, x, out, hf, f, per_head);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches K10 on `stream` and returns cudaGetLastError() (0 on success).
-// `dst`, `cols` are (cb,) int32 in blocked slot order, `w` (cb, heads) f32,
-// `feats` (n, hf) f32 contiguous with hf = heads * f, `out` (n, hf) f32
-// zeroed by the caller; each warp takes `chunk` slots.
-extern "C" int stg_segment_sum_blocked(const void* dst, const void* cols,
-                                       const void* w, const void* feats,
-                                       void* out, int64_t cb, int n, int hf,
-                                       int f, int heads, int chunk,
+// Launches K10 on `stream` and returns a cudaError_t (0 on success; the
+// launch's cudaGetLastError(), or cudaErrorInvalidValue /
+// cudaErrorMisalignedAddress for a geometry it does not take). Item i
+// covers slots [item_beg[i], item_end[i]) of one row: item_row[i] = d, or
+// ~d where row d spans several items (those rows of `out` must be zeroed by
+// the caller; every other row is written by its one item). `cols` is the
+// layout's (cb,) int32, `w` (heads, cb) f32, `feats` (n, hf) f32 contiguous
+// with hf = heads * f, `out` (n, hf) f32. A lane loads `v` columns at once
+// (both tables aligned to 4 * v bytes), a warp holds `pieces` pieces of
+// 32 * v columns of one head, and a head takes `per_head` panels (v and
+// pieces: 4 and 1, 2 and 1 or 2, 1 and 1, 2 or 4).
+extern "C" int stg_segment_sum_blocked(const void* item_row,
+                                       const void* item_beg,
+                                       const void* item_end, int num_items,
+                                       const void* cols, const void* w,
+                                       int64_t cb, const void* feats,
+                                       void* out, int hf, int f, int heads,
+                                       int v, int pieces, int per_head,
                                        void* stream) {
-  const auto* d = static_cast<const int32_t*>(dst);
+  const auto* ir = static_cast<const int32_t*>(item_row);
+  const auto* ib = static_cast<const int32_t*>(item_beg);
+  const auto* ie = static_cast<const int32_t*>(item_end);
   const auto* c = static_cast<const int32_t*>(cols);
   const auto* wt = static_cast<const float*>(w);
   const auto* x = static_cast<const float*>(feats);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  const int64_t warps = (cb + chunk - 1) / chunk;
-  const dim3 grid(static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock),
-                  (hf + kTile - 1) / kTile);
-  const dim3 block(kWarpsPerBlock * 32);
-  const bool vec = hf % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(o) % 16 == 0;
-  if (vec && f % 4 == 0) {
-    segment_sum_blocked_kernel<true, true><<<grid, block, 0, s>>>(d, c, wt, x, o, cb, n, hf, f, heads, chunk);
-  } else if (vec) {
-    segment_sum_blocked_kernel<true, false><<<grid, block, 0, s>>>(d, c, wt, x, o, cb, n, hf, f, heads, chunk);
-  } else {
-    segment_sum_blocked_kernel<false, false><<<grid, block, 0, s>>>(d, c, wt, x, o, cb, n, hf, f, heads, chunk);
+  if (hf != heads * f || per_head < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (v * 8 + pieces) {
+    case 4 * 8 + 1:
+      return launch<4, 1>(ir, ib, ie, num_items, c, wt, cb, x, o, hf, f, heads, per_head, s);
+    case 2 * 8 + 1:
+      return launch<2, 1>(ir, ib, ie, num_items, c, wt, cb, x, o, hf, f, heads, per_head, s);
+    case 2 * 8 + 2:
+      return launch<2, 2>(ir, ib, ie, num_items, c, wt, cb, x, o, hf, f, heads, per_head, s);
+    case 1 * 8 + 1:
+      return launch<1, 1>(ir, ib, ie, num_items, c, wt, cb, x, o, hf, f, heads, per_head, s);
+    case 1 * 8 + 2:
+      return launch<1, 2>(ir, ib, ie, num_items, c, wt, cb, x, o, hf, f, heads, per_head, s);
+    case 1 * 8 + 4:
+      return launch<1, 4>(ir, ib, ie, num_items, c, wt, cb, x, o, hf, f, heads, per_head, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

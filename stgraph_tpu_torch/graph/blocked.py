@@ -16,10 +16,13 @@ and the tests hold the two packages' layouts equal.
 
 The layout is built on the host (the native builder, or numpy without a
 compiler) and placed on the CSR's device. ``blocked_layout`` builds it once
-per CSR.
+per CSR. The layout keeps the CSR's host ``indptr``, from which K10's work
+list is built (``ops.spmm_blocked.k10_work_items``) and kept with it.
 """
 
 from __future__ import annotations
+
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
@@ -43,15 +46,27 @@ class BlockedCSR:
       perm:    (CB,) — CSR edge position per slot; ``csr_capacity`` on padding.
       eids:    (CB,) — user edge id per slot; ``csr_capacity`` on padding.
       num_nodes, num_rows_padded, csr_capacity: ints.
+      host_indptr: (num_nodes + 1,) int64 numpy, the CSR's row pointer.
     """
 
-    def __init__(self, arrays, num_nodes: int, num_rows_padded: int, csr_capacity: int, device) -> None:
+    def __init__(self, arrays, num_nodes: int, num_rows_padded: int, csr_capacity: int, device,
+                 host_indptr: np.ndarray) -> None:
         self.offsets, self.counts, self.dst, self.cols, self.perm, self.eids = (
             torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device) for a in arrays
         )
+        self.host_offsets = np.asarray(arrays[0], np.int64)
+        self.host_indptr = np.asarray(host_indptr, np.int64)
         self.num_nodes = int(num_nodes)
         self.num_rows_padded = int(num_rows_padded)
         self.csr_capacity = int(csr_capacity)
+        self._cache: Dict[str, Any] = {}
+
+    def cached(self, key: str, make: Callable[[], Any]) -> Any:
+        """Memoize a structure derived from this layout (K10's work list)."""
+        if key not in self._cache:
+            with torch.inference_mode(False):
+                self._cache[key] = make()
+        return self._cache[key]
 
     @property
     def num_blocks(self) -> int:
@@ -77,7 +92,7 @@ def build_blocked(csr: CSR, edge_chunk: int = EDGE_CHUNK) -> BlockedCSR:
 
     built = native.build_blocked_arrays(indptr, rows, cols, csr_eids, n, cap, ROW_BLOCK, edge_chunk)
     if built is not None:
-        return BlockedCSR(built, n, n_pad, cap, csr.device)
+        return BlockedCSR(built, n, n_pad, cap, csr.device, indptr)
 
     nb = n_pad // ROW_BLOCK
     lo = np.minimum(np.arange(nb) * ROW_BLOCK, n)
@@ -101,7 +116,7 @@ def build_blocked(csr: CSR, edge_chunk: int = EDGE_CHUNK) -> BlockedCSR:
     bcols[slot] = cols[:e]
     bperm[slot] = np.arange(e, dtype=np.int32)
     beids[slot] = csr_eids[:e]
-    return BlockedCSR((offsets, pad_counts, bdst, bcols, bperm, beids), n, n_pad, cap, csr.device)
+    return BlockedCSR((offsets, pad_counts, bdst, bcols, bperm, beids), n, n_pad, cap, csr.device, indptr)
 
 
 def blocked_layout(csr: CSR) -> BlockedCSR:

@@ -14,14 +14,20 @@ its Pallas kernel ``_spmm_rowid_kernel`` (``:1673``) for one head:
 
 The port gathers ``feats[cols[e]]`` inside the kernel where the TPU kernel
 took a pre-gathered (cap, F) plane, and needs no block metadata: a group of
-lanes takes a fixed run of slots and flushes runs of equal row id by
-atomicAdd into a zeroed output (the design is in the source).
+lanes takes a fixed chunk of ``EDGE_CHUNK`` slots. Each output row is
+written once: a first launch plans the chunks (``rowid_chunk_plan``: each
+chunk's first and last row id, the only rows it may share with another
+chunk, which it zeroes, and a bitmap of the rows that have a slot), the
+second stores the runs of rows inside a chunk, adds the shared rows by
+atomicAdd, and stores zeros in the rows the bitmap lacks (the design is in
+the source).
 
 K7 (``dyn_degree``, ``csrc/rowid_denom.cu``) replaces
 ``stgraph_tpu/ops/dyn_spmm.py``'s ``dyn_degree`` (``:436``) and its kernel
 ``_rowid_denom_kernel`` (``:382``): the per-row sum of ``w`` (or the count of
-real slots when ``w`` is None), on K6's edge-chunk design with one thread per
-run of ``DENOM_CHUNK`` slots. Neither kernel needs the block spans that
+real slots when ``w`` is None), on K6's first edge-chunk design (runs
+flushed by atomicAdd into a zeroed output) with one thread per run of
+``DENOM_CHUNK`` slots. Neither kernel needs the block spans that
 ``segment_pallas.traced_block_meta`` (``:1626``) gives the TPU kernels.
 
 Neither wrapper copies anything to the host: the store changes every
@@ -44,8 +50,10 @@ __all__ = [
     "EDGE_CHUNK",
     "dyn_degree",
     "dyn_degree_plain",
+    "rowid_chunk_plan",
     "spmm_rowid",
     "spmm_rowid_plain",
+    "spmm_rowid_with_plan",
 ]
 
 EDGE_CHUNK = 256  # slots one K6 lane group takes
@@ -53,7 +61,11 @@ DENOM_CHUNK = 16  # slots one K7 thread takes
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
-_K6_SIGNATURES = {"stg_spmm_rowid": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int64, _I, _I, _I, _VP]}
+_I64 = ctypes.c_int64
+_K6_SIGNATURES = {
+    "stg_rowid_chunk_plan": [_VP, _I64, _I, _I, _VP, _VP, _VP, _VP, _I, _VP],
+    "stg_spmm_rowid": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I, _I, _I, _VP],
+}
 _K7_SIGNATURES = {"stg_rowid_denom": [_VP, _VP, _VP, ctypes.c_int64, _I, _I, _VP]}
 
 
@@ -100,25 +112,56 @@ def spmm_rowid_plain(
     return out[:n].float()
 
 
-def spmm_rowid(
+def rowid_chunk_plan(rows: torch.Tensor, num_nodes: int, chunk: int = EDGE_CHUNK):
+    """K6's chunk plan, its plain version, as ``(first, last, present)``.
+
+    For each run of ``chunk`` slots, ``first`` and ``last`` hold the least
+    and the greatest row id below ``num_nodes`` in it (tombstones count:
+    they keep their row id), each (chunks,) int32, -1 for a chunk of
+    sentinel slots only; in a live-sorted store only these two rows of a
+    chunk can have slots in another chunk. ``present`` is the
+    ((num_nodes + 31) // 32,) int32 bitmap of the rows that have a slot:
+    bit ``r % 32`` of word ``r // 32``.
+    """
+    _check_store(rows, None, num_nodes)
+    n, cap = num_nodes, rows.shape[0]
+    chunks = -(-cap // chunk)
+    r = torch.nn.functional.pad(rows.long(), (0, chunks * chunk - cap), value=n).view(chunks, chunk)
+    real = r < n
+    last = torch.where(real, r, -1).max(1).values
+    first = torch.where(last >= 0, torch.where(real, r, n).min(1).values, -1)
+    words = -(-n // 32)
+    has = torch.zeros(words * 32, dtype=torch.int64, device=rows.device)
+    has[rows.long()[rows.long() < n]] = 1
+    bits = (has.view(words, 32) << torch.arange(32, device=rows.device)).sum(1)
+    present = torch.where(bits >= 2**31, bits - 2**32, bits).int()  # the uint32 words' bits as int32
+    return first.int(), last.int(), present
+
+
+def spmm_rowid_with_plan(
     rows: torch.Tensor,
     cols: torch.Tensor,
     w: Optional[torch.Tensor],
     feats: torch.Tensor,
     num_nodes: int,
-) -> torch.Tensor:
-    """K6: ``out[r] = sum over the slots with row id r of w[e] * feats[cols[e]]``,
-    (num_nodes, F) f32, over a live-sorted flat store.
+):
+    """``spmm_rowid``, returning ``(out, first, last, present)``: the chunk
+    plan the call made (``rowid_chunk_plan``'s on a CPU tensor), so that a
+    check can hold the kernel's plan against its plain version."""
+    _check_rowid_call(rows, cols, w, feats, num_nodes)
+    if feats.device.type == "cpu":
+        return (spmm_rowid_plain(rows, cols, w, feats, num_nodes), *rowid_chunk_plan(rows, num_nodes))
+    return _spmm_rowid_cuda(rows, cols, w, feats, num_nodes)
 
-    ``rows`` and ``cols`` are (capacity,) int32, ``w`` (capacity,) f32 or
-    None (every real slot counts 1), ``feats`` (num_nodes, F) f32.
-    """
+
+def _check_rowid_call(rows, cols, w, feats, num_nodes) -> None:
     _check_store(rows, w, num_nodes, ("cols", cols))
     if feats.dim() != 2 or feats.shape[0] != num_nodes:
         raise ValueError(f"feats must be (num_nodes={num_nodes}, F), got {tuple(feats.shape)}")
-    if feats.device.type == "cpu":
-        return spmm_rowid_plain(rows, cols, w, feats, num_nodes)
 
+
+def _spmm_rowid_cuda(rows, cols, w, feats, num_nodes):
+    """K6's two launches on the card, as ``(out, first, last, present)``."""
     lib = kernel_lib.load("spmm_rowid", _K6_SIGNATURES)
     dev = feats.device
     if rows.device != dev or cols.device != dev or (w is not None and w.device != dev):
@@ -130,25 +173,59 @@ def spmm_rowid(
     n, f = feats.shape
     rows, cols, table = rows.contiguous(), cols.contiguous(), feats.contiguous()
     w = None if w is None else w.contiguous()
-    out = torch.zeros(n, f, dtype=torch.float32, device=dev)
-    if n == 0 or f == 0 or rows.numel() == 0:
-        return out
+    cap = rows.numel()
+    chunks = -(-cap // EDGE_CHUNK)
+    out = torch.empty(n, f, dtype=torch.float32, device=dev)
+    if n == 0 or f == 0 or cap == 0:
+        return (out.zero_(), *rowid_chunk_plan(rows, n))
+    first = torch.empty(chunks, dtype=torch.int32, device=dev)
+    last = torch.empty(chunks, dtype=torch.int32, device=dev)
+    present = torch.zeros(-(-n // 32), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.stg_rowid_chunk_plan(rows.data_ptr(), cap, n, EDGE_CHUNK, first.data_ptr(), last.data_ptr(),
+                                  present.data_ptr(), out.data_ptr(), f, stream)
+    if rc != 0:
+        raise RuntimeError(f"K6 (spmm_rowid) chunk plan launch failed with cudaError {rc}")
     rc = lib.stg_spmm_rowid(
         rows.data_ptr(),
         cols.data_ptr(),
         None if w is None else w.data_ptr(),
         table.data_ptr(),
+        first.data_ptr(),
+        last.data_ptr(),
+        present.data_ptr(),
         out.data_ptr(),
-        rows.numel(),
+        cap,
         n,
         f,
         EDGE_CHUNK,
-        torch.cuda.current_stream(dev).cuda_stream,
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"K6 (spmm_rowid) launch failed with cudaError {rc}")
     spmm_rowid.launches += 1
-    return out
+    return out, first, last, present
+
+
+def spmm_rowid(
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    w: Optional[torch.Tensor],
+    feats: torch.Tensor,
+    num_nodes: int,
+) -> torch.Tensor:
+    """K6: ``out[r] = sum over the slots with row id r of w[e] * feats[cols[e]]``,
+    (num_nodes, F) f32, over a live-sorted flat store.
+
+    ``rows`` and ``cols`` are (capacity,) int32, ``w`` (capacity,) f32 or
+    None (every real slot counts 1), ``feats`` (num_nodes, F) f32. One call
+    is two launches (the chunk plan, then the sums) and counts one on
+    ``spmm_rowid.launches``.
+    """
+    _check_rowid_call(rows, cols, w, feats, num_nodes)
+    if feats.device.type == "cpu":
+        return spmm_rowid_plain(rows, cols, w, feats, num_nodes)
+    return _spmm_rowid_cuda(rows, cols, w, feats, num_nodes)[0]
 
 
 spmm_rowid.launches = 0  # kernel launches since the count was last reset

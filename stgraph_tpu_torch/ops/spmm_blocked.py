@@ -13,9 +13,16 @@ over the (N, H * F) table, f32, with ``w`` (CB, H) in blocked slot order.
 Sentinel slots add nothing. The JAX package gathered ``feats[cols]`` and
 scaled it before its kernel (Mosaic cannot gather inside a kernel); the
 CUDA kernel (``csrc/segment_sum_blocked.cu``) gathers inside, so no (CB,
-H * F) plane exists (507 GB at ogbn-products size and H * F = 1024). On this
-card it is bound by memory: the compulsory bytes give about 7 ms at that
-size, the gathered rows about 25 times more.
+H * F) plane exists (507 GB at ogbn-products size and H * F = 1024). It
+walks a host-built list of work items (``k10_work_items``: a slot range of
+one row, at most ``K10_CHUNK`` slots, built once per layout and kept with
+it), one warp an item holding a panel of at most ``K10_PANEL`` columns of
+one head (``k10_panels``), and stores each row once: only rows split over
+several items are zeroed and meet by atomicAdd. On this card it is bound
+by memory: the compulsory bytes give about 7 ms at that size, the gathered
+rows about 25 times more, and a head's panel keeps the slice it gathers
+from in L2 where the table is small enough (PPI size). A head narrower
+than a warp's piece of columns leaves lanes idle (``k10_panels``).
 
 ``SpmmMultihead`` is ``_make_spmm_multihead``: K10 forward on ``blocked``,
 ``d feat`` by K10 on the transpose layout ``blocked_t`` with the weights
@@ -32,16 +39,23 @@ lies on the CPU. For a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from stgraph_tpu_torch.graph.blocked import BlockedCSR, blocked_layout
+from stgraph_tpu_torch.graph.blocked import ROW_BLOCK, BlockedCSR, blocked_layout
 from stgraph_tpu_torch.graph.csr import CSR
 from stgraph_tpu_torch.ops import kernel_lib
+from stgraph_tpu_torch.ops.spmm_kernels import k1_work_items
 
 __all__ = [
+    "K10_CHUNK",
+    "K10_PANEL",
     "SpmmMultihead",
+    "k10_panels",
+    "k10_work_items",
     "per_head_sddmm",
     "positions_in",
     "rowmask_eligible",
@@ -50,9 +64,14 @@ __all__ = [
     "spmm_multihead",
 ]
 
-# Slots one warp takes; a hub block is spread over many warps whose runs
-# meet by atomicAdd.
-SLOT_CHUNK = 256
+# Slots of one row one warp takes; a longer row is split into several work
+# items whose partial sums meet by atomicAdd.
+K10_CHUNK = 256
+# The most columns of one head a K10 warp holds. Measured on an H100
+# (PERF.md §6) at the GAT paper's PPI widths on the PPI and ogbn-products
+# graphs: 128 as fast as 64 or faster, and faster than 256; panels of up
+# to 1024 columns across the whole row were slower at every one of them.
+K10_PANEL = 128
 # Edges per block of the plain per-head products: bounds each (edges, H*F)
 # f32 temporary to about 1 GB.
 _PLANE_ELEMS = 1 << 28
@@ -60,7 +79,7 @@ _PLANE_ELEMS = 1 << 28
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "stg_segment_sum_blocked": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int64, _I, _I, _I, _I, _I, _VP],
+    "stg_segment_sum_blocked": [_VP, _VP, _VP, _I, _VP, _VP, ctypes.c_int64, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
 }
 
 
@@ -122,6 +141,69 @@ def segment_sum_blocked_plain(
     return out
 
 
+def k10_work_items(indptr: np.ndarray, offsets: np.ndarray, chunk: int = K10_CHUNK):
+    """Host layout of K10's work over a blocked layout: ``k1_work_items``'s
+    items, moved to slot positions in the layout.
+
+    Row ``d`` of block ``b = d // ROW_BLOCK`` owns the ``deg(d)`` slots from
+    ``offsets[b] + indptr[d] - indptr[ROW_BLOCK * b]`` on (a block's slots
+    are in CSR order). Each row gets ``max(1, ceil(deg / chunk))`` items of
+    at most ``chunk`` slots, in row order; an empty row gets one empty item,
+    whose warp stores zeros.
+
+    Returns ``(item_row, item_beg, item_end, split_rows)``: int32 arrays of
+    each item's row (``~d`` for a row that spans several items), first slot
+    and end slot, and the split rows (int64), which the wrapper zeroes
+    before the kernel accumulates into them.
+    """
+    indptr = np.asarray(indptr, np.int64)
+    offsets = np.asarray(offsets, np.int64)
+    item_row, beg, split_rows = k1_work_items(indptr, chunk)
+    block = item_row.astype(np.int64) // ROW_BLOCK
+    shift = offsets[block] - indptr[block * ROW_BLOCK]  # CSR position -> slot in the layout
+    beg = beg.astype(np.int64)
+    item_beg = beg + shift
+    item_end = np.minimum(beg + chunk, indptr[1:][item_row]) + shift
+    split = np.zeros(indptr.shape[0] - 1, bool)
+    split[split_rows] = True
+    coded = np.where(split[item_row], ~item_row, item_row)
+    return coded.astype(np.int32), item_beg.astype(np.int32), item_end.astype(np.int32), split_rows
+
+
+def k10_panels(f: int, hf: int, align: int = 16) -> Tuple[int, int, int]:
+    """How K10's warps hold a row, as ``(v, pieces, per_head)``: a lane loads
+    ``v`` columns at once (4, 2 or 1: the most that divides ``hf`` and whose
+    ``4 * v`` bytes divide ``align``, the alignment of the table and the
+    output), a warp holds ``pieces`` pieces of ``32 * v`` columns of one
+    head (a power-of-two count, at most ``K10_PANEL`` columns), and a head
+    takes ``per_head`` such panels from its first column rounded down to
+    ``v``: where ``F % v != 0`` (6 x 121, 6 x 47) the loads stay aligned and
+    a lane keeps its columns inside the head.
+
+    A head narrower than a piece leaves most lanes idle, and every head
+    walks its slots once: at 17 x 8 on the PPI graph K10 takes 3.3 times
+    the time of its first design, which walked 128-column tiles of the
+    whole row (PERF.md §7).
+    """
+    v = next(v for v in (4, 2, 1) if hf % v == 0 and align % (4 * v) == 0)
+    span = f + v - 1 if f % v else f  # the columns from the head's first rounded down to v
+    need = -(-min(K10_PANEL, span) // (32 * v))
+    pieces = 1 << (need - 1).bit_length()
+    return v, pieces, -(-span // (pieces * 32 * v))
+
+
+def _work_items(blocked: BlockedCSR):
+    """``k10_work_items`` of ``blocked``, on its device, built once."""
+
+    def make():
+        if blocked.capacity + K10_CHUNK >= 2**31:
+            raise ValueError("K10 indexes slots with int32; the layout is too large")
+        arrays = k10_work_items(blocked.host_indptr, blocked.host_offsets, K10_CHUNK)
+        return tuple(torch.from_numpy(a).to(blocked.device) for a in arrays)
+
+    return blocked.cached(f"k10_items_{K10_CHUNK}", make)
+
+
 def segment_sum_blocked(blocked: BlockedCSR, w_blocked: torch.Tensor, feats: torch.Tensor, heads: int) -> torch.Tensor:
     """K10: ``out[d, c] = sum over d's slots of w[s, c // F] * feats[cols[s], c]``,
     (N, H*F) f32. ``w_blocked`` is (CB, heads) in blocked slot order,
@@ -136,23 +218,32 @@ def segment_sum_blocked(blocked: BlockedCSR, w_blocked: torch.Tensor, feats: tor
         raise ValueError(f"K10 needs the layout, weights and features on one CUDA device, got "
                          f"{blocked.device}, {w_blocked.device} and {dev}")
     n, hf = feats.shape
-    table = feats.to(torch.float32).contiguous()
-    w = w_blocked.to(torch.float32).contiguous()
-    out = torch.zeros(n, hf, dtype=torch.float32, device=dev)
+    # allocated first, so the poisoned-output checks find it in the block freed just before
+    out = torch.empty(n, hf, dtype=torch.float32, device=dev)
     if n == 0 or hf == 0:
         return out
+    table = feats.to(torch.float32).contiguous()
+    w = w_blocked.to(torch.float32).t().contiguous()  # head-major: (heads, CB)
+    v, pieces, per_head = k10_panels(hf // heads, hf, math.gcd(table.data_ptr(), out.data_ptr(), 16))
+    item_row, item_beg, item_end, split_rows = _work_items(blocked)
+    if split_rows.numel():
+        out.index_fill_(0, split_rows, 0.0)
     rc = lib.stg_segment_sum_blocked(
-        blocked.dst.data_ptr(),
+        item_row.data_ptr(),
+        item_beg.data_ptr(),
+        item_end.data_ptr(),
+        item_row.numel(),
         blocked.cols.data_ptr(),
         w.data_ptr(),
+        blocked.capacity,
         table.data_ptr(),
         out.data_ptr(),
-        blocked.capacity,
-        n,
         hf,
         hf // heads,
         heads,
-        SLOT_CHUNK,
+        v,
+        pieces,
+        per_head,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

@@ -17,6 +17,8 @@ heads modes), 2e-4 of each output's sum of absolute terms. K4 and K5 are
 maxima: bit for bit.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,7 @@ from stgraph_tpu_torch.ops import dyn_spmm as DS
 from stgraph_tpu_torch.ops import flash_gat as FG
 from stgraph_tpu_torch.ops import rowid_kernels as RK
 from stgraph_tpu_torch.ops import segment_kernels as SK
+from stgraph_tpu_torch.ops import spmm_blocked as SB
 from stgraph_tpu_torch.ops.segment_kernels import (
     segment_max_narrow,
     segment_max_narrow_plain,
@@ -198,14 +201,33 @@ def test_k3_matches_plain_on_the_card(cuda, rng, k):
     assert segment_sum_narrow.launches == before + 3
 
 
-@pytest.mark.parametrize("h,f", [(4, 256), (6, 121), (3, 20)])
-def test_k10_matches_plain_on_the_card(cuda, rng, h, f):
+def _poison(shape, device):
+    """Fill a block of ``shape`` f32 with NaN and free it; returns its address.
+    The caching allocator hands the block to the next allocation of that
+    size, so a kernel output row left unwritten shows as NaN."""
+    torch.cuda.empty_cache()
+    t = torch.full(shape, float("nan"), dtype=torch.float32, device=device)
+    ptr = t.data_ptr()
+    del t
+    return ptr
+
+
+def _k10_graph(rng, cuda):
     n, e = 3000, 60_000
     src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)  # block 0 holds over 5000 slots
     src[-3 * ROW_CHUNK:] = 11
     dst = np.where(dst // 128 == 9, 0, dst)  # an empty block
-    csr = build_csr(src, dst, n, device=cuda)
+    return n, build_csr(src, dst, n, device=cuda)
+
+
+@pytest.mark.parametrize("h,f", [(4, 256), (6, 121), (3, 20), (3, 7), (40, 4)])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_k10_matches_plain_on_the_card(cuda, rng, h, f, misaligned):
+    n, csr = _k10_graph(rng, cuda)
     x = torch.from_numpy(rng.standard_normal((n, h * f)).astype(np.float32)).to(cuda)
+    if misaligned:  # a table 4 B off a 16 B boundary: 4 B loads, up to four pieces a panel
+        x = torch.empty(n * h * f + 1, device=cuda)[1:].view(n, h * f).copy_(x)
+        assert SB.k10_panels(f, h * f, math.gcd(x.data_ptr(), 16))[0] == 1
     before = segment_sum_blocked.launches
     for transpose in (False, True):
         blk = build_blocked(csr.transpose() if transpose else csr)
@@ -217,6 +239,21 @@ def test_k10_matches_plain_on_the_card(cuda, rng, h, f):
         if not transpose:  # empty rows and the empty block
             assert not out[n - 50:].any() and not out[9 * 128:10 * 128].any()
     assert segment_sum_blocked.launches == before + 2
+
+
+@pytest.mark.parametrize("h,f", [(4, 256), (6, 121), (3, 7)])
+def test_k10_writes_every_row_of_a_poisoned_output(cuda, rng, h, f):
+    n, csr = _k10_graph(rng, cuda)
+    blk = build_blocked(csr)
+    x = torch.from_numpy(rng.standard_normal((n, h * f)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.random((blk.capacity, h)).astype(np.float32)).to(cuda)
+    segment_sum_blocked(blk, w, x, h)  # the work items, built once
+    ptr = _poison((n, h * f), cuda)
+    out = segment_sum_blocked(blk, w, x, h)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == ptr  # the output took the poisoned block
+    assert not out.isnan().any()
+    _within_mass(out, segment_sum_blocked_plain(blk, w, x, h), segment_sum_blocked_plain(blk, w, x.abs(), h))
 
 
 @pytest.mark.parametrize("k", [17, 32, 130])
@@ -506,23 +543,67 @@ def _rowid_store(rng, n, slots, hub_slots, weighted):
     return rows.astype(np.int32), cols.astype(np.int32), w
 
 
+def _adversarial_rowid_store(rng, n, weighted):
+    """A live-sorted store in K6's chunks: random rows below 100 in chunk 0,
+    an all-sentinel chunk 1, row 150 over chunks 2-4 with sentinels inside
+    its run, row 151 of tombstones alone across the boundary of chunk 5,
+    rows 201-299 without slots across the boundary of chunks 5 and 6, the
+    last live row 400, then sentinel chunks."""
+    c = RK.EDGE_CHUNK
+    rows = np.full(9 * c, n, np.int64)
+    rows[: c - 20] = np.sort(rng.integers(0, 100, c - 20))
+    rows[2 * c:5 * c] = 150
+    rows[2 * c + rng.choice(3 * c, 40, replace=False)] = n
+    rows[5 * c - 30:5 * c + 30] = 151
+    rows[5 * c + 30:6 * c] = np.sort(rng.integers(152, 201, c - 30))
+    rows[6 * c:7 * c - 50] = np.sort(rng.integers(300, 401, c - 50))
+    rows[6 * c] = 300
+    rows[7 * c - 51] = 400
+    cols = np.where(rows < n, rng.integers(0, n, rows.size), n)
+    w = (rng.random(rows.size) + 0.1 if weighted else np.ones(rows.size)).astype(np.float32)
+    w[(rows >= n) | (rows == 151)] = 0.0
+    return rows.astype(np.int32), cols.astype(np.int32), w
+
+
 @pytest.mark.parametrize("f", [8, 32, 47, 128, 130])
 @pytest.mark.parametrize("weighted", [False, True])
-def test_k6_matches_plain_on_the_card(cuda, rng, f, weighted):
+@pytest.mark.parametrize("store", ["random", "adversarial"])
+def test_k6_matches_plain_on_the_card(cuda, rng, f, weighted, store):
     n = 3000
-    rows, cols, w = _rowid_store(rng, n, 80_000, 20_000, weighted)
+    if store == "random":
+        rows, cols, w = _rowid_store(rng, n, 80_000, 20_000, weighted)
+    else:
+        rows, cols, w = _adversarial_rowid_store(rng, n, weighted)
     t = lambda a: torch.from_numpy(a).to(cuda)
     x = t(rng.standard_normal((n, f)).astype(np.float32))
     ww = t(w) if weighted else None
     before = RK.spmm_rowid.launches
-    out = RK.spmm_rowid(t(rows), t(cols), ww, x, n)
+    out, *plan = RK.spmm_rowid_with_plan(t(rows), t(cols), ww, x, n)
     torch.cuda.synchronize()
     assert RK.spmm_rowid.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(plan, RK.rowid_chunk_plan(t(rows), n)))  # launch 1, bit for bit
     ref = RK.spmm_rowid_plain(t(rows), t(cols), ww, x, n)
     mass = RK.spmm_rowid_plain(t(rows), t(cols), None if ww is None else ww.abs(), x.abs(), n)
     # f32 sums in another order (atomics across chunks): 2e-4 of the terms' mass
     assert ((out - ref).abs() <= 2e-4 * mass + 1e-6).all()
     assert not out[n - 50:].any()
+
+
+@pytest.mark.parametrize("store", ["random", "adversarial"])
+@pytest.mark.parametrize("f", [32, 128])
+def test_k6_writes_every_row_of_a_poisoned_output(cuda, rng, store, f):
+    n = 3000
+    rows, cols, w = (_rowid_store(rng, n, 80_000, 20_000, True) if store == "random"
+                     else _adversarial_rowid_store(rng, n, True))
+    rows, cols, w = (torch.from_numpy(a).to(cuda) for a in (rows, cols, w))
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(cuda)
+    ptr = _poison((n, f), cuda)
+    out = RK.spmm_rowid(rows, cols, w, x, n)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == ptr  # the output took the poisoned block
+    assert not out.isnan().any()
+    ref = RK.spmm_rowid_plain(rows, cols, w, x, n)
+    assert ((out - ref).abs() <= 2e-4 * RK.spmm_rowid_plain(rows, cols, w, x.abs(), n) + 1e-6).all()
 
 
 def test_k7_matches_plain_on_the_card(cuda, rng):
