@@ -198,7 +198,16 @@ Phases (any failure exits nonzero and prints no result line):
     ``chip_smoke.py --dist-worker RANK,WORLD,PORT,OUT,BACKEND``.
     With a card for each rank the ranks take NCCL, one card each (the ring
     on device tensors, no staging); ``chip_smoke.py --dist-ranks N`` runs
-    only this phase, with N ranks.
+    only this phase, with N ranks;
+42. ogbn-reorder (after 38): ``OgbNodeDataLoader("ogbn-products",
+    reorder=True)`` at full size (the label-propagation locality order of
+    ``graph/reorder.py``): the reorder's host seconds, ``gather_working_set``
+    at 256 B rows on both orders, and K1 forward and on the transpose,
+    unweighted, F = 128 with a bf16 stream, on both orders (the work of the
+    JAX package's ``bench_ogbn_spmm``), held against its plain version on
+    the reordered graph into NaN-poisoned outputs, with ``torch.sparse.mm``
+    beside it. The GCN request and step stay on the loader's order, as the
+    JAX package's ``bench_ogbn_step`` does.
 
 Every path of the kernels line (serving, training, gat-serving,
 gat-training, gat-dropout-training, composed-serving, ppi-serving,
@@ -561,7 +570,7 @@ def phase_k1_vs_plain(dev, rng):
         for weighted in (False, True):
             for stream in (torch.float32, torch.bfloat16):
                 ww = w if weighted else None
-                out, _ = spmm_rowmask(csr, ww, x, stream_dtype=stream)
+                out, _ = poisoned_call((n, f), lambda: spmm_rowmask(csr, ww, x, stream_dtype=stream))
                 torch.cuda.synchronize()
                 err, ratio, max_ref = k1_agreement(out, csr, ww, x, stream)
                 ok = ratio <= KERNEL_TOL and not out[n - empty:].any().item()
@@ -788,7 +797,7 @@ def phase_k1_at_main_shapes(served):
             hw = h_in @ layer.weight
             f = hw.shape[1]
             bf16 = torch.bfloat16
-            out, _ = spmm_rowmask(csr, w, hw, stream_dtype=bf16)
+            out, _ = poisoned_call((n, f), lambda: spmm_rowmask(csr, w, hw, stream_dtype=bf16))
             torch.cuda.synchronize()
             err, ratio, max_ref = k1_agreement(out, csr, w, hw, bf16, PLAIN_EDGE_BLOCK)
             check(ratio <= KERNEL_TOL, f"K1 at F={f} (full graph) disagrees: err/sum|terms| {ratio}")
@@ -2544,12 +2553,13 @@ def rowmask_bwd_bound(n: int, e: int, h: int, f: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
-def longest_item(csr) -> int:
-    """The most edges one warp walks in a launch over ``csr``: K1's work
-    items cap a row at ``ROW_CHUNK`` edges."""
+def longest_item(csr, chunk=None) -> int:
+    """The most edges one warp walks in a launch over ``csr`` whose work
+    items cap a row at ``chunk`` edges (default ``ROW_CHUNK``, the items of
+    K2-K5, K8 and K9; K1's modes take ``K1_CHUNK``)."""
     from stgraph_tpu_torch.ops.spmm_kernels import ROW_CHUNK
 
-    return int(min(np.diff(csr.host_arrays()[0]).max(initial=0), ROW_CHUNK))
+    return int(min(np.diff(csr.host_arrays()[0]).max(initial=0), chunk or ROW_CHUNK))
 
 
 @contextlib.contextmanager
@@ -2604,7 +2614,7 @@ def phase_rowmask_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=150
             results.append({"kernel": "K5", "csr": name, "K": k, "bit_equal": ok})
             for bf16 in (False, True):
                 with wide_stream(bf16):
-                    out = segment_sum_wide(c, vals)
+                    out = poisoned_call((c.num_nodes, k), lambda: segment_sum_wide(c, vals))
                     torch.cuda.synchronize()
                     (a, r, mx), = _stats([out], [segment_sum_wide_plain(c, vals, block)],
                                          [segment_sum_wide_plain(c, vals.abs(), block)])
@@ -2622,7 +2632,8 @@ def phase_rowmask_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=150
         w = torch.from_numpy(rng.random((csr.capacity, h)).astype(np.float32)).to(dev)  # softmax weights: >= 0
         for stream in (None, torch.bfloat16):
             sname = "bf16" if stream is not None else "f32"
-            out, den = spmm_rowmask(csr, w, x, heads=h, with_denom=True, stream_dtype=stream)
+            out, den = poisoned_call((n, h * f), lambda: spmm_rowmask(csr, w, x, heads=h, with_denom=True,
+                                                                      stream_dtype=stream))
             torch.cuda.synchronize()
             ref, ref_den = spmm_rowmask_plain(csr, w, x, stream, block, heads=h, with_denom=True)
             mass = spmm_rowmask_plain(csr, w, x.abs(), stream, block, heads=h)
@@ -2817,6 +2828,7 @@ def phase_rowmask_ppi(dev, ppi):
     from stgraph_tpu_torch.ops import spmm_cuda
     from stgraph_tpu_torch.ops.spmm_blocked import positions_in
     from stgraph_tpu_torch.ops.spmm_kernels import (
+        K1_CHUNK,
         spmm_rowmask,
         spmm_rowmask_bwd,
         spmm_rowmask_bwd_plain,
@@ -2900,7 +2912,10 @@ def phase_rowmask_ppi(dev, ppi):
              "torch.sparse.mm + torch.sparse.sampled_addmm, one each a head"),
         )
         for key, where, c, kernel, plain, mass, library, bound, lib_name in cases:
-            got = kernel()
+            if key in ("K1", "K1_nogather"):
+                got = poisoned_call((c.num_nodes, h * f if key == "K1" else h), kernel)
+            else:
+                got = kernel()
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             ref = plain()
@@ -2918,7 +2933,8 @@ def phase_rowmask_ppi(dev, ppi):
             plain_ms = cuda_ms(plain, iters=2, warmup=1)
             lib = library()
             bound_ms, bound_by, nbytes, ops = bound
-            item = longest_item(c)
+            item = longest_item(c, K1_CHUNK["heads"] if key == "K1" else K1_CHUNK["nogather"]
+                                if key == "K1_nogather" else None)
             if key in ("K1", "K2"):
                 sname = "bf16"
             else:  # K5 reads f32; the no-gather sum by its rule (818,716 slots: bf16)
@@ -3649,7 +3665,8 @@ def phase_dist_k1_traced_checks(dev, rng, n=200_000, e=4_000_000, hub_deg=300_00
     for name, csr, rows, width, heads, weighted in cases:
         x = rand(rows, width)
         w = slot_w(csr, heads) if weighted else None
-        out, den = spmm_rowmask_traced(csr, w, x, heads=heads, with_denom=heads > 1)
+        out, den = poisoned_call((csr.num_nodes, width), lambda: spmm_rowmask_traced(csr, w, x, heads=heads,
+                                                                                     with_denom=heads > 1))
         torch.cuda.synchronize()
         stats = traced_agreement(out, csr, w, x, heads, den)
         r = max(s[1] for s in stats)
@@ -3699,7 +3716,7 @@ def dist_kernel_timings(csr, f, dev, traced):
     """One K1 launch at the main path's shapes: K1's shard mode over the
     shard CSR (``traced``) or K1 over its transpose, f32, unweighted; the
     plain version and ``torch.sparse.mm`` on the same CSR timed beside it."""
-    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_plain, spmm_rowmask_traced
+    from stgraph_tpu_torch.ops.spmm_kernels import K1_CHUNK, spmm_rowmask, spmm_rowmask_plain, spmm_rowmask_traced
 
     n, e = csr.num_nodes, csr.num_edges
     gen = torch.Generator(device=dev).manual_seed(f)
@@ -3708,7 +3725,7 @@ def dist_kernel_timings(csr, f, dev, traced):
         run = lambda: spmm_rowmask_traced(csr, None, x)  # noqa: E731
     else:
         run = lambda: spmm_rowmask(csr, None, x, stream_dtype=torch.float32)  # noqa: E731
-    out, _ = run()
+    out, _ = poisoned_call((n, f), run)
     torch.cuda.synchronize()
     (err, ratio, max_ref), = traced_agreement(out, csr, None, x, 1)
     check(ratio <= KERNEL_TOL, f"K1 ({'shard mode' if traced else 'transpose'}) at F={f} disagrees: {ratio}")
@@ -3728,9 +3745,100 @@ def dist_kernel_timings(csr, f, dev, traced):
     print(f"dist-k1-main {where} F={f}: {ms:.3f} ms (plain {plain_ms:.1f} ms, torch.sparse.mm {lib_ms} ms, bound "
           f"{bound_ms:.3f} ms by {bound_by}); max_abs_err {err:.3e} (max |plain| {max_ref:.2f}), worst "
           f"err/sum|terms| {ratio:.2e}")
-    return {"where": where, "F": f, "H": 1, "E": e, "N": n, "stream": "f32", "longest_item": longest_item(csr),
+    return {"where": where, "F": f, "H": 1, "E": e, "N": n, "stream": "f32",
+            "longest_item": longest_item(csr, K1_CHUNK["one_head"]),
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes, "ops": ops, "max_abs_err": err, "err_over_mass": ratio}
+
+
+@timed_phase
+def phase_ogbn_reorder(dev, args, workdir, base, smi):
+    """ogbn-reorder: the loader's locality order at full size, its working
+    sets, and K1 (forward and transpose, unweighted, F = 128, bf16 stream)
+    on both orders; K1 held against its plain version on the reordered
+    graph."""
+    from stgraph_tpu_torch.dataset import OgbNodeDataLoader
+    from stgraph_tpu_torch.graph import StaticGraph
+    from stgraph_tpu_torch.graph import reorder as R
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask
+
+    found = R.locality_order
+    order_s = []
+
+    def timed_order(*a):
+        t = time.perf_counter()
+        order = found(*a)
+        order_s.append(time.perf_counter() - t)
+        return order
+
+    R.locality_order = timed_order  # the loader imports it from the module when it reorders
+    try:
+        t = time.perf_counter()
+        data = OgbNodeDataLoader(root=workdir, scale=args.scale, seed=args.seed, reorder=True)
+        load_s = time.perf_counter() - t
+    finally:
+        R.locality_order = found
+    n = data.gdata["num_nodes"]
+    order = data.node_order
+    check(len(order_s) == 1 and np.array_equal(np.sort(order), np.arange(n)),
+          "the reordering loader gave no permutation of the nodes")
+    t = time.perf_counter()
+    graph = StaticGraph(data.get_edges(), None, n, device=dev)
+    _ = graph.bwd_csr
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    del data
+    rec = {"N": n, "E": graph.fwd_csr.num_edges, "loader_s": load_s, "reorder_s": order_s[0],
+           "graph_build_s": build_s, "working_set_256B": {}, "k1": []}
+    for name, g in (("base", base["graph"]), ("reordered", graph)):
+        csr = g.fwd_csr
+        _, rows, cols, _ = csr.host_arrays()  # the edges in (dst, src) order
+        t = time.perf_counter()
+        rec["working_set_256B"][name] = R.gather_working_set(rows[:csr.num_edges], cols[:csr.num_edges], n,
+                                                             row_bytes=256)
+        rec.setdefault("working_set_s", {})[name] = time.perf_counter() - t
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 41)
+    x = torch.randn(n, 128, device=dev, generator=gen)
+    xs = {"base": x, "reordered": x[torch.from_numpy(order.astype(np.int64)).to(dev)]}  # the same rows, relabelled
+    bf16 = torch.bfloat16
+    reset_counts()
+    with torch.inference_mode():
+        for name, g in (("base", base["graph"]), ("reordered", graph)):
+            for where, csr in (("forward", g.fwd_csr), ("transpose", g.bwd_csr)):
+                run = lambda: spmm_rowmask(csr, None, xs[name], stream_dtype=bf16)  # noqa: E731
+                out, _ = poisoned_call((n, 128), run)
+                torch.cuda.synchronize()
+                err = ratio = None
+                if name == "reordered":
+                    err, ratio, _ = k1_agreement(out, csr, None, xs[name], bf16, PLAIN_EDGE_BLOCK)
+                    check(ratio <= KERNEL_TOL, f"K1 on the reordered graph ({where}) disagrees: {ratio}")
+                del out
+                ms = cuda_ms(run, iters=10, warmup=2)
+                e = csr.num_edges
+                lib_a = torch.sparse_csr_tensor(csr.indptr, csr.cols[:e], torch.ones(e, device=dev), size=(n, n),
+                                                check_invariants=False)
+                try:  # a timed yardstick only; the port never calls it
+                    lib_ms = cuda_ms(lambda: torch.sparse.mm(lib_a, xs[name]), iters=5, warmup=1)
+                except RuntimeError as exc:
+                    print(f"library yardstick unavailable: {exc}")
+                    lib_ms = None
+                del lib_a
+                bound_ms = k1_bound(n, e, 128, weighted=False)[0]
+                rec["k1"].append({"order": name, "where": where, "F": 128, "stream": "bf16", "weighted": False,
+                                  "ms": ms, "library_ms": lib_ms, "bound_ms": bound_ms, "max_abs_err": err,
+                                  "err_over_mass": ratio})
+                print(f"ogbn-reorder K1 {name} {where} F=128 bf16 unweighted: {ms:.3f} ms (torch.sparse.mm "
+                      f"{lib_ms} ms, bound {bound_ms:.3f} ms)" + ("" if err is None else
+                      f"; max_abs_err {err:.3e}, worst err/sum|terms| {ratio:.2e}") + f" [{smi}]")
+    counts = read_counts()
+    check(counts == only(K1=counts["K1"]), f"the reorder phase launched {counts}")
+    ws = rec["working_set_256B"]
+    print(f"ogbn-reorder: N={n} E={rec['E']}: loader with reorder {load_s:.1f} s (the reorder {order_s[0]:.1f} s), "
+          f"graph build {build_s:.1f} s; working set at 256 B rows {ws['base'] / 2**20:.1f} MiB (loader's "
+          f"order) -> {ws['reordered'] / 2**20:.1f} MiB (reordered) [{smi}]")
+    del graph, xs, x
+    torch.cuda.empty_cache()
+    return rec
 
 
 @timed_phase
@@ -4130,6 +4238,7 @@ def main() -> int:
             del served, trained
             torch.cuda.empty_cache()
             record["dist_gcn_training"] = phase_dist_gcn_training(dev, args, base)
+            record["ogbn_reorder"] = phase_ogbn_reorder(dev, args, workdir, base, record["environment"]["nvidia_smi"])
             gat = phase_gat_serving(dev, args, base)
             record["gat_serving"] = gat["record"]
             gat_launch, gat_err = phase_gat_kernels_at_main_shapes(dev, gat)

@@ -24,7 +24,12 @@
 // wrapper zeroed (so the last bits of a hub row's sum vary from run to
 // run); tiles of 128 columns; lanes as (edge offset, group of 4 columns)
 // pairs, 32 / gp consecutive edges a step (at K = 32: 4 rows, 512
-// contiguous bytes, every lane busy), the edge lanes met by shuffles.
+// contiguous bytes, every lane busy), the edge lanes met by shuffles once
+// per item. A lane issues the loads of kSteps steps before it adds any of
+// them. The items are shorter than K1's one-head items
+// (ops/spmm_kernels.K1_CHUNK["nogather"], measured at the GAT rowmask
+// shapes): a hub row is split across more warps, where one warp walking a
+// 1024-edge item alone set the time (PERF.md §6).
 //
 // Rounding matches the TPU kernel: with a bf16 stream (the wrapper's rule,
 // capacity >= 200,000 and f32 values, segment_pallas.py:682-686) each value
@@ -47,6 +52,7 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kTile = 128;  // columns of one tile (blockIdx.y)
+constexpr int kSteps = 4;   // steps whose loads a lane issues before adding
 constexpr unsigned kFull = 0xffffffffu;
 
 template <bool kBf16>
@@ -84,20 +90,30 @@ segment_sum_wide_kernel(const int32_t* __restrict__ indptr,
 
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   if (active) {
-#pragma unroll 4
-    for (int e = beg + lane / gp; e < end; e += step) {
-      const float* p = vals + static_cast<int64_t>(e) * k + c0 + col;
-      if (kVec) {
-        const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-        acc[0] += stream_value<kBf16>(q.x);
-        acc[1] += stream_value<kBf16>(q.y);
-        acc[2] += stream_value<kBf16>(q.z);
-        acc[3] += stream_value<kBf16>(q.w);
-      } else {
+    for (int e0 = beg + lane / gp; e0 < end; e0 += kSteps * step) {
+      float v[kSteps][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          if (col + kk < kt) acc[kk] += stream_value<kBf16>(__ldg(p + kk));
+      for (int u = 0; u < kSteps; ++u) {
+        const int e = e0 + u * step;
+        const float* p = vals + static_cast<int64_t>(e) * k + c0 + col;
+        if (kVec) {
+          float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (e < end) q = __ldg(reinterpret_cast<const float4*>(p));
+          v[u][0] = q.x;
+          v[u][1] = q.y;
+          v[u][2] = q.z;
+          v[u][3] = q.w;
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            v[u][kk] = e < end && col + kk < kt ? __ldg(p + kk) : 0.f;
+          }
         }
+      }
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc[kk] += stream_value<kBf16>(v[u][kk]);
       }
     }
   }

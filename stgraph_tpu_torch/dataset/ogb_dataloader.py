@@ -2,9 +2,10 @@
 
 A copy of ``stgraph_tpu/dataset/ogb_dataloader.py`` (host numpy only): the
 ``.npz`` path, the raw-CSV path and the synthetic generator are verbatim, so
-one seed gives both packages the same graph. Two differences: the synthetic
-cache file carries a ``.torch`` tag, so the two loaders never share a file,
-and ``reorder=True`` raises until ``graph/reorder.py`` is ported.
+one seed gives both packages the same graph. One difference: the synthetic
+cache file carries a ``.torch`` tag, so the two loaders never share a file.
+``reorder=True`` relabels the nodes by the port's ``graph.reorder``, as the
+JAX loader does by its own.
 
 The reference has no OGB support; BASELINE config 5 requires a 3-layer GCN
 on **ogbn-products** (2,449,029 nodes / 61,859,140 undirected edges =
@@ -54,8 +55,11 @@ class OgbNodeDataLoader:
       scale: shrink factor for the synthetic fallback (1.0 = full size);
         lets tests exercise the exact code path in seconds.
       allow_synthetic: raise instead of synthesizing when False.
-      reorder: the label-propagation relabelling of the JAX package; not
-        ported yet (raises ``NotImplementedError``).
+      reorder: relabel the nodes by label propagation
+        (``graph.reorder.locality_order``) so that communities get
+        contiguous ids: the edge index is relabelled and the features and
+        labels permuted; ``node_order`` then holds the order (``order[k]``
+        the old id of new node ``k``), and is None otherwise.
     """
 
     def __init__(
@@ -67,10 +71,6 @@ class OgbNodeDataLoader:
         seed: int = 0,
         reorder: bool = False,
     ) -> None:
-        if reorder:
-            raise NotImplementedError(
-                "reorder=True waits for the port of graph/reorder.py"
-            )
         if name not in _KNOWN:
             raise ValueError(f"unknown OGB dataset {name!r}")
         self.name = name
@@ -129,6 +129,18 @@ class OgbNodeDataLoader:
             )
         n = int(self._feat.shape[0])
         self.node_order = None
+        if reorder:
+            from stgraph_tpu_torch.graph.reorder import (
+                inverse_permutation,
+                locality_order,
+            )
+
+            order = locality_order(self._edge_index[0], self._edge_index[1], n)
+            new_id = inverse_permutation(order).astype(np.int64)
+            self._edge_index = new_id[self._edge_index]
+            self._feat = self._feat[order]
+            self._labels = self._labels[order]
+            self.node_order = order
         self.gdata = {
             "num_nodes": n,
             "num_edges": int(self._edge_index.shape[1]),

@@ -1,8 +1,9 @@
 """Graph storage layer: CSR core and the static graph class.
 
 Counterpart of ``stgraph_tpu/graph/``: the CSR core and its blocked layout,
-the static graph, and the dynamic graphs (naive snapshots, the delta store,
-the lazy store); the PMA store and the reorder pass are later slices.
+the static graph, the dynamic graphs (naive snapshots, the delta store,
+the lazy store) and the gather-locality reorder; the PMA store is a later
+slice.
 """
 
 from stgraph_tpu_torch.graph.blocked import BlockedCSR, blocked_layout, build_blocked
@@ -11,6 +12,7 @@ from stgraph_tpu_torch.graph.delta_graph import DeltaGraph, EdgeStore, apply_del
 from stgraph_tpu_torch.graph.dynamic_graph import DynamicGraph, preprocess_deltas
 from stgraph_tpu_torch.graph.lazy_store import LazyStore, apply_delta_lazy, compact, lazy_from_edges
 from stgraph_tpu_torch.graph.naive_graph import NaiveGraph
+from stgraph_tpu_torch.graph.reorder import locality_order, relabel_edges
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
 
 __all__ = [
@@ -30,7 +32,9 @@ __all__ = [
     "compact",
     "edge_store_to_csr",
     "lazy_from_edges",
+    "locality_order",
     "pad_edges",
     "preprocess_deltas",
+    "relabel_edges",
     "round_up",
 ]

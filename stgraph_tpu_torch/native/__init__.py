@@ -1,11 +1,12 @@
 """ctypes binding for the port's native host-side graph builder.
 
-Counterpart of ``stgraph_tpu/native/__init__.py`` (``build_csr`` and
-``build_blocked``): the library is built with ``g++`` at first use into
-``build/native/`` and loaded with ctypes. Without a compiler
-``build_csr_arrays`` and ``build_blocked_arrays`` return None, and
-``graph.csr.build_csr`` and ``graph.blocked.build_blocked`` take their numpy
-paths, which give the same arrays.
+Counterpart of ``stgraph_tpu/native/__init__.py`` (``build_csr``,
+``build_blocked`` and ``reorder_locality``): the library is built with
+``g++`` at first use into ``build/native/`` and loaded with ctypes. Without
+a compiler ``build_csr_arrays``, ``build_blocked_arrays`` and
+``reorder_locality`` return None, and ``graph.csr.build_csr``,
+``graph.blocked.build_blocked`` and ``graph.reorder.locality_order`` take
+their numpy paths, which give the same arrays.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 
 from stgraph_tpu_torch.utils.build import library_path
 
-__all__ = ["available", "build_blocked_arrays", "build_csr_arrays"]
+__all__ = ["available", "build_blocked_arrays", "build_csr_arrays", "reorder_locality"]
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "graph_builder.cpp")
 _lib: Optional[ctypes.CDLL] = None
@@ -79,6 +80,8 @@ def _load() -> Optional[ctypes.CDLL]:
         i32p, i32p, i32p, i32p,
     ]
     lib.build_blocked.restype = ctypes.c_int
+    lib.reorder_locality.argtypes = [i32p, i32p, ctypes.c_int64, ctypes.c_int32, i32p]
+    lib.reorder_locality.restype = ctypes.c_int
     _lib = lib
     return _lib
 
@@ -140,3 +143,19 @@ def build_blocked_arrays(
     if rc != 0:
         return None
     return offsets, counts, bdst, bcols, bperm, beids
+
+
+def reorder_locality(src: np.ndarray, dst: np.ndarray, num_nodes: int) -> Optional[np.ndarray]:
+    """The label-propagation locality order via the native builder
+    (``order[k]`` is the old id of the node at new position ``k``), or
+    None."""
+    lib = _load()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    order = np.empty(num_nodes, np.int32)
+    rc = lib.reorder_locality(src, dst, len(src), num_nodes, order)
+    if rc != 0:
+        return None
+    return order

@@ -1,7 +1,7 @@
 // Native host-side graph builder for stgraph_tpu_torch.
 //
-// The port's own copy of `build_csr`, `blocked_sizes` and `build_blocked`
-// from stgraph_tpu/native/graph_builder.cpp (the port imports nothing of the
+// The port's own copy of `build_csr`, `blocked_sizes`, `build_blocked` and
+// `reorder_locality` from stgraph_tpu/native/graph_builder.cpp (the port imports nothing of the
 // JAX package). One-time per-graph layout work that must be fast at ogbn
 // scale (10^8 edges), where numpy's lexsort costs tens of seconds.
 //
@@ -9,6 +9,7 @@
 //                  indptr/rows/cols/eids with sentinel padding.
 //   build_blocked: the chunk-aligned per-row-block edge layout that the
 //                  blocked SpMM kernel K10 reads (graph/blocked.py).
+//   reorder_locality: the label-propagation node order of graph/reorder.py.
 //
 // Exposed as a C ABI for ctypes. All buffers are caller-allocated numpy
 // arrays. Built at first use by stgraph_tpu_torch/native/__init__.py:
@@ -111,6 +112,81 @@ int build_blocked(const int32_t* indptr, const int32_t* rows,
     std::memcpy(beids + o, eids + s, c * sizeof(int32_t));
     for (int64_t i = 0; i < c; ++i) bperm[o + i] = static_cast<int32_t>(s + i);
   }
+  return 0;
+}
+
+// Label-propagation node order for the gather's locality (graph/reorder.py).
+//
+// The SpMM kernels gather one feature row per edge; at ogbn-products size
+// the table is far larger than the card's L2, so with ids that say nothing
+// of the graph's structure nearly every row comes from device memory.
+// Relabelling the nodes so that each community occupies a contiguous id
+// range shrinks the rows a CSR region touches to about one community's.
+//
+// Synchronous label propagation over both directions of every edge with
+// both ends in [0, n): each node adopts the most frequent label among its
+// neighbours, ties to the smaller label, at most 8 rounds, stopping early
+// when no label changes; then a stable counting sort by (label, id).
+// order_out[k] is the old id of the node placed at new position k.
+// O(rounds * E), with each node's label counts kept by a stamp per
+// (round, node) so nothing is cleared between nodes; about 8 bytes an edge
+// of extra memory.
+int reorder_locality(const int32_t* src, const int32_t* dst, int64_t e,
+                     int32_t n, int32_t* order_out) {
+  if (n <= 0) return 0;
+  // undirected adjacency over both edge directions
+  std::vector<int64_t> deg(static_cast<size_t>(n) + 1, 0);
+  for (int64_t i = 0; i < e; ++i) {
+    if (src[i] >= 0 && src[i] < n && dst[i] >= 0 && dst[i] < n) {
+      deg[src[i]]++;
+      deg[dst[i]]++;
+    }
+  }
+  std::vector<int64_t> indptr(static_cast<size_t>(n) + 1, 0);
+  for (int32_t v = 0; v < n; ++v) indptr[v + 1] = indptr[v] + deg[v];
+  std::vector<int32_t> adj(static_cast<size_t>(indptr[n]));
+  std::vector<int64_t> fill(indptr.begin(), indptr.end() - 1);
+  for (int64_t i = 0; i < e; ++i) {
+    if (src[i] >= 0 && src[i] < n && dst[i] >= 0 && dst[i] < n) {
+      adj[fill[src[i]]++] = dst[i];
+      adj[fill[dst[i]]++] = src[i];
+    }
+  }
+  std::vector<int32_t> label(static_cast<size_t>(n));
+  std::vector<int32_t> next(static_cast<size_t>(n));
+  for (int32_t v = 0; v < n; ++v) label[v] = v;
+  std::vector<int64_t> stamp(static_cast<size_t>(n), -1);
+  std::vector<int32_t> cnt(static_cast<size_t>(n), 0);
+  constexpr int kRounds = 8;
+  for (int r = 0; r < kRounds; ++r) {
+    int64_t changed = 0;
+    for (int32_t v = 0; v < n; ++v) {
+      const int64_t token = static_cast<int64_t>(r) * n + v;  // one per (round, node)
+      int32_t best = label[v];
+      int32_t bestc = 0;
+      for (int64_t j = indptr[v]; j < indptr[v + 1]; ++j) {
+        const int32_t l = label[adj[j]];
+        if (stamp[l] != token) {
+          stamp[l] = token;
+          cnt[l] = 0;
+        }
+        const int32_t c = ++cnt[l];
+        if (c > bestc || (c == bestc && l < best)) {
+          bestc = c;
+          best = l;
+        }
+      }
+      next[v] = best;
+      changed += (best != label[v]);
+    }
+    label.swap(next);
+    if (changed == 0) break;
+  }
+  // stable counting sort by label: the nodes in (label, id) order
+  std::vector<int64_t> loff(static_cast<size_t>(n) + 1, 0);
+  for (int32_t v = 0; v < n; ++v) loff[label[v] + 1]++;
+  for (int32_t l = 0; l < n; ++l) loff[l + 1] += loff[l];
+  for (int32_t v = 0; v < n; ++v) order_out[loff[label[v]]++] = v;
   return 0;
 }
 

@@ -63,7 +63,7 @@ import torch
 
 from stgraph_tpu_torch.graph.csr import CSR
 from stgraph_tpu_torch.ops import kernel_lib
-from stgraph_tpu_torch.ops.spmm_kernels import ROW_CHUNK, _work_items
+from stgraph_tpu_torch.ops.spmm_kernels import K1_CHUNK, ROW_CHUNK, _work_items
 
 __all__ = [
     "MAX_NARROW_K",
@@ -421,12 +421,14 @@ def segment_sum_wide(csr: CSR, vals: torch.Tensor) -> torch.Tensor:
     if csr.device != dev:
         raise ValueError(f"the no-gather sum needs the CSR and vals on one CUDA device, got {csr.device} and {dev}")
     round_bf16 = wide_stream_is_bf16(csr, vals)
-    plane = vals.to(torch.float32).contiguous()  # rounded to the stream in the kernel
     n = csr.num_nodes
+    # allocated first, so the poisoned-output checks find it in the block freed just before
     out = torch.empty(n, k, dtype=torch.float32, device=dev)
+    plane = vals.to(torch.float32).contiguous()  # rounded to the stream in the kernel
     if n == 0:
         return out
-    item_row, item_beg, split_rows = _work_items(csr)
+    chunk = K1_CHUNK["nogather"]
+    item_row, item_beg, split_rows = _work_items(csr, chunk)
     if split_rows.numel():
         out.index_fill_(0, split_rows, 0.0)
     rc = lib.stg_segment_sum_wide(
@@ -438,7 +440,7 @@ def segment_sum_wide(csr: CSR, vals: torch.Tensor) -> torch.Tensor:
         item_row.numel(),
         out.data_ptr(),
         k,
-        ROW_CHUNK,
+        chunk,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

@@ -18,9 +18,12 @@ spread over a table far larger than L2. Its bound is the compulsory bytes
 (``indptr``, ``cols``, ``w``, the input table read once, the output written
 once) over the card's memory rate; at ogbn-products size (E = 123.7M,
 F = 128) that is about 1 ms on an H100 SXM, while the gathered traffic is
-about 25 times more. The design (a warp per row, the gather inside the
-kernel, a bf16 table made once, hub rows split across warps) is described
-in the source.
+about 25 times more. The design (a warp per work item, a group of lanes an
+edge so a warp takes several edges a step, the gather inside the kernel, a
+bf16 table made once, hub rows split across warps) is described in the
+source; the host plans it here: the work items (``k1_work_items``, at most
+``K1_CHUNK[mode]`` edges an item) and the lane groups and column tiles
+(``k1_lanes``).
 
 K2 (``spmm_rowmask_bwd``, ``csrc/spmm_sddmm_rowmask.cu``) replaces
 ``segment_pallas.spmm_rowmask_bwd`` (``:1434-1618``) and its Pallas kernel
@@ -71,7 +74,9 @@ from stgraph_tpu_torch.graph.csr import CSR
 from stgraph_tpu_torch.ops import kernel_lib
 
 __all__ = [
+    "K1_CHUNK",
     "ROW_CHUNK",
+    "k1_lanes",
     "k1_work_items",
     "spmm_rowmask",
     "spmm_rowmask_bwd",
@@ -81,13 +86,19 @@ __all__ = [
 ]
 
 # Edges one warp takes from a row; longer rows are split into several work
-# items whose partial sums meet by atomicAdd.
+# items whose partial sums meet by atomicAdd. K2-K5, K8 and K9 take items of
+# ROW_CHUNK edges; K1 takes its own length by mode (K1_CHUNK).
 ROW_CHUNK = 1024
+# K1's item length by mode: "one_head" (the GCN paths and the shard mode),
+# "heads" (heads > 1, with the denominator) and "nogather" (the no-gather
+# sum, ops.segment_kernels.segment_sum_wide).
+K1_CHUNK = {"one_head": 1024, "heads": 128, "nogather": 128}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "stg_spmm_rowmask": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _VP],
+    "stg_spmm_rowmask": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
+    "stg_bf16_product_check": [ctypes.c_ulonglong, ctypes.c_ulonglong, _VP, _VP],
 }
 _K2_SIGNATURES = {
     "stg_spmm_sddmm_rowmask": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _VP],
@@ -112,6 +123,31 @@ def k1_work_items(indptr: np.ndarray, chunk: int = ROW_CHUNK):
     item_beg = indptr[:-1][item_row] + (np.arange(item_row.shape[0]) - first[item_row]) * chunk
     split_rows = np.flatnonzero(deg > chunk).astype(np.int64)
     return item_row, item_beg.astype(np.int32), split_rows
+
+
+def k1_lanes(f: int, elem_bytes: int, aligned: bool) -> Tuple[int, int]:
+    """How K1's warps cover a row of ``f`` columns, as ``(g, tile)``: ``g``
+    lanes take one edge, one 16 B load each (``16 / elem_bytes`` columns),
+    so a warp takes ``32 // g`` edges a step; blockIdx.y walks tiles of
+    ``tile`` columns (the whole row when it fits in a warp's 512 B).
+
+    ``aligned`` says that every row starts on 16 B (the row stride a
+    multiple of the lane's columns and the table aligned). Otherwise (f32
+    only) a group reads the row from its start rounded down to 16 B, so a
+    tile of ``t`` columns spans up to ``t + 3``: tiles of at most 124
+    columns keep that within 32 lanes. ``g`` is the tile's 16 B pieces
+    rounded up to a power of two.
+    """
+    v = 16 // elem_bytes
+    if aligned:
+        tile = f if f <= 32 * v else 32 * v
+        pieces = -(-tile // v)
+    else:
+        if v != 4:
+            raise ValueError("only an f32 table may have rows that are not 16 B aligned")
+        tile = f if f + 3 <= 128 else 124
+        pieces = -(-(tile + 3) // 4)
+    return 1 << (max(pieces, 1) - 1).bit_length(), tile
 
 
 def _head_width(width: int, heads: int, kernel: str) -> int:
@@ -203,9 +239,12 @@ def spmm_rowmask_plain(
     return (out, torch.cat(dens)) if with_denom else out
 
 
-def _work_items(csr: CSR):
+def _work_items(csr: CSR, chunk: int = ROW_CHUNK):
+    """``k1_work_items`` of ``csr`` at ``chunk`` edges an item, on its
+    device, built once per chunk length."""
+
     def make():
-        item_row, item_beg, split_rows = k1_work_items(csr.host_arrays()[0])
+        item_row, item_beg, split_rows = k1_work_items(csr.host_arrays()[0], chunk)
         dev = csr.device
         return (
             torch.from_numpy(item_row).to(dev),
@@ -213,7 +252,13 @@ def _work_items(csr: CSR):
             torch.from_numpy(split_rows).to(dev),
         )
 
-    return csr.cached(f"k1_items_{ROW_CHUNK}", make)
+    return csr.cached(f"k1_items_{chunk}", make)
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous), copied where its data does not start on 16 B."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _gathered_table(csr: CSR, feats: torch.Tensor, stream_dtype, kernel: str):
@@ -233,7 +278,7 @@ def _gathered_table(csr: CSR, feats: torch.Tensor, stream_dtype, kernel: str):
     if bf16:
         ld = -(-f // 8) * 8
         table = feats.to(torch.bfloat16)
-        table = F.pad(table, (0, ld - f)) if ld != f else table.contiguous()
+        table = F.pad(table, (0, ld - f)) if ld != f else _aligned16(table)
     else:
         if feats.dtype != torch.float32:
             raise ValueError("an f32 stream needs f32 features")
@@ -266,14 +311,22 @@ def _launch_k1(counter, csr, w, node_feats, heads, with_denom, stream_dtype):
     """K1 on the card, adding one to ``counter.launches`` when it launches."""
     lib = kernel_lib.load("spmm_rowmask", _SIGNATURES)
     dev = node_feats.device
-    table, ld, bf16 = _gathered_table(csr, node_feats, stream_dtype, "K1")
-    wt = None if w is None else _edge_weights(w, dev)
     n, f = csr.num_nodes, node_feats.shape[1]
+    # allocated first, so the poisoned-output checks find them in the block freed just before
     out = torch.empty(n, f, dtype=torch.float32, device=dev)
     den = torch.empty(n, heads, dtype=torch.float32, device=dev) if with_denom else None
+    table, ld, bf16 = _gathered_table(csr, node_feats, stream_dtype, "K1")
+    if heads > 1:
+        table = _aligned16(table)  # the heads modes take aligned rows only
+    wt = None if w is None else _edge_weights(w, dev)
+    if wt is not None and heads > 1:
+        wt = _aligned16(wt)  # a lane loads its heads' weights as one vector
     if n == 0 or f == 0:
         return out, den
-    item_row, item_beg, split_rows = _work_items(csr)
+    elem = 2 if bf16 else 4
+    g, tile = k1_lanes(f, elem, ld % (16 // elem) == 0 and table.data_ptr() % 16 == 0)
+    chunk = K1_CHUNK["heads" if heads > 1 else "one_head"]
+    item_row, item_beg, split_rows = _work_items(csr, chunk)
     if split_rows.numel():
         out.index_fill_(0, split_rows, 0.0)
         if den is not None:
@@ -292,7 +345,9 @@ def _launch_k1(counter, csr, w, node_feats, heads, with_denom, stream_dtype):
         f,
         ld,
         heads,
-        ROW_CHUNK,
+        chunk,
+        g,
+        tile,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

@@ -256,6 +256,97 @@ def test_k10_writes_every_row_of_a_poisoned_output(cuda, rng, h, f):
     _within_mass(out, segment_sum_blocked_plain(blk, w, x, h), segment_sum_blocked_plain(blk, w, x.abs(), h))
 
 
+def _k1_case(rng, cuda, n=3000, e=60_000):
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
+    return build_csr(src, dst, n, capacity=e + 5, device=cuda)
+
+
+@pytest.mark.parametrize("f", [1, 3, 4, 5, 8, 16, 17, 47, 64, 100, 124, 125, 126, 200, 300])
+@pytest.mark.parametrize("stream", [None, torch.bfloat16])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_k1_lane_groups_match_plain_at_every_width(cuda, rng, f, stream, misaligned):
+    """K1 at one head, weighted with the denominator and unweighted, at widths
+    that take every lane group (1 to 32 lanes an edge) and one to three
+    column tiles; with a table 4 B off a 16 B boundary an f32 stream takes
+    the aligned-down loads (a bf16 stream gets an aligned copy)."""
+    n = 3000
+    csr = _k1_case(rng, cuda, n)
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(cuda)
+    if misaligned:
+        x = torch.empty(n * f + 1, device=cuda)[1:].view(n, f).copy_(x)
+    w = torch.from_numpy(rng.standard_normal(csr.capacity).astype(np.float32)).to(cuda)
+    for ww in (w, None):
+        out, den = spmm_rowmask(csr, ww, x, with_denom=ww is not None, stream_dtype=stream)
+        torch.cuda.synchronize()
+        absw = None if ww is None else ww.abs()
+        if ww is None:
+            ref = spmm_rowmask_plain(csr, ww, x, stream)
+        else:
+            ref, ref_den = spmm_rowmask_plain(csr, ww, x, stream, with_denom=True)
+            mass_den = spmm_rowmask_plain(csr, absw, x, stream, with_denom=True)[1]
+            _within_mass(den, ref_den, mass_den)
+        _within_mass(out, ref, spmm_rowmask_plain(csr, absw, x.abs(), stream))
+        assert not out[n - 50:].any()
+
+
+@pytest.mark.parametrize("case", ["f32 47", "f32 64", "f32 200 misaligned", "bf16 47", "bf16 128", "bf16 300",
+                                  "heads 32x4 f32", "heads 32x4 bf16", "heads 128x1 bf16", "traced 47",
+                                  "nogather 32", "nogather 130"])
+def test_k1_writes_every_row_of_a_poisoned_output(cuda, rng, case):
+    """Each K1 mode into an output block filled with NaN and freed just
+    before: only split rows are zeroed, every other row is stored once."""
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_traced
+
+    n = 3000
+    csr = _k1_case(rng, cuda, n)
+    kind, rest = case.split(" ", 1)
+    if kind == "nogather":
+        k = int(rest)
+        vals = torch.from_numpy(rng.standard_normal((csr.capacity, k)).astype(np.float32)).to(cuda)
+        segment_sum_wide(csr, vals)  # the work items, built once
+        ptr = _poison((n, k), cuda)
+        out = segment_sum_wide(csr, vals)
+        ref, mass = segment_sum_wide_plain(csr, vals), segment_sum_wide_plain(csr, vals.abs())
+    else:
+        heads, f = (1, int(rest.split()[0])) if kind != "heads" else map(int, rest.split()[0].split("x"))
+        stream = torch.bfloat16 if "bf16" in case else None
+        x = torch.from_numpy(rng.standard_normal((n, heads * f)).astype(np.float32)).to(cuda)
+        if "misaligned" in case:
+            x = torch.empty(x.numel() + 1, device=cuda)[1:].view(n, heads * f).copy_(x)
+        w = torch.from_numpy(rng.random((csr.capacity, heads)).astype(np.float32)).to(cuda)
+        if kind == "traced":
+            run = lambda: spmm_rowmask_traced(csr, None, x)[0]  # noqa: E731
+            ref_w = None
+        else:
+            run = lambda: spmm_rowmask(csr, w, x, heads=heads, with_denom=heads > 1, stream_dtype=stream)[0]  # noqa: E731
+            ref_w = w
+        run()  # the work items, built once
+        ptr = _poison((n, heads * f), cuda)
+        out = run()
+        ref = spmm_rowmask_plain(csr, ref_w, x, stream, heads=heads)
+        mass = spmm_rowmask_plain(csr, ref_w, x.abs(), stream, heads=heads)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == ptr  # the output took the poisoned block
+    assert not out.isnan().any()
+    _within_mass(out, ref, mass)
+
+
+def test_k1_packed_bf16_product_is_the_first_designs_bit_for_bit(cuda):
+    """The packed product K1 forms in bf16 (mul.rn.bf16x2) against the first
+    design's round_to_bf16(__fmul_rn(x, w)) over all 2^32 pairs of bf16 bit
+    patterns: subnormal, overflowing and signed-zero products included."""
+    from stgraph_tpu_torch.ops import kernel_lib
+    from stgraph_tpu_torch.ops.spmm_kernels import _SIGNATURES
+
+    lib = kernel_lib.load("spmm_rowmask", _SIGNATURES)
+    res = torch.tensor([0, 0, -1], dtype=torch.int64, device=cuda)
+    assert lib.stg_bf16_product_check(0, 1 << 32, res.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    bad, nans, first = res.tolist()
+    assert bad == 0, (bad, hex(first & (2**64 - 1)))
+    assert nans > 0  # NaN inputs were among the pairs
+
+
 @pytest.mark.parametrize("k", [17, 32, 130])
 def test_k5_matches_plain_on_the_card(cuda, rng, k):
     n, e = 3000, 60_000

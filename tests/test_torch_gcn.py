@@ -154,5 +154,4 @@ def test_synthetic_ogb_loader_matches_jax(tmp_path):
     np.testing.assert_array_equal(port.get_edges(), ref.get_edges())
     np.testing.assert_array_equal(port.get_all_features(), ref.get_all_features())
     np.testing.assert_array_equal(port.get_all_targets(), ref.get_all_targets())
-    with pytest.raises(NotImplementedError):
-        OgbNodeDataLoader(root=str(tmp_path), scale=0.0002, reorder=True)
+    assert port.node_order is None and ref.node_order is None  # reorder=False keeps the ids

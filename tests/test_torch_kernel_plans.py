@@ -272,3 +272,206 @@ def test_k10_panels_cover_each_heads_columns_once_with_aligned_loads(heads, f, a
                 assert c % v == 0 and c + v <= hf
                 kept[[k for k in range(c, c + v) if c_beg <= k < c_end]] += 1
     assert np.all(kept == 1)
+
+
+# -- K1: lane groups, aligned-down loads, item lengths, the packed bf16 product --
+
+
+def _k1_walk_columns(f, ld, elem, offset, heads=1, rows=8):
+    """The tile columns each lane of K1 keeps, by the kernel's own index
+    arithmetic (``csrc/spmm_rowmask.cu``), for the gathered rows 0..rows-1 of
+    a table ``offset`` bytes past a 16 B boundary with row stride ``ld``.
+    Checks every load on the way; returns, per row, the count of times each
+    of the row's ``f`` columns is kept and stored."""
+    from stgraph_tpu_torch.ops.spmm_kernels import k1_lanes
+
+    v = 16 // elem
+    aligned = ld % v == 0 and offset % 16 == 0
+    g, tile = k1_lanes(f, elem, aligned)
+    assert g & (g - 1) == 0 and 1 <= g <= 32
+    head_f = f // heads
+    kept = np.zeros((rows, f), np.int64)
+    for src in range(rows):
+        for y in range(-(-f // tile)):
+            c0 = y * tile
+            tw = min(tile, f - c0)
+            a = offset + (src * ld + c0) * elem  # the tile's first byte
+            if aligned:
+                for sub in range(g):
+                    col = sub * v
+                    if col >= tw:
+                        continue  # an idle lane loads nothing
+                    start = a + col * elem
+                    assert start % 16 == 0 and start + 16 <= offset + (src + 1) * ld * elem  # inside the row
+                    if heads > 1:
+                        nh = max(1, v // head_f)
+                        head0 = (c0 + col) // head_f
+                        assert head0 % nh == 0 and heads % nh == 0  # the weight vector is aligned
+                        for k in range(v):
+                            assert head0 + k * nh // v == (c0 + col + k) // head_f  # the column's own head
+                    for k in range(v):
+                        if col + k < tw:
+                            kept[src, c0 + col + k] += 1
+            else:
+                assert elem == 4 and heads == 1
+                s = (a >> 2) & 3
+                a0 = a - 4 * s
+                slots = {}  # (lane, slot) -> tile column, after the hand-over to the lane before
+                for sub in range(g):
+                    if 4 * sub >= s + tw:
+                        continue
+                    start = a0 + 16 * sub
+                    assert start % 16 == 0
+                    assert start < a + tw * elem and start + 16 > a  # the 16 B hold a column of the tile
+                    for k in range(4):
+                        r = (k + s) & 3  # the kernel's rotation
+                        pos = 4 * sub + r  # the position loaded, from a0
+                        col = pos - s
+                        owner = sub if k + s < 4 else sub - 1
+                        assert col == 4 * owner + k
+                        slots[(owner, k)] = col
+                assert max(sub for sub in range(g) if 4 * sub < s + tw) < g
+                for sub in range(g):
+                    for k in range(4):
+                        if 4 * sub + k < tw:  # the lane stores this slot
+                            kept[src, c0 + slots[(sub, k)]] += 1
+    return g, tile, kept
+
+
+@pytest.mark.parametrize("f,ld,elem,offset,heads,g", [
+    (128, 128, 2, 0, 1, 16),  # one head, bf16: 2 edges a step
+    (47, 48, 2, 0, 1, 8),  # bf16 at F = 47, the stride padded to 48: 4 edges a step
+    (48, 48, 2, 0, 1, 8),
+    (64, 64, 4, 0, 1, 16),  # the shard mode at F = 64, f32: 2 edges a step
+    (47, 47, 4, 0, 1, 16),  # the shard mode at F = 47: aligned-down loads
+    (47, 47, 4, 4, 1, 16),
+    (64, 64, 4, 12, 1, 32),  # a table 12 B off: aligned-down loads over 67 columns
+    (200, 200, 4, 4, 1, 32),  # two tiles of 124 and 76 columns
+    (300, 304, 2, 0, 1, 32),  # bf16, two tiles of 256 and 44 columns
+    (128, 128, 4, 0, 4, 32),  # 4 x 32 heads, f32
+    (128, 128, 2, 0, 4, 16),  # 4 x 32 heads, bf16
+    (128, 128, 4, 0, 32, 32),  # 32 x 4, f32: a lane's 4 columns one head
+    (128, 128, 2, 0, 32, 16),  # 32 x 4, bf16: a lane's 8 columns two heads
+    (128, 128, 2, 0, 128, 16),  # 128 x 1, bf16: eight heads a lane
+])
+def test_k1_lane_groups_keep_each_column_once_with_aligned_loads(f, ld, elem, offset, heads, g):
+    got_g, tile, kept = _k1_walk_columns(f, ld, elem, offset, heads)
+    assert got_g == g
+    assert np.all(kept == 1)
+
+
+def test_k1_lanes_refuse_unaligned_bf16_rows():
+    from stgraph_tpu_torch.ops.spmm_kernels import k1_lanes
+
+    with pytest.raises(ValueError):
+        k1_lanes(47, 2, aligned=False)
+    assert k1_lanes(125, 4, aligned=False) == (32, 125)  # 128 positions at most from the aligned start
+    assert k1_lanes(126, 4, aligned=False) == (32, 124)
+
+
+def test_k1_item_lengths_by_mode():
+    """K1 takes its own item length by mode, cached apart from the other
+    kernels' ROW_CHUNK items; each item holds at most its length."""
+    from stgraph_tpu_torch.graph.csr import build_csr
+    from stgraph_tpu_torch.ops import spmm_kernels as SK
+
+    assert set(SK.K1_CHUNK) == {"one_head", "heads", "nogather"}
+    assert all(c in (128, 256, 512, 1024) for c in SK.K1_CHUNK.values())
+    rng = np.random.default_rng(3)
+    src, dst = rng.integers(0, 500, 9000), rng.integers(0, 490, 9000)
+    dst[:3000] = 4  # a hub
+    csr = build_csr(src, dst, 500, device="cpu")
+    indptr = csr.host_arrays()[0].astype(np.int64)
+    items = {c: SK._work_items(csr, c) for c in (128, 256, 1024)}
+    assert SK._work_items(csr) is items[SK.ROW_CHUNK]  # the other kernels' items
+    for c, (row, beg, split) in items.items():
+        assert SK._work_items(csr, c) is items[c]  # built once a length
+        row, beg = row.numpy(), beg.numpy().astype(np.int64)
+        end = np.minimum(beg + c, indptr[1:][row])
+        assert np.all(end - beg <= c) and np.array_equal(split.numpy(), np.flatnonzero(np.diff(indptr) > c))
+        assert np.array_equal(np.concatenate([np.arange(b, e) for b, e in zip(beg, end)]), np.arange(indptr[-1]))
+
+
+def _work_item_calls(path):
+    import ast
+
+    calls = {}
+    for fn in ast.walk(ast.parse(open(path).read())):
+        if isinstance(fn, ast.FunctionDef):
+            for c in ast.walk(fn):
+                if isinstance(c, ast.Call) and isinstance(c.func, ast.Attribute) and c.func.attr.startswith("stg_"):
+                    calls.setdefault(fn.name, []).append(("entry", [ast.unparse(a) for a in c.args]))
+                if isinstance(c, ast.Call) and getattr(c.func, "id", None) == "_work_items":
+                    calls.setdefault(fn.name, []).append(("items", [ast.unparse(a) for a in c.args]
+                                                          + [ast.unparse(k) for k in c.keywords]))
+    return calls
+
+
+def test_k2_to_k9_keep_row_chunk_items():
+    """K2, K3, K4, K5, K8 and K9 take ``_work_items``'s default length,
+    ROW_CHUNK, and hand ROW_CHUNK to their kernels; only K1's wrappers pass
+    a length of their own (K1_CHUNK)."""
+    import inspect
+    import os
+
+    from stgraph_tpu_torch.ops import spmm_kernels as SK
+
+    assert SK.ROW_CHUNK == 1024
+    assert inspect.signature(SK._work_items).parameters["chunk"].default == SK.ROW_CHUNK
+    ops = os.path.join(os.path.dirname(SK.__file__))
+    calls = {}
+    for name in ("segment_kernels.py", "spmm_kernels.py", "flash_gat.py"):
+        calls.update(_work_item_calls(os.path.join(ops, name)))
+    for fn in ("spmm_rowmask_bwd", "segment_sum_narrow", "segment_max_narrow", "segment_max_wide",
+               "flash_gat_fwd", "flash_gat_bwd"):  # K2, K3, K4, K5, K8, K9
+        kinds = dict(calls[fn])
+        assert len(kinds["items"]) == 1, (fn, kinds)  # the CSR alone: ROW_CHUNK items
+        assert "ROW_CHUNK" in kinds["entry"], (fn, kinds)
+    for fn in ("_launch_k1", "segment_sum_wide"):  # K1, its no-gather mode
+        kinds = dict(calls[fn])
+        assert kinds["items"][1] == "chunk" and "chunk" in kinds["entry"] and "ROW_CHUNK" not in kinds["entry"]
+
+
+def _bf16_bits_rne(x32):
+    """f32 -> bf16 bits, round to nearest even (NaN not expected)."""
+    u = x32.view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint32) & 0xFFFF
+
+
+def _bf16_of_exact(p):
+    """bf16 bits of the f64 value ``p`` rounded once, to nearest even, with
+    bf16's subnormals and overflow to infinity; computed without f32."""
+    a = np.abs(p)
+    _, ex = np.frexp(a)
+    q = np.ldexp(1.0, np.maximum(ex - 1, -126) - 7)  # the bf16 quantum at a's binade
+    r = np.rint(a / q) * q
+    r = np.where(r >= 2.0**128, np.inf, r)
+    bits = (r.astype(np.float32).view(np.uint32) >> 16).astype(np.uint32)
+    return bits | np.where(np.signbit(p), 0x8000, 0).astype(np.uint32)
+
+
+def test_packed_bf16_product_is_the_first_designs_formula():
+    """The identity K1's bf16 path rests on: the exact product of two bf16
+    values rounded once to bf16 (one ``mul.rn.bf16x2``) equals the first
+    design's ``round_to_bf16(__fmul_rn(x, w))``, on a sample of pairs and on
+    the subnormal, overflowing and signed-zero edge cases. The card holds the
+    two bit for bit over all 2^32 pairs (``stg_bf16_product_check``)."""
+    rng = np.random.default_rng(11)
+    edge = np.array([0x0000, 0x8000, 0x0001, 0x8001, 0x007F, 0x0080, 0x0081, 0x00FF, 0x3F80, 0xBF80,
+                     0x3F81, 0x4000, 0x7F7F, 0xFF7F, 0x7F00, 0x7E80, 0x0100, 0x1F80, 0x2000, 0x5F80,
+                     0x6000, 0x3C00, 0x4300, 0x7F80, 0xFF80], np.uint32)
+    sample = rng.integers(0, 1 << 16, (2, 1 << 20), dtype=np.uint32)
+    tiny = rng.integers(0, 1 << 16, 1 << 16, dtype=np.uint32) & 0x80FF  # exponents near the subnormals
+    x = np.concatenate([np.repeat(edge, edge.size), sample[0], tiny, tiny])
+    w = np.concatenate([np.tile(edge, edge.size), sample[1], np.roll(tiny, 7), rng.permutation(edge.repeat(3000))[
+        :tiny.size] | 0x3000])
+    xf = (x << 16).view(np.float32)
+    wf = (w << 16).view(np.float32)
+    with np.errstate(over="ignore", invalid="ignore", under="ignore"):
+        formula = _bf16_bits_rne((xf * wf).astype(np.float32))
+        exact = xf.astype(np.float64) * wf.astype(np.float64)  # exact: 8-bit significands
+        keep = ~np.isnan(exact)
+        single = _bf16_of_exact(exact[keep])
+    assert np.array_equal(formula[keep], single)
+    subnormal = (single & 0x7F80) == 0
+    assert subnormal.sum() > 1000 and (single == 0x7F80).any() and (single == 0x8000).any()
