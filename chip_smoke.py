@@ -1316,7 +1316,8 @@ def phase_gat_kernels_vs_plain(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000
     """K4, K8 (with and without aux) and K9 against their plain versions on
     K2's check graph: 1000 empty rows, a 300k-edge hub in each direction;
     then the in-kernel keep mask, and K8 (with and without aux) and K9 in
-    their dropout mode at rates ``GAT_CHECK_RATES``."""
+    their dropout mode at rates ``GAT_CHECK_RATES``. K8's and K9's outputs
+    take a block filled with NaN just before (``poisoned_call``)."""
     from stgraph_tpu_torch.graph.csr import build_csr
     from stgraph_tpu_torch.ops.flash_gat import flash_gat_bwd, flash_gat_fwd, stability_max
     from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow, segment_max_narrow_plain
@@ -1349,8 +1350,9 @@ def phase_gat_kernels_vs_plain(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000
                 k8, k9 = ("K8_dropout", "K9_dropout") if rate else ("K8", "K9")
                 seed = drop_seed if rate else None
                 fwd = {}
-                for aux in (False, True):
-                    outs = flash_gat_fwd(csr, el, er, m, fs, h, GAT_SLOPE, stream, aux=aux, rate=rate, seed=seed)
+                for aux in (False, True):  # into a poisoned output: every row must be written
+                    outs = poisoned_call((n, h * f), lambda: flash_gat_fwd(csr, el, er, m, fs, h, GAT_SLOPE, stream,
+                                                                           aux=aux, rate=rate, seed=seed))
                     torch.cuda.synchronize()
                     fwd[aux] = outs
                     stats = k8_agreement(outs, csr, el, er, m, fs, h, stream, GAT_PLAIN_EDGE_BLOCK, rate, seed)
@@ -1366,7 +1368,8 @@ def phase_gat_kernels_vs_plain(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000
                                     "stats": [{"output": nm, "max_abs_err": a, "err_over_mass": r,
                                                "max_abs_plain": mx} for nm, (a, r, mx) in zip(names, stats)]})
                 gu, c = _node_cotangents(g, fwd[True][0], fwd[True][1], h)
-                dfs, dl = flash_gat_bwd(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE, stream, rate=rate, seed=seed)
+                dfs, dl = poisoned_call((n, h * f), lambda: flash_gat_bwd(csr_t, el, er, m, c, gu, fs, h, GAT_SLOPE,
+                                                                          stream, rate=rate, seed=seed))
                 torch.cuda.synchronize()
                 (dfs_a, dfs_r, _), (dl_a, dl_r, _) = k9_agreement(dfs, dl, csr_t, el, er, m, c, gu, fs, h, stream,
                                                                    GAT_PLAIN_EDGE_BLOCK, rate, seed)
@@ -1537,6 +1540,7 @@ def phase_gat_kernels_at_main_shapes(dev, gat):
     from stgraph_tpu_torch.ops.flash_gat import (flash_gat_bwd, flash_gat_bwd_plain, flash_gat_fwd,
                                                  flash_gat_fwd_plain, stability_max)
     from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow, segment_max_narrow_plain
+    from stgraph_tpu_torch.ops.spmm_kernels import FLASH_CHUNK
 
     graph = gat["model"].graph
     csr = graph.fwd_csr
@@ -1600,6 +1604,7 @@ def phase_gat_kernels_at_main_shapes(dev, gat):
             for key, ms, plain_ms, b, aux in (("K8", ms_aux, plain_aux, b_aux, True),
                                               ("K8_serving", ms_na, plain_na, b_na, False)):
                 out[key].append({"H": h, "F": f, "E": e, "N": n, "aux": aux, "ms": ms, "plain_ms": plain_ms,
+                                 "longest_item": longest_item(csr, FLASH_CHUNK["fwd"]),
                                  "library_ms": k8_lib, "bound_ms": b[0], "bound_by": b[1], "bytes": b[2],
                                  "ops": b[3], "max_abs_err": k8_err,
                                  "err_over_mass": max(r for _, r, _ in stats)})
@@ -1623,7 +1628,7 @@ def phase_gat_kernels_at_main_shapes(dev, gat):
                   f"{b9[0]:.3f} ms by {b9[1]}); full-graph dfs max_abs_err {dfs_a:.3e} (err/sum|terms| "
                   f"{dfs_r:.2e}), dl max_abs_err {dl_a:.3e} (err/sum|terms| {dl_r:.2e})")
             out["K9"].append({"H": h, "F": f, "E": e, "N": n, "ms": k9_ms, "plain_ms": k9_plain,
-                              "library_ms": None, "bound_ms": b9[0], "bound_by": b9[1], "bytes": b9[2],
+                              "longest_item": longest_item(csr_t, FLASH_CHUNK["bwd"]), "library_ms": None, "bound_ms": b9[0], "bound_by": b9[1], "bytes": b9[2],
                               "ops": b9[3], "dfs_max_abs_err": dfs_a, "dfs_err_over_mass": dfs_r,
                               "dl_max_abs_err": dl_a, "dl_err_over_mass": dl_r})
             # The dropout mode on the same inputs: full outputs against the
@@ -2556,7 +2561,7 @@ def rowmask_bwd_bound(n: int, e: int, h: int, f: int):
 def longest_item(csr, chunk=None) -> int:
     """The most edges one warp walks in a launch over ``csr`` whose work
     items cap a row at ``chunk`` edges (default ``ROW_CHUNK``, the items of
-    K2-K5, K8 and K9; K1's modes take ``K1_CHUNK``)."""
+    K2-K5; K1's modes take ``K1_CHUNK``, K8 and K9 ``FLASH_CHUNK``)."""
     from stgraph_tpu_torch.ops.spmm_kernels import ROW_CHUNK
 
     return int(min(np.diff(csr.host_arrays()[0]).max(initial=0), chunk or ROW_CHUNK))

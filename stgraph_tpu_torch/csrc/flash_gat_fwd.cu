@@ -35,47 +35,62 @@
 // table is 1.25 GB and the gathered rows about 63 GB). The compulsory bytes
 // (cols, el, er, m, the f32 fs table and the outputs once) give a bound of
 // about 2.5 ms with aux; as for K1 the time is set by how many random row
-// reads the card keeps in flight, so the design keeps registers low enough
-// for many warps per SM and unrolls the row loop 4 deep.
+// reads the card keeps in flight.
 //
-// What the design does about it (K1's, with the softmax inside):
-//   - one warp per destination row (a "work item"), lanes across the H*F
-//     columns, 4 (H*F <= 128) or 8 (<= 256) columns a lane: one gathered
-//     row is one coalesced transaction group, and the weights are applied
-//     inside the kernel (the TPU kernel needs an XLA pre-gather plane and
-//     one-hot matmuls to reach the destination fields);
-//   - per 32 edges the warp first forms the 32 x H weights: lane l takes
-//     head l % KH (KH = H rounded up to a power of two) of the edges
-//     l / KH, l / KH + 32 / KH, ..., reading el[src, h] (consecutive lanes
-//     read consecutive heads of one row) and keeping er[d, h], m[d, h] and
-//     its running den and p in four registers; it writes w (and w * lp) as
-//     the stream carries them into a small shared-memory table of the warp.
-//     den and p are reduced across the lanes of a head once per item;
-//   - then the warp walks the 32 edges: src by shuffle, one row load, and
-//     the weight of the lane's head from the table (one read when all of a
-//     lane's columns lie in one head, the usual case);
+// The first design (a warp a row, a lane per column slice, per 32 edges
+// first the 32 x H weights into a shared table, then the 32 rows) let the
+// row gathers drain while each batch's weights formed, held 8 + 8 columns
+// of one edge a lane in registers (spilling at 8 x 32 with aux) and walked
+// one edge a warp step even where a row is 96 B (1 x 47 bf16: 12 of 32
+// lanes loading). A second try, K1's walk with each round's weights formed
+// from el loaded in the round, between its gathers and its products, lost
+// at 8 x 32 (PERF.md §6): each round waited on its el loads. This design
+// (csrc/flash_gat_walk.cuh):
+//   - each edge takes a group of G lanes, one 16 B piece a lane (two for an
+//     f32 row past 128 columns), G the row's 16 B pieces rounded up to a
+//     power of two (ops/flash_gat.flash_lanes): a warp takes 32 / G edges a
+//     step (8 x 32 bf16: 1; 1 x 47 bf16: 4; 8 x 8 f32: 2; 1 x 3 f32: 32),
+//     and the groups' partial sums meet by shuffles once per work item;
+//   - the item is walked in rounds of kRound edges (4 at 8 x 32, 16 at
+//     1 x 47). Each warp keeps a small ring of three rounds in shared
+//     memory that cp.async fills two rounds ahead with el[src, h] of each
+//     (edge, head) pair (one pair a lane: head l % KH of edge l / KH, KH =
+//     H rounded up to a power of two, several passes where kRound x KH >
+//     32) and the edges' source ids; the cols of a round are loaded one
+//     round before its copies start;
+//   - a round issues its row gathers into registers (ids from the ring),
+//     then, while they are in flight, each lane forms its pairs' weights
+//     from el already landed against er[d, h] and m[d, h] kept in
+//     registers and writes w and w * lp, as the stream carries them, back
+//     into the pair's slot; only then does the warp multiply the rows, each
+//     lane reading the weight of its columns' head. So no gather waits on
+//     its weights and no weight waits on memory, and each weight is formed
+//     once, not once per lane that uses it. Staging the rows themselves in
+//     the ring (cp.async of 16 B pieces, two rounds ahead) was slower at
+//     8 x 32, by the parts measured in PERF.md §6;
 //   - in dropout mode the lane that forms w for (edge, head) also hashes
 //     (src, d, head, seed) to q in registers (about a dozen integer
-//     operations, no plane), writes w * q (and w * lp * q) to the table
-//     and adds the undropped w (and w * lp) to den (and p). The mode is a
-//     template parameter, compiled into a library of its own
-//     (STG_DROPOUT_MODE below): the kernel without it is the one before;
+//     operations, no plane; src from the ring), writes w * q (and
+//     w * lp * q) to the slot and adds the undropped w (and w * lp) to den
+//     (and p). The mode is a template parameter, compiled into a library of
+//     its own (STG_DROPOUT_MODE below);
 //   - in bf16-stream mode the wrapper casts fs to a bf16 table once (row
-//     stride padded to a multiple of 8), halving the gathered bytes, and the
-//     products are formed two at a time by bf16x2 multiplies;
-//   - a row with more than `chunk` edges is split into work items whose
-//     partial numerators, den, u and p simply add (m is known before the
-//     pass): they meet by atomicAdd in rows the wrapper zeroed, and a
-//     second small kernel divides those rows by their den afterwards. The
-//     other rows are normalised by their own warp at the end.
+//     stride padded to a multiple of 8, so every row is 16 B aligned), and
+//     each product is one packed bf16x2 multiply (mul.rn.bf16x2: the exact
+//     product rounded once, K1's check holds it bit-equal to rounding an
+//     f32 product); an f32 table has its stride padded to a multiple of 4;
+//   - a row with more than `chunk` edges (ops/spmm_kernels.FLASH_CHUNK) is
+//     split into work items whose partial numerators, den, u and p simply
+//     add (m is known before the pass): they meet by atomicAdd in rows the
+//     wrapper zeroed, and a second small kernel divides those rows by their
+//     den afterwards. The other rows are normalised by their own warp.
 //
 // Rounding matches the JAX kernel in interpret mode: with a bf16 stream,
 // fs and the weight (w, or w * lp for u, each times q in dropout mode, the
-// f32 product rounded once) are bf16 and their product is
-// rounded to bf16 (a bf16x2 multiply rounds the exact product once, as
-// rounding an f32 product of two bf16 values does), summed in f32; el, er,
-// m, w, den and p stay f32. With an f32 stream every step is f32. Only the
-// order of the f32 sums differs.
+// f32 product rounded once) are bf16 and their product is rounded to bf16,
+// summed in f32; el, er, m, w, den and p stay f32. With an f32 stream every
+// step is f32 (the product rounded, then added). Only the order of the f32
+// sums differs.
 //
 // Build (done by stgraph_tpu_torch/ops/kernel_lib.py at first use):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -89,14 +104,14 @@
 
 #include <cfloat>
 #include <cstdint>
-#include <type_traits>
 
 #include "edge_keep_mask.cuh"
+#include "flash_gat_walk.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFull = 0xffffffffu;
+using stg::flash::kFull;
+using stg::flash::Walk;
 
 // The dropout mode this library holds: the wrapper builds this source twice,
 // without and with -DSTG_DROPOUT_MODE=1 (two nvcc processes at once, each
@@ -106,135 +121,11 @@ constexpr unsigned kFull = 0xffffffffu;
 #endif
 constexpr bool kDropMode = STG_DROPOUT_MODE != 0;
 
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
-  return __uint_as_float(bits16 << 16);
-}
-
-__device__ __forceinline__ float round_to_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// An f32 value as the stream carries it.
-template <typename T>
-__device__ __forceinline__ float stream_value(float x);
-template <>
-__device__ __forceinline__ float stream_value<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float stream_value<__nv_bfloat16>(float x) {
-  return round_to_bf16(x);
-}
-
-// A product of two stream values, formed in the stream's type.
-template <typename T>
-__device__ __forceinline__ float product(float a, float b);
-template <>
-__device__ __forceinline__ float product<float>(float a, float b) {
-  return __fmul_rn(a, b);
-}
-template <>
-__device__ __forceinline__ float product<__nv_bfloat16>(float a, float b) {
-  return round_to_bf16(__fmul_rn(a, b));
-}
-
-// acc_lo/hi += the bf16-rounded products of the two bf16 values packed in
-// `x` with the bf16 values w_lo and w_hi.
-__device__ __forceinline__ void madd_bf16x2(uint32_t x, float w_lo, float w_hi,
-                                            float& acc_lo, float& acc_hi) {
-  __nv_bfloat162 xv;
-  *reinterpret_cast<uint32_t*>(&xv) = x;
-  const __nv_bfloat162 r = __hmul2(xv, __floats2bfloat162_rn(w_lo, w_hi));
-  acc_lo += __low2float(r);
-  acc_hi += __high2float(r);
-}
-
-// Column of the tile that lane `lane` holds in slot s. kVec: the lane's
-// kSlots columns are consecutive (vector loads; needs ld % kSlots == 0 and
-// a 16 B aligned table); otherwise they are lane, lane + 32, ...
-template <int kSlots, bool kVec>
-__device__ __forceinline__ int slot_col(int lane, int s) {
-  return kVec ? lane * kSlots + s : s * 32 + lane;
-}
-
-// The lane's kSlots consecutive bf16 values of one table row, packed two to
-// a word (zero past the row's stride).
-template <int kSlots>
-__device__ __forceinline__ void load_packed(const __nv_bfloat16* p, int lane,
-                                            int ld, uint32_t raw[kSlots / 2]) {
-  const int c = lane * kSlots;
-  if (c < ld) {
-    if (kSlots == 8) {
-      const uint4 x = __ldg(reinterpret_cast<const uint4*>(p + c));
-      raw[0] = x.x;
-      raw[1] = x.y;
-      raw[2] = x.z;
-      raw[3] = x.w;
-    } else {
-      const uint2 x = __ldg(reinterpret_cast<const uint2*>(p + c));
-      raw[0] = x.x;
-      raw[1] = x.y;
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < kSlots / 2; ++q) raw[q] = 0u;
-  }
-}
-
-// The lane's kSlots values of one table row as f32 (zero past the row's
-// width).
-template <int kSlots, bool kVec>
-__device__ __forceinline__ void load_slots(const float* p, int lane, int ld,
-                                           int f, float v[kSlots]) {
-  if (kVec) {
-    const int c = lane * kSlots;
-    if (c < ld) {
-#pragma unroll
-      for (int q = 0; q < kSlots / 4; ++q) {
-        const float4 x = __ldg(reinterpret_cast<const float4*>(p + c) + q);
-        v[4 * q] = x.x;
-        v[4 * q + 1] = x.y;
-        v[4 * q + 2] = x.z;
-        v[4 * q + 3] = x.w;
-      }
-    } else {
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s) v[s] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int c = s * 32 + lane;
-      v[s] = c < f ? __ldg(p + c) : 0.f;
-    }
-  }
-}
-
-template <int kSlots, bool kVec>
-__device__ __forceinline__ void load_slots(const __nv_bfloat16* p, int lane,
-                                           int ld, int f, float v[kSlots]) {
-  const auto* q = reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int c = slot_col<kSlots, kVec>(lane, s);
-    v[s] = c < f ? bf16_bits_to_float(__ldg(q + c)) : 0.f;
-  }
-}
-
-// Blocks an SM must hold: 4 (64 registers a thread) where a lane's row
-// slice is small (packed bf16, or 4 columns); 2 for 8 unpacked columns,
-// whose loads in flight need more registers.
-template <typename T, int kSlots, bool kVec>
-constexpr int min_blocks() {
-  return (std::is_same<T, __nv_bfloat16>::value && kVec) || kSlots == 4 ? 4 : 2;
-}
-
-// kKH: H rounded up to a power of two (<= 16). kOneHead: all of a lane's
-// columns lie in one head (H == 1, or consecutive columns with F a multiple
-// of kSlots). kPacked: bf16 table read by vector loads, bf16x2 products.
+// T: the stream (float or __nv_bfloat16); kG lanes an edge, kL 16 B loads a
+// lane (flash_lanes); kOneHead: all of a lane's columns lie in one head;
 // kDrop: the dropout mode (`seed` is read only there).
-template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead, bool kAux,
-          bool kDrop>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32,
-                                  min_blocks<T, kSlots, kVec>())
+template <typename T, int kG, int kL, bool kOneHead, bool kAux, bool kDrop>
+__global__ void __launch_bounds__(stg::flash::kMaxWarpsPerBlock * 32, stg::flash::kMinBlocks)
 flash_gat_fwd_kernel(const int32_t* __restrict__ indptr,
                      const int32_t* __restrict__ cols,
                      const float* __restrict__ el,
@@ -245,18 +136,14 @@ flash_gat_fwd_kernel(const int32_t* __restrict__ indptr,
                      const int32_t* __restrict__ item_beg, int num_items,
                      float* __restrict__ out, float* __restrict__ den,
                      float* __restrict__ u, float* __restrict__ p, int h,
-                     int f, int hf, int ld, float slope, int chunk,
+                     int f, int hf, int ld, int log_kh, float slope, int chunk,
                      const int64_t* __restrict__ seed, float rate,
                      float keep_scale) {
-  constexpr bool kPacked = std::is_same<T, __nv_bfloat16>::value && kVec;
-  constexpr int kStride = 32 / kKH;  // edges between one lane's weights
-  // Per warp: the weights of the current 32 edges, by head, as the stream
-  // carries them (w, and w * lp for u).
-  __shared__ float sw[kWarpsPerBlock][32][kKH];
-  __shared__ float swl[kWarpsPerBlock][32][kAux ? kKH : 1];
+  using W = Walk<T, kG, kL, kOneHead, 8>;  // a pair's slot: el, then (w, w * lp)
+  extern __shared__ __align__(16) char flash_smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int item = blockIdx.x * kWarpsPerBlock + warp;
+  const int item = blockIdx.x * (blockDim.x >> 5) + warp;
   if (item >= num_items) return;  // warp-uniform
   const int row = item_row[item];
   const int row_beg = indptr[row];
@@ -266,93 +153,67 @@ flash_gat_fwd_kernel(const int32_t* __restrict__ indptr,
   const bool split = row_end - row_beg > chunk;
   const int64_t rh = static_cast<int64_t>(row) * h;
   const int64_t rc = static_cast<int64_t>(row) * hf;
+  const W walk(lane, h, f, hf, log_kh,
+               flash_smem + warp * stg::flash::kStages * W::stage_bytes(log_kh));
 
-  // The lane's role in the weight phase: head wh of edges wsub + t * kStride.
-  const int wh = lane % kKH;
-  const int wsub = lane / kKH;
-  const bool wh_ok = wh < h;
-  const float er_d = wh_ok ? __ldg(er + rh + wh) : 0.f;
-  const float m_d = wh_ok ? __ldg(m + rh + wh) : 0.f;
+  // the weight lanes' fields of this row
+  const float er_d = walk.wh_ok() ? __ldg(er + rh + walk.wh()) : 0.f;
+  const float m_d = walk.wh_ok() ? __ldg(m + rh + walk.wh()) : 0.f;
   const uint32_t seed_u = kDrop ? static_cast<uint32_t>(seed[0]) : 0u;
   float den_l = 0.f, p_l = 0.f;
+  float acc[W::kC], uacc[W::kC];  // uacc: aux only
+#pragma unroll
+  for (int k = 0; k < W::kC; ++k) acc[k] = uacc[k] = 0.f;
 
-  int hs[kSlots];  // the head of each of the lane's columns
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    hs[s] = min(slot_col<kSlots, kVec>(lane, s), hf - 1) / f;
-  }
-  float acc[kSlots], uacc[kAux ? kSlots : 1];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) acc[s] = 0.f;
-#pragma unroll
-  for (int s = 0; s < (kAux ? kSlots : 1); ++s) uacc[s] = 0.f;
-
-  for (int base = beg; base < end; base += 32) {
-    const int cnt = min(32, end - base);  // warp-uniform
-    const int my_src = lane < cnt ? cols[base + lane] : 0;
-#pragma unroll
-    for (int t = 0; t < kKH; ++t) {
-      const int j = wsub + t * kStride;
-      const int src = __shfl_sync(kFull, my_src, j);
-      if (wh_ok && j < cnt) {
-        const float s0 = __ldg(el + static_cast<int64_t>(src) * h + wh) + er_d;
-        const float lk = s0 >= 0.f ? s0 : slope * s0;
-        const float w = expf(fminf(lk - m_d, 0.f));
-        const float q =
-            kDrop ? stg::edge_keep(static_cast<uint32_t>(src),
-                                   static_cast<uint32_t>(row), seed_u,
-                                   static_cast<uint32_t>(wh), rate, keep_scale)
-                  : 1.f;
-        den_l += w;
-        sw[warp][j][wh] = stream_value<T>(kDrop ? __fmul_rn(w, q) : w);
-        if (kAux) {
-          const float wl = w * (s0 >= 0.f ? 1.f : slope);
-          p_l += wl;
-          swl[warp][j][wh] = stream_value<T>(kDrop ? __fmul_rn(wl, q) : wl);
-        }
-      }
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int j = 0; j < cnt; ++j) {
-      const int src = __shfl_sync(kFull, my_src, j);
-      const T* row_p = fs + static_cast<int64_t>(src) * ld;
-      float w[kSlots], wl[kSlots];
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s) {
-        const int hh = kOneHead ? hs[0] : hs[s];
-        w[s] = (kOneHead && s > 0) ? w[0] : sw[warp][j][hh];
-        if (kAux) wl[s] = (kOneHead && s > 0) ? wl[0] : swl[warp][j][hh];
-      }
-      if constexpr (kPacked) {
-        uint32_t raw[kSlots / 2];
-        load_packed<kSlots>(reinterpret_cast<const __nv_bfloat16*>(row_p), lane,
-                            ld, raw);
-#pragma unroll
-        for (int q = 0; q < kSlots / 2; ++q) {
-          madd_bf16x2(raw[q], w[2 * q], w[2 * q + 1], acc[2 * q], acc[2 * q + 1]);
-          if (kAux) {
-            madd_bf16x2(raw[q], wl[2 * q], wl[2 * q + 1], uacc[2 * q],
-                        uacc[2 * q + 1]);
+  stg::flash::walk_rounds<W::kRound>(
+      cols, beg, end - beg, lane,
+      [&](int r, int my, int cnt) { walk.issue(el, h, 1, my, r, cnt); },
+      [&](int r, int cnt) {
+        // the round's gathers first ...
+        uint4 q[W::kSteps][kL];
+        walk.gather(fs, ld, r, cnt, q);
+        // ... its weights while they are in flight, one (edge, head) pair a
+        // lane, from el[src] landed in the pair's slot
+#pragma unroll 1  // one pass a round on the main paths: unrolled, the hash's registers cost warps
+        for (int t = 0; t < walk.passes(); ++t) {
+          const int e = walk.we() + t * walk.wstride();
+          if (walk.wh_ok() && e < W::kRound && e < cnt) {
+            float2* sl = reinterpret_cast<float2*>(walk.slot(r, e, walk.wh()));
+            const float s0 = sl->x + er_d;
+            // leaky(s0) apart from the subtraction, so that no FMA rounds
+            // them once: w must be the plain version's to the last bit,
+            // since the bf16 stream rounds it
+            const float lk = s0 >= 0.f ? s0 : __fmul_rn(slope, s0);
+            const float w = expf(fminf(lk - m_d, 0.f));
+            const float wl = w * (s0 >= 0.f ? 1.f : slope);
+            const float qk =
+                kDrop ? stg::edge_keep(static_cast<uint32_t>(walk.node(r, e)), static_cast<uint32_t>(row), seed_u,
+                                       static_cast<uint32_t>(walk.wh()), rate, keep_scale)
+                      : 1.f;
+            den_l += w;
+            if (kAux) p_l += wl;
+            *sl = make_float2(W::stream(kDrop ? __fmul_rn(w, qk) : w), W::stream(kDrop ? __fmul_rn(wl, qk) : wl));
           }
         }
-      } else {
-        float v[kSlots];
-        load_slots<kSlots, kVec>(row_p, lane, ld, hf, v);
+        __syncwarp();
+        // ... then the products
 #pragma unroll
-        for (int s = 0; s < kSlots; ++s) {
-          acc[s] += product<T>(v[s], w[s]);
-          if (kAux) uacc[s] += product<T>(v[s], wl[s]);
+        for (int s = 0; s < W::kSteps; ++s) {
+          const int e = s * W::kEps + walk.grp();
+          if (e < cnt && walk.active()) {
+            float2 v[W::kNH];  // (w, w * lp) of the heads of the lane's columns
+            walk.weights(r, e, v);
+            walk.template madd<false>(q[s], v, acc);
+            if (kAux) walk.template madd<true>(q[s], v, uacc);
+          }
         }
-      }
-    }
-    __syncwarp();
-  }
+      });
 
-  // den and p of head wh: the sum over the lanes that share it. Lane l < h
-  // then holds head l's (l % kKH == l).
-#pragma unroll
-  for (int o = kKH; o < 32; o <<= 1) {
+  walk.meet(acc);
+  if (kAux) walk.meet(uacc);
+  // den and p of head wh: the sum over the lanes that share it; lane l < h
+  // then holds head l's
+  for (int o = 1 << log_kh; o < 32; o <<= 1) {
     den_l += __shfl_xor_sync(kFull, den_l, o);
     if (kAux) p_l += __shfl_xor_sync(kFull, p_l, o);
   }
@@ -365,24 +226,16 @@ flash_gat_fwd_kernel(const int32_t* __restrict__ indptr,
       if (kAux) p[rh + lane] = p_l;
     }
   }
-  float dens[kSlots];  // each column's den (unused by split rows)
+  float dens[W::kNH];  // each column's den (unused by split rows)
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    dens[s] = (kOneHead && s > 0) ? dens[0]
-                                  : __shfl_sync(kFull, den_l, kOneHead ? hs[0] : hs[s]);
-  }
+  for (int k = 0; k < W::kNH; ++k) dens[k] = __shfl_sync(kFull, den_l, walk.hs[k]);
+  if (walk.grp() == 0 && walk.active()) {
+    if (!split) {
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int c = slot_col<kSlots, kVec>(lane, s);
-    if (c < hf) {
-      if (split) {  // normalised by normalize_split_rows_kernel
-        atomicAdd(out + rc + c, acc[s]);
-        if (kAux) atomicAdd(u + rc + c, uacc[s]);
-      } else {
-        out[rc + c] = acc[s] / fmaxf(dens[s], FLT_MIN);
-        if (kAux) u[rc + c] = uacc[s];
-      }
+      for (int k = 0; k < W::kC; ++k) acc[k] /= fmaxf(dens[kOneHead ? 0 : k], FLT_MIN);
     }
+    walk.store(out + rc, acc, split);  // split rows: normalised by normalize_split_rows_kernel
+    if (kAux) walk.store(u + rc, uacc, split);
   }
 }
 
@@ -413,7 +266,7 @@ struct Args {
   float* den;
   float* u;
   float* p;
-  int h, f, hf, ld;
+  int h, f, hf, ld, log_kh;
   float slope;
   int chunk;
   const int64_t* seed;  // null without dropout
@@ -421,79 +274,48 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead, bool kAux,
-          bool kDrop>
-void launch_mode(const Args& a) {
-  const dim3 grid((a.num_items + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(kWarpsPerBlock * 32);
-  flash_gat_fwd_kernel<T, kKH, kSlots, kVec, kOneHead, kAux, kDrop>
-      <<<grid, block, 0, a.stream>>>(
-          a.indptr, a.cols, a.el, a.er, a.m, static_cast<const T*>(a.fs),
-          a.item_row, a.item_beg, a.num_items, a.out, a.den, a.u, a.p, a.h,
-          a.f, a.hf, a.ld, a.slope, a.chunk, a.seed, a.rate, a.keep_scale);
+template <typename T, int kG, int kL, bool kOneHead, bool kAux>
+cudaError_t launch_mode(const Args& a) {
+  return stg::flash::launch_walk<Walk<T, kG, kL, kOneHead, 8>>(
+      flash_gat_fwd_kernel<T, kG, kL, kOneHead, kAux, kDropMode>, a.num_items, a.log_kh, a.stream, a.indptr,
+      a.cols, a.el, a.er, a.m, static_cast<const T*>(a.fs), a.item_row, a.item_beg, a.num_items, a.out, a.den,
+      a.u, a.p, a.h, a.f, a.hf, a.ld, a.log_kh, a.slope, a.chunk, a.seed, a.rate, a.keep_scale);
 }
 
-template <typename T, int kKH, int kSlots, bool kVec, bool kOneHead>
-void launch_tile(const Args& a) {
-  if (a.u != nullptr) {
-    launch_mode<T, kKH, kSlots, kVec, kOneHead, true, kDropMode>(a);
-  } else {
-    launch_mode<T, kKH, kSlots, kVec, kOneHead, false, kDropMode>(a);
+template <typename T, int kG, int kL>
+cudaError_t launch_geometry(const Args& a) {
+  const bool one_head = a.h == 1 || a.f % Walk<T, kG, kL, true, 8>::kC == 0;
+  if (one_head) {
+    return a.u != nullptr ? launch_mode<T, kG, kL, true, true>(a) : launch_mode<T, kG, kL, true, false>(a);
   }
-}
-
-template <typename T, int kKH, int kSlots>
-void launch_slots(const Args& a) {
-  // Vector loads need whole slot groups inside each row and 16 B rows.
-  const bool vec = reinterpret_cast<uintptr_t>(a.fs) % 16 == 0 && a.ld % kSlots == 0;
-  if (kKH == 1) {
-    if (vec) launch_tile<T, kKH, kSlots, true, true>(a);
-    else launch_tile<T, kKH, kSlots, false, true>(a);
-  } else if (vec && a.f % kSlots == 0) {
-    launch_tile<T, kKH, kSlots, true, true>(a);
-  } else if (vec) {
-    launch_tile<T, kKH, kSlots, true, false>(a);
-  } else {
-    launch_tile<T, kKH, kSlots, false, false>(a);
-  }
-}
-
-template <typename T, int kKH>
-void launch_heads(const Args& a) {
-  if (a.hf <= 128) {
-    launch_slots<T, kKH, 4>(a);
-  } else {
-    launch_slots<T, kKH, 8>(a);
-  }
+  return a.u != nullptr ? launch_mode<T, kG, kL, false, true>(a) : launch_mode<T, kG, kL, false, false>(a);
 }
 
 template <typename T>
-void launch(const Args& a) {
-  if (a.h <= 1) {
-    launch_heads<T, 1>(a);
-  } else if (a.h <= 2) {
-    launch_heads<T, 2>(a);
-  } else if (a.h <= 4) {
-    launch_heads<T, 4>(a);
-  } else if (a.h <= 8) {
-    launch_heads<T, 8>(a);
-  } else {
-    launch_heads<T, 16>(a);
-  }
+cudaError_t launch(const Args& a, int g, int loads) {
+  cudaError_t err = cudaErrorInvalidValue;
+  stg::flash::dispatch<T>(g, loads, [&](auto geometry) {
+    using Geo = decltype(geometry);
+    err = launch_geometry<T, Geo::kG, Geo::kL>(a);
+  });
+  return err;
 }
 
 }  // namespace
 
-// Launches K8 on `stream` and returns cudaGetLastError() (0 on success).
-// `el`, `er`, `m`, `den` and `p` are (n, h) f32, h <= 16; `fs` is (n, ld)
-// with ld >= hf = h * f, f32 or bf16 by `fs_bf16`, hf <= 256; `out` and `u`
-// are (n, hf) f32. `u` and `p` are null without aux. The caller zeroes the
+// Launches K8 on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for arguments the kernel was not built for.
+// `el`, `er`, `m`, `den` and `p` are (n, h) f32, h <= 16; `fs` is (n, ld),
+// 16 B aligned, f32 or bf16 by `fs_bf16`, with ld >= hf = h * f a multiple
+// of the 16 B load's columns (4 or 8), hf <= 256; `out` and `u` are (n, hf)
+// f32. `u` and `p` are null without aux. `g` lanes take an edge with
+// `loads` 16 B loads each (ops/flash_gat.flash_lanes). The caller zeroes the
 // `num_split` rows listed in `split_rows` (int64) in out, den, u and p; the
 // kernel writes every element of every other row. `seed` (one int64 on the
 // device, its low 32 bits the hash's seed) is given, with `rate` and
 // `keep_scale` = f32(1 / (1 - rate)), to the library built for the dropout
-// mode, and null to the other; a call to the wrong library returns
-// cudaErrorInvalidValue and launches nothing.
+// mode, and null to the other; a call to the wrong library launches
+// nothing.
 extern "C" int stg_flash_gat_fwd(const void* indptr, const void* cols,
                                  const void* el, const void* er,
                                  const void* m, const void* fs, int fs_bf16,
@@ -501,8 +323,8 @@ extern "C" int stg_flash_gat_fwd(const void* indptr, const void* cols,
                                  int num_items, const void* split_rows,
                                  int num_split, void* out, void* den, void* u,
                                  void* p, int h, int f, int ld, float slope,
-                                 int chunk, const void* seed, float rate,
-                                 float keep_scale, void* stream) {
+                                 int chunk, int g, int loads, const void* seed,
+                                 float rate, float keep_scale, void* stream) {
   Args a;
   a.indptr = static_cast<const int32_t*>(indptr);
   a.cols = static_cast<const int32_t*>(cols);
@@ -521,20 +343,19 @@ extern "C" int stg_flash_gat_fwd(const void* indptr, const void* cols,
   a.f = f;
   a.hf = h * f;
   a.ld = ld;
+  a.log_kh = stg::flash::log2_ceil(h);
   a.slope = slope;
   a.chunk = chunk;
   a.seed = static_cast<const int64_t*>(seed);
   a.rate = rate;
   a.keep_scale = keep_scale;
   a.stream = static_cast<cudaStream_t>(stream);
-  if ((seed != nullptr) != kDropMode) {
+  if ((seed != nullptr) != kDropMode || (a.u != nullptr) != (a.p != nullptr) ||
+      !stg::flash::geometry_ok(h, f, ld, fs, fs_bf16, g, loads, chunk)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (fs_bf16) {
-    launch<__nv_bfloat16>(a);
-  } else {
-    launch<float>(a);
-  }
+  const cudaError_t err = fs_bf16 ? launch<__nv_bfloat16>(a, g, loads) : launch<float>(a, g, loads);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (num_split > 0) {
     const int64_t total = static_cast<int64_t>(num_split) * a.hf;
     normalize_split_rows_kernel<<<static_cast<unsigned>((total + 255) / 256),

@@ -58,12 +58,13 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from stgraph_tpu_torch.graph.csr import CSR
 from stgraph_tpu_torch.ops import kernel_lib
 from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow
 from stgraph_tpu_torch.ops.spmm_kernels import (
-    ROW_CHUNK,
+    FLASH_CHUNK,
     _gathered_table,
     _stream_is_bf16,
     _work_items,
@@ -79,14 +80,16 @@ __all__ = [
     "flash_gat_bwd_plain",
     "flash_gat_fwd",
     "flash_gat_fwd_plain",
+    "flash_lanes",
     "flash_supported",
     "reference_flash_tiling",
     "stability_max",
 ]
 
-# The Hopper kernels' tiling: one warp per row holds every head's weights
-# for 32 edges (H <= 16) and every column of the row (H * F <= 256, 8 a
-# lane).
+# The Hopper kernels' tiling: a group of at most 32 lanes holds every
+# column of a gathered row (H * F <= 256: 8 bf16 or f32 columns a lane),
+# and a warp forms a round's weights one (edge, head) pair a lane, for at
+# most 16 heads.
 FLASH_MAX_HEADS = 16
 FLASH_MAX_WIDTH = 256
 
@@ -97,12 +100,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _FWD_SIGNATURES = {
     "stg_flash_gat_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP, _I,
-                          _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP, _F, _F, _VP],
+                          _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _I, _I, _VP, _F, _F, _VP],
     "stg_edge_keep_mask": [_VP, _VP, ctypes.c_longlong, _I, _VP, _F, _F, _VP, _VP],
 }
 _BWD_SIGNATURES = {
     "stg_flash_gat_bwd": [_VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP,
-                          _I, _I, _I, _F, _I, _VP, _F, _F, _VP],
+                          _I, _I, _I, _F, _I, _I, _I, _VP, _F, _F, _VP],
 }
 
 
@@ -111,6 +114,31 @@ def flash_supported(heads: int, f: int) -> bool:
     ``1 <= heads * f <= 256``. Unlike the TPU kernels (``flash_gat.py:99``)
     there is no 128-lane rule: any ``f`` up to the width bound works."""
     return 1 <= heads <= FLASH_MAX_HEADS and f >= 1 and heads * f <= FLASH_MAX_WIDTH
+
+
+def flash_lanes(hf: int, elem_bytes: int) -> Tuple[int, int]:
+    """How K8's and K9's warps cover a gathered row of ``hf`` columns, as
+    ``(g, loads)``: ``g`` lanes take one edge, each ``loads`` 16 B loads
+    (``16 / elem_bytes`` columns each), so a warp takes ``32 // g`` edges a
+    step. ``g`` is the row's 16 B pieces rounded up to a power of two; an
+    f32 row of more than 32 pieces (past 128 columns) takes two loads a
+    lane. The table's rows must be 16 B aligned (``_flash_table``)."""
+    v = 16 // elem_bytes
+    pieces = -(-hf // v)
+    loads = 2 if pieces > 32 else 1
+    return 1 << (max(-(-pieces // loads), 1) - 1).bit_length(), loads
+
+
+def _flash_table(csr: CSR, feats: torch.Tensor, stream_dtype, kernel: str):
+    """``_gathered_table`` with every row 16 B aligned: an f32 table whose
+    row stride is not a multiple of 4 columns, or whose data is not 16 B
+    aligned, is copied with its stride padded to 4."""
+    table, ld, bf16 = _gathered_table(csr, feats, stream_dtype, kernel)
+    if not bf16 and (ld % 4 or table.data_ptr() % 16):
+        pad = -ld % 4
+        table = F.pad(table, (0, pad)) if pad else table.clone()
+        ld += pad
+    return table, ld, bf16
 
 
 # The TPU kernels' side tile: 128 lanes, which must hold six H-wide fields.
@@ -362,16 +390,19 @@ def flash_gat_fwd(
     # the dropout mode's kernels are a library of their own (kernel_lib.DEFINES)
     lib = kernel_lib.load("flash_gat_fwd_dropout" if rate > 0.0 else "flash_gat_fwd", _FWD_SIGNATURES)
     dev = fs.device
-    table, ld, bf16 = _gathered_table(csr, fs, stream_dtype, "K8")
-    el32, er32, m32 = (_f32(t, dev, name) for t, name in ((el, "el"), (er, "er"), (m, "m")))
     n, hf = fs.shape
+    # allocated first, so the poisoned-output checks find them in the block freed just before
     out = torch.empty(n, hf, dtype=torch.float32, device=dev)
     den = torch.empty(n, heads, dtype=torch.float32, device=dev)
     u = torch.empty_like(out) if aux else None
     p = torch.empty_like(den) if aux else None
+    table, ld, bf16 = _flash_table(csr, fs, stream_dtype, "K8")
+    el32, er32, m32 = (_f32(t, dev, name) for t, name in ((el, "el"), (er, "er"), (m, "m")))
     if n == 0:
         return out, den, u, p
-    item_row, item_beg, split_rows = _work_items(csr)
+    chunk = FLASH_CHUNK["fwd"]
+    g, loads = flash_lanes(hf, 2 if bf16 else 4)
+    item_row, item_beg, split_rows = _work_items(csr, chunk)
     if split_rows.numel():
         for t in (out, den, u, p):
             if t is not None:
@@ -398,7 +429,9 @@ def flash_gat_fwd(
         hf // heads,
         ld,
         float(negative_slope),
-        ROW_CHUNK,
+        chunk,
+        g,
+        loads,
         None if seed_t is None else seed_t.data_ptr(),
         rate,
         _keep_scale(rate),
@@ -507,16 +540,21 @@ def flash_gat_bwd(
 
     lib = kernel_lib.load("flash_gat_bwd_dropout" if rate > 0.0 else "flash_gat_bwd", _BWD_SIGNATURES)
     dev = gu.device
-    table, ld, bf16 = _gathered_table(csr_t, gu, stream_dtype, "K9")
-    el32 = _f32(el, dev, "el")
-    fields = torch.cat([_f32(er, dev, "er"), _f32(m, dev, "m"), _f32(c, dev, "c")], 1).contiguous()
-    fs32 = _f32(fs, dev, "fs")  # rounded to the stream in the kernel
     n, hf = gu.shape
+    # allocated first, so the poisoned-output checks find them in the block freed just before
     dfs = torch.empty(n, hf, dtype=torch.float32, device=dev)
     dl = torch.empty(n, heads, dtype=torch.float32, device=dev)
+    table, ld, bf16 = _flash_table(csr_t, gu, stream_dtype, "K9")
+    el32 = _f32(el, dev, "el")
+    # (er, m, c, 0) of each node and head: one 16 B copy brings a pair's three
+    er32, m32, c32 = _f32(er, dev, "er"), _f32(m, dev, "m"), _f32(c, dev, "c")
+    fields = torch.stack([er32, m32, c32, torch.zeros_like(c32)], 2)
+    fs32 = _f32(fs, dev, "fs")  # rounded to the stream in the kernel
     if n == 0:
         return dfs, dl
-    item_row, item_beg, split_rows = _work_items(csr_t)
+    chunk = FLASH_CHUNK["bwd"]
+    g, loads = flash_lanes(hf, 2 if bf16 else 4)
+    item_row, item_beg, split_rows = _work_items(csr_t, chunk)
     if split_rows.numel():
         dfs.index_fill_(0, split_rows, 0.0)
         dl.index_fill_(0, split_rows, 0.0)
@@ -538,7 +576,9 @@ def flash_gat_bwd(
         hf // heads,
         ld,
         float(negative_slope),
-        ROW_CHUNK,
+        chunk,
+        g,
+        loads,
         None if seed_t is None else seed_t.data_ptr(),
         rate,
         _keep_scale(rate),

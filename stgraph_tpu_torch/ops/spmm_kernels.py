@@ -74,6 +74,7 @@ from stgraph_tpu_torch.graph.csr import CSR
 from stgraph_tpu_torch.ops import kernel_lib
 
 __all__ = [
+    "FLASH_CHUNK",
     "K1_CHUNK",
     "ROW_CHUNK",
     "k1_lanes",
@@ -86,13 +87,16 @@ __all__ = [
 ]
 
 # Edges one warp takes from a row; longer rows are split into several work
-# items whose partial sums meet by atomicAdd. K2-K5, K8 and K9 take items of
-# ROW_CHUNK edges; K1 takes its own length by mode (K1_CHUNK).
+# items whose partial sums meet by atomicAdd. K2-K5 take items of ROW_CHUNK
+# edges; K1, K8 and K9 take their own lengths (K1_CHUNK, FLASH_CHUNK).
 ROW_CHUNK = 1024
 # K1's item length by mode: "one_head" (the GCN paths and the shard mode),
 # "heads" (heads > 1, with the denominator) and "nogather" (the no-gather
 # sum, ops.segment_kernels.segment_sum_wide).
 K1_CHUNK = {"one_head": 1024, "heads": 128, "nogather": 128}
+# K8's ("fwd") and K9's ("bwd", on the transpose CSR) item lengths
+# (ops.flash_gat).
+FLASH_CHUNK = {"fwd": 512, "bwd": 512}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int

@@ -524,6 +524,100 @@ def test_k8_and_k9_dropout_mode_match_plain_on_the_card(cuda, rng, h, f, stream,
     assert (FG.flash_gat_fwd.dropout_launches, FG.flash_gat_bwd.dropout_launches) == (before[0] + 2, before[1] + 1)
 
 
+def _flash_against_plain(csr, el, er, c, fs, gu, h, stream, rate=0.0, seed=None, poison=False, tol=2e-4):
+    """K8 (with and without aux) and K9 against their plain versions, every
+    output to ``tol`` of its sum of absolute terms; with ``poison`` each
+    call's first output (out, dfs) takes a block filled with NaN just
+    before."""
+    n, hf = fs.shape
+    m = FG.stability_max(csr, el, er, 0.2)
+    sd = seed if rate else None
+
+    def call(fn):
+        ptr = _poison((n, hf), fs.device) if poison else None
+        res = fn()
+        torch.cuda.synchronize()
+        assert ptr is None or res[0].data_ptr() == ptr  # the output took the poisoned block
+        return res
+
+    for aux in (False, True):
+        outs = call(lambda: FG.flash_gat_fwd(csr, el, er, m, fs, h, 0.2, stream, aux=aux, rate=rate, seed=sd))
+        refs = FG.flash_gat_fwd_plain(csr, el, er, m, fs, h, 0.2, stream, aux, None, rate, sd)
+        masses = FG.flash_gat_fwd_plain(csr, el, er, m, fs.abs(), h, 0.2, stream, aux, None, rate, sd)
+        for out, ref, mass in zip(outs, refs, masses):
+            if ref is not None:
+                assert not out.isnan().any()
+                _within_mass(out, ref, mass, tol)
+    csr_t = csr.transpose()
+    dfs, dl = call(lambda: FG.flash_gat_bwd(csr_t, el, er, m, c, gu, fs, h, 0.2, stream, rate=rate, seed=sd))
+    ref_dfs, ref_dl = FG.flash_gat_bwd_plain(csr_t, el, er, m, c, gu, fs, h, 0.2, stream, None, rate, sd)
+    mass_dfs, mass_dl = FG.flash_gat_bwd_plain(csr_t, el, er, m, -c.abs(), gu.abs(), fs.abs(), h, 0.2, stream,
+                                               None, rate, sd)
+    assert not dfs.isnan().any() and not dl.isnan().any()
+    _within_mass(dfs, ref_dfs, mass_dfs, tol)
+    _within_mass(dl, ref_dl, mass_dl, tol)
+
+
+@pytest.mark.parametrize("h,f", [(8, 32), (1, 47), (3, 5), (16, 16)])
+@pytest.mark.parametrize("mode", ["aux and no aux", "dropout 0.3", "dropout 0.6"])
+@pytest.mark.parametrize("stream", [None, torch.bfloat16])
+def test_k8_and_k9_write_every_row_of_a_poisoned_output(cuda, rng, h, f, mode, stream):
+    """K8 (with and without aux, and in the dropout mode) and K9 into output
+    blocks filled with NaN and freed just before: only split rows are
+    zeroed, every other row is stored once."""
+    n = 3000
+    csr, el, er, c, fs, gu = _flash_inputs(rng, cuda, n, h, f)
+    rate = float(mode.split()[1]) if mode.startswith("dropout") else 0.0
+    seed = torch.tensor([2_718_281_828], device=cuda)
+    FG.flash_gat_fwd(csr, el, er, FG.stability_max(csr, el, er, 0.2), fs, h, 0.2, stream)  # items built once
+    _flash_against_plain(csr, el, er, c, fs, gu, h, stream, rate, seed, poison=True)
+
+
+@pytest.mark.parametrize("stream", [None, torch.bfloat16])
+def test_k8_and_k9_one_head_at_every_width(cuda, rng, stream):
+    """H = 1 at every width from 1 to 256: every lane group (1 to 32 lanes
+    an edge, one or two loads a lane) and every padded row stride."""
+    n = 400
+    src, dst = _graph(rng, n, 6000, hub_deg=1500)
+    csr = build_csr(src, dst, n, device=cuda)
+    for f in range(1, 257):
+        el, er, c = (torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(cuda) for _ in range(3))
+        fs, gu = (torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(cuda) for _ in range(2))
+        _flash_against_plain(csr, el, er, c, fs, gu, 1, stream)
+
+
+@pytest.mark.parametrize("h,f", [
+    (8, 1), (3, 3), (4, 4), (16, 1), (2, 8), (11, 3), (4, 8), (13, 5), (16, 4), (3, 43), (16, 8), (2, 100),
+    (16, 16), (2, 128), (4, 64),
+])
+@pytest.mark.parametrize("stream", [None, torch.bfloat16])
+def test_k8_and_k9_at_every_lane_group_boundary(cuda, rng, h, f, stream):
+    """Several heads on each side of every lane-group boundary (rows of
+    4, 8, 16, 32, 64 and 128 columns and one past, in both streams; 256
+    f32 columns take two loads a lane), heads not a power of two among
+    them, and a lane's columns spanning heads (F not a multiple of them)."""
+    csr, el, er, c, fs, gu = _flash_inputs(rng, cuda, 3000, h, f)
+    _flash_against_plain(csr, el, er, c, fs, gu, h, stream)
+
+
+@pytest.mark.parametrize("chunk", [37, 128])
+@pytest.mark.parametrize("h,f,stream", [(8, 32, torch.bfloat16), (1, 47, torch.bfloat16), (8, 8, None),
+                                        (1, 3, None), (4, 32, None)])
+def test_k8_and_k9_split_hubs_and_items_ending_inside_an_edge_step(cuda, rng, monkeypatch, chunk, h, f, stream):
+    """A hub split into several items in the forward CSR and in its
+    transpose, at item lengths of 128 edges and of 37 (so items end inside
+    a lane group's step at every width, and inside a round), with and
+    without dropout."""
+    from stgraph_tpu_torch.ops import spmm_kernels as SK
+
+    monkeypatch.setitem(SK.FLASH_CHUNK, "fwd", chunk)
+    monkeypatch.setitem(SK.FLASH_CHUNK, "bwd", chunk)
+    csr, el, er, c, fs, gu = _flash_inputs(rng, cuda, 3000, h, f)
+    seed = torch.tensor([31_415_926], device=cuda)
+    for rate in (0.0, 0.6):
+        _flash_against_plain(csr, el, er, c, fs, gu, h, stream, rate, seed, poison=True)
+
+
 def test_gat_training_step_on_cuda_matches_cpu(cuda, rng):
     n, e = 5000, 250_000  # the flash kernels stream bf16
     edges = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)], 1)

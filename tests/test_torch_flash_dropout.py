@@ -378,11 +378,12 @@ def test_kernel_library_name_hashes_local_headers(tmp_path, monkeypatch):
     monkeypatch.setitem(kernel_lib.DEFINES, "probe_mode", ["-DMODE=1"])
     paths = kernel_lib._paths(["probe", "probe_mode"])
     assert os.path.basename(paths["probe_mode"]).split("-")[1] != os.path.basename(paths["probe"]).split("-")[1]
-    # the shipped kernels: K8 and K9 carry the hash's header in their names,
-    # and each has a dropout-mode library built from its source
+    # the shipped kernels: K8 and K9 carry the hash's header and their shared
+    # walk's in their names, and each has a dropout-mode library built from
+    # its source
     csrc = os.path.join(os.path.dirname(FG.__file__), os.pardir, "csrc")
     for name in ("flash_gat_fwd", "flash_gat_bwd"):
         assert [os.path.basename(p) for p in kernel_lib.local_headers(os.path.join(csrc, f"{name}.cu"))] == [
-            "edge_keep_mask.cuh"]
+            "edge_keep_mask.cuh", "flash_gat_walk.cuh"]
         assert kernel_lib.SOURCES[f"{name}_dropout"] == kernel_lib.SOURCES[name]
         assert kernel_lib.DEFINES[f"{name}_dropout"] == ["-DSTG_DROPOUT_MODE=1"]

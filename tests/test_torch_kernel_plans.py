@@ -1,4 +1,4 @@
-"""The host and device plans of K10 and K6, on the CPU.
+"""The host and device plans of K10, K6, K1, K8 and K9, on the CPU.
 
 K10 walks a host-built work list over the blocked layout
 (``ops.spmm_blocked.k10_work_items``): each item a slot range of one row,
@@ -11,7 +11,11 @@ held against a direct numpy computation). The kernels run only on the
 card; here each plan is held against numpy, and a numpy walk of the
 kernel's writes over the plan, into an output filled with NaN, must give
 the plain version's result with every row written and each unshared row
-written once.
+written once. K1, K8 and K9 cover a gathered row with groups of lanes
+(``spmm_kernels.k1_lanes``, ``flash_gat.flash_lanes``), checked by their
+index arithmetic; K8's and K9's walk (rounds, one weight pair a lane, the
+groups' meeting, the stores) runs here in numpy against their plain
+versions.
 """
 
 import numpy as np
@@ -407,10 +411,12 @@ def _work_item_calls(path):
     return calls
 
 
-def test_k2_to_k9_keep_row_chunk_items():
-    """K2, K3, K4, K5, K8 and K9 take ``_work_items``'s default length,
-    ROW_CHUNK, and hand ROW_CHUNK to their kernels; only K1's wrappers pass
-    a length of their own (K1_CHUNK)."""
+def test_k1_k8_k9_take_their_own_item_lengths_and_k2_to_k5_keep_row_chunk():
+    """K2, K3, K4 and K5 take ``_work_items``'s default length, ROW_CHUNK,
+    and hand ROW_CHUNK to their kernels; K1's wrappers pass a length of
+    their own (K1_CHUNK), and K8's and K9's theirs (FLASH_CHUNK "fwd" and
+    "bwd"), the same length to ``_work_items`` and to the kernel."""
+    import ast
     import inspect
     import os
 
@@ -418,18 +424,25 @@ def test_k2_to_k9_keep_row_chunk_items():
 
     assert SK.ROW_CHUNK == 1024
     assert inspect.signature(SK._work_items).parameters["chunk"].default == SK.ROW_CHUNK
+    assert set(SK.FLASH_CHUNK) == {"fwd", "bwd"}
+    assert all(c in (128, 256, 512, 1024) for c in SK.FLASH_CHUNK.values())
     ops = os.path.join(os.path.dirname(SK.__file__))
     calls = {}
     for name in ("segment_kernels.py", "spmm_kernels.py", "flash_gat.py"):
         calls.update(_work_item_calls(os.path.join(ops, name)))
-    for fn in ("spmm_rowmask_bwd", "segment_sum_narrow", "segment_max_narrow", "segment_max_wide",
-               "flash_gat_fwd", "flash_gat_bwd"):  # K2, K3, K4, K5, K8, K9
+    for fn in ("spmm_rowmask_bwd", "segment_sum_narrow", "segment_max_narrow", "segment_max_wide"):  # K2-K5
         kinds = dict(calls[fn])
         assert len(kinds["items"]) == 1, (fn, kinds)  # the CSR alone: ROW_CHUNK items
         assert "ROW_CHUNK" in kinds["entry"], (fn, kinds)
-    for fn in ("_launch_k1", "segment_sum_wide"):  # K1, its no-gather mode
+    for fn in ("_launch_k1", "segment_sum_wide", "flash_gat_fwd", "flash_gat_bwd"):  # K1, its no-gather mode, K8, K9
         kinds = dict(calls[fn])
         assert kinds["items"][1] == "chunk" and "chunk" in kinds["entry"] and "ROW_CHUNK" not in kinds["entry"]
+    tree = ast.parse(open(os.path.join(ops, "flash_gat.py")).read())
+    for fn, key in (("flash_gat_fwd", "fwd"), ("flash_gat_bwd", "bwd")):
+        body = next(d for d in tree.body if isinstance(d, ast.FunctionDef) and d.name == fn)
+        chunks = [ast.unparse(a.value) for a in ast.walk(body)
+                  if isinstance(a, ast.Assign) and [ast.unparse(t) for t in a.targets] == ["chunk"]]
+        assert chunks == [f"FLASH_CHUNK['{key}']"], (fn, chunks)
 
 
 def _bf16_bits_rne(x32):
@@ -475,3 +488,231 @@ def test_packed_bf16_product_is_the_first_designs_formula():
     assert np.array_equal(formula[keep], single)
     subnormal = (single & 0x7F80) == 0
     assert subnormal.sum() > 1000 and (single == 0x7F80).any() and (single == 0x8000).any()
+
+
+# -- K8 and K9: lane groups, rounds and weight pairs, item lengths --------
+
+
+def _flash_geometry(h, f, elem):
+    """K8's and K9's walk (``csrc/flash_gat_walk.cuh``) at ``h`` x ``f``:
+    its lanes a row, loads a lane, edges a step, steps and edges a round,
+    KH, weight passes a round, and the padded row stride."""
+    from stgraph_tpu_torch.ops.flash_gat import flash_lanes
+
+    g, loads = flash_lanes(h * f, elem)
+    v = 16 // elem
+    eps = 32 // g
+    steps = 4 if eps * 4 <= 32 else 32 // eps
+    log_kh = (h - 1).bit_length()
+    kh = 1 << log_kh
+    rnd = steps * eps
+    return dict(g=g, loads=loads, v=v, kc=v * loads, eps=eps, steps=steps, rnd=rnd, log_kh=log_kh, kh=kh,
+                passes=(rnd * kh + 31) >> 5, ld=-(-(h * f) // v) * v)
+
+
+def test_flash_lanes_cover_each_row_once_at_every_tiling():
+    """At every tiling ``flash_supported`` takes and both streams: ``g`` is
+    the fewest lanes (a power of two) whose 16 B loads cover the row, two
+    loads a lane only for an f32 row past 128 columns; each column is kept
+    by one lane, every load lies inside the padded row, a round's edges
+    (at most 32) fall one to a lane of the cols load, its (edge, head)
+    pairs one to a (lane, pass), and a warp's ring of three rounds fits a
+    block's shared memory."""
+    from stgraph_tpu_torch.ops.flash_gat import FLASH_MAX_HEADS, FLASH_MAX_WIDTH, flash_supported
+
+    tilings = [(h, f) for h in range(1, FLASH_MAX_HEADS + 1) for f in range(1, FLASH_MAX_WIDTH + 1)
+               if flash_supported(h, f)]
+    assert len(tilings) == sum(FLASH_MAX_WIDTH // h for h in range(1, FLASH_MAX_HEADS + 1))
+    assert not flash_supported(17, 1) and not flash_supported(1, 257) and not flash_supported(2, 129)
+    for h, f in tilings:
+        hf = h * f
+        for elem in (2, 4):
+            geo = _flash_geometry(h, f, elem)
+            g, loads, v, kc = geo["g"], geo["loads"], geo["v"], geo["kc"]
+            assert g & (g - 1) == 0 and 1 <= g <= 32 and loads == (2 if elem == 4 and hf > 128 else 1)
+            assert g * kc >= hf and (g == 1 or g // 2 * kc < hf), (h, f, elem, g)
+            kept = np.zeros(hf, np.int64)
+            for sub in range(g):
+                for lo in range(loads):
+                    start = sub * kc + lo * v
+                    if start < hf:
+                        assert start % v == 0 and start + v <= geo["ld"]
+                        kept[start:min(start + v, hf)] += 1
+            assert np.all(kept == 1), (h, f, elem)
+            assert 32 % geo["rnd"] == 0 and geo["rnd"] % geo["eps"] == 0
+            pairs = np.zeros((geo["rnd"], geo["kh"]), np.int64)
+            for t in range(geo["passes"]):
+                for lane in range(32):
+                    e = (lane >> geo["log_kh"]) + t * (32 >> geo["log_kh"])
+                    if e < geo["rnd"]:
+                        pairs[e, lane & (geo["kh"] - 1)] += 1
+            assert np.all(pairs == 1), (h, f, elem)
+            ring = 3 * (geo["rnd"] * geo["kh"] * 16 + geo["rnd"] * 4)  # K9's, the larger
+            assert ring <= 227 * 1024, (h, f, elem, ring)
+
+
+@pytest.mark.parametrize("h,f,elem,expected", [
+    (8, 32, 2, (32, 1)),  # the ogbn GAT's first layer, bf16: one edge a step
+    (1, 47, 2, (8, 1)),  # its output layer: 96 B rows, four edges a step
+    (8, 8, 4, (16, 1)),  # Pubmed's first layer, f32: two edges a step
+    (1, 3, 4, (1, 1)),  # Pubmed's output layer: 32 edges a step
+    (4, 32, 2, (16, 1)),  # dist_gat_attention's tiling
+    (8, 32, 4, (32, 2)),  # an f32 row past 128 columns: two loads a lane
+    (1, 47, 4, (16, 1)),
+])
+def test_flash_lanes_at_the_main_tilings(h, f, elem, expected):
+    from stgraph_tpu_torch.ops.flash_gat import flash_lanes
+
+    assert flash_lanes(h * f, elem) == expected
+
+
+def _flash_walk(csr, h, f, elem, chunk, slope, el, er, m, fs, kind, gu=None, c=None):
+    """K8 (``kind`` "fwd": out, den, u, p) or K9 ("bwd": dfs, dl) by the
+    kernels' own index arithmetic (``csrc/flash_gat_walk.cuh``,
+    ``flash_gat_fwd.cu``, ``flash_gat_bwd.cu``) in f64 without the bf16
+    roundings: items of ``chunk`` edges walked in rounds, each round's pair
+    fields and node ids copied into its stage of the ring, its row pieces
+    gathered a piece a lane, its (edge, head) pairs one to a (lane, pass),
+    the products, the groups' meeting and each lane's stores. Checks each
+    gather (inside the row, one lane a piece) and each pair slot (written
+    once, read after) on the way, and counts each output element's
+    stores."""
+    from stgraph_tpu_torch.ops.spmm_kernels import k1_work_items
+
+    geo = _flash_geometry(h, f, elem)
+    g, v, kc, eps, rnd, kh, ld = geo["g"], geo["v"], geo["kc"], geo["eps"], geo["rnd"], geo["kh"], geo["ld"]
+    loads, steps = geo["loads"], geo["steps"]
+    hf = h * f
+    one_head = h == 1 or f % kc == 0
+    indptr, _, cols, _ = csr.host_arrays()
+    n = csr.num_nodes
+    el, er, m, fs = (t.double().numpy() for t in (el, er, m, fs))
+    table = np.zeros((csr.num_cols, ld))
+    table[:, :hf] = (fs if kind == "fwd" else gu.double().numpy())
+    c = None if c is None else c.double().numpy()
+    lanes = np.arange(32)
+    grp, col0 = lanes // g, (lanes % g) * kc
+    hs = np.minimum(col0[:, None] + np.arange(kc), hf - 1) // f
+    if one_head:
+        hs = np.repeat(hs[:, :1], kc, 1)
+    wh, we = lanes & (kh - 1), lanes >> geo["log_kh"]
+    outs = [np.zeros((n, hf)), np.zeros((n, h)), np.zeros((n, hf)), np.zeros((n, h))]
+    stores = np.zeros((n, hf), np.int64)
+    item_row, item_beg, split_rows = k1_work_items(indptr, chunk)
+    for row, beg in zip(item_row, item_beg):
+        row_end = int(indptr[row + 1])
+        nedges = min(int(beg) + chunk, row_end) - int(beg)
+        split = row_end - int(indptr[row]) > chunk
+        acc, acc2 = np.zeros((32, kc)), np.zeros((32, kc))
+        wsum, wsum2 = np.zeros(32), np.zeros(32)  # K8: den, p; K9: cterm
+        if kind == "bwd":
+            xw = np.where(col0[:, None] + np.arange(kc) < hf,
+                          np.concatenate([fs[row], np.zeros(ld + kc)])[col0[:, None] + np.arange(kc)], 0.0)
+        for r in range(-(-nedges // rnd)):
+            cnt = min(rnd, nedges - r * rnd)
+            my = np.zeros(32, np.int64)
+            my[:min(rnd, cnt)] = cols[int(beg) + r * rnd:int(beg) + r * rnd + min(rnd, cnt)]
+            pieces, slots = {}, {}  # the round: its gathered pieces by (step, lane, load), its pair slots by (edge, head)
+            for s in range(steps):  # the gathers: one 16 B piece a lane a load
+                e = s * eps + grp
+                for lane in np.flatnonzero(e < cnt):
+                    for lo in range(loads):
+                        start = col0[lane] + lo * v
+                        if start < hf:
+                            assert start + v <= ld
+                            key = (s * 32 + lane) * loads + lo
+                            assert key not in pieces and key < steps * 32 * loads
+                            pieces[key] = table[my[e[lane]], start:start + v]
+            for t in range(geo["passes"]):  # the ring: the pairs' node fields
+                e = we + t * (32 >> geo["log_kh"])
+                for lane in np.flatnonzero((wh < h) & (e < rnd) & (e < cnt)):
+                    key = (int(e[lane]), int(wh[lane]))
+                    assert key not in slots
+                    slots[key] = int(my[e[lane] & 31])  # the node whose fields land there
+            assert len(slots) == cnt * h
+            w_of = {}
+            for (e, hh), o in slots.items():  # the weights, from the landed fields
+                if kind == "fwd":
+                    s0, mm = el[o, hh] + er[row, hh], m[row, hh]
+                else:
+                    s0, mm = el[row, hh] + er[o, hh], m[o, hh]
+                lp = 1.0 if s0 >= 0 else slope
+                w = np.exp(min(s0 * lp - mm, 0.0))
+                w_of[(e, hh)] = (w, w * lp)
+                lane = e % (32 >> geo["log_kh"]) * kh + hh  # the lane that formed it
+                assert we[lane] + (e // (32 >> geo["log_kh"])) * (32 >> geo["log_kh"]) == e and wh[lane] == hh
+                if kind == "fwd":
+                    wsum[lane] += w
+                    wsum2[lane] += w * lp
+                else:
+                    wsum[lane] += w * lp * c[o, hh]
+            for s in range(steps):  # the products, from the stage
+                e = s * eps + grp
+                for lane in np.flatnonzero((e < cnt) & (col0 < hf)):
+                    x = np.concatenate([pieces.get((s * 32 + lane) * loads + lo, np.full(v, np.nan))
+                                        for lo in range(loads)])
+                    x = np.where(col0[lane] + np.arange(kc) < hf, x, 0.0)
+                    wv = np.array([w_of[(int(e[lane]), int(hh))] for hh in hs[lane]])
+                    acc[lane] += x * wv[:, 0]
+                    acc2[lane] += (x * wv[:, 1]) if kind == "fwd" else wv[:, 1] * xw[lane] * x
+        tot = [a.reshape(eps, g, kc).sum(0) for a in (acc, acc2)]  # the groups meet in lanes 0 .. g-1
+        heads = [wsum[wh == hh].sum() for hh in range(h)], [wsum2[wh == hh].sum() for hh in range(h)]
+        for sub in range(g):
+            for k in range(kc):
+                col = col0[sub] + k
+                if col >= hf:
+                    continue
+                stores[row, col] += 1
+                if kind == "fwd":
+                    num = tot[0][sub, k] if split else tot[0][sub, k] / max(heads[0][col // f], 1e-38)
+                    outs[0][row, col] += num
+                    outs[2][row, col] += tot[1][sub, k]
+                else:
+                    outs[0][row, col] += tot[0][sub, k]
+                    outs[1][row, col // f] += tot[1][sub, k]
+        for hh in range(h):
+            if kind == "fwd":
+                outs[1][row, hh] += heads[0][hh]
+                outs[3][row, hh] += heads[1][hh]
+            else:
+                outs[1][row, hh] -= heads[0][hh]
+    if kind == "fwd":
+        for r in split_rows:
+            outs[0][r] /= np.maximum(np.repeat(outs[1][r], f), 1e-38)
+    deg = np.diff(indptr)
+    assert np.all(stores[deg <= chunk] == 1)  # every unsplit row stored once
+    assert np.all(stores[deg > chunk] == -(-deg[deg > chunk] // chunk)[:, None])
+    return outs if kind == "fwd" else outs[:2]
+
+
+@pytest.mark.parametrize("h,f,elem", [
+    (8, 32, 2), (1, 47, 2), (8, 8, 4), (1, 3, 4), (4, 32, 2), (8, 32, 4),  # the main tilings
+    (3, 5, 4), (3, 5, 2), (2, 100, 2),  # a lane's columns span several heads
+    (16, 1, 2), (16, 16, 4), (5, 7, 4),  # 16 weight passes a round; two loads a lane; H not a power of two
+])
+@pytest.mark.parametrize("chunk", [40, 7])
+def test_flash_walk_matches_plain(h, f, elem, chunk):
+    """K8 and K9 by their walk's index arithmetic (``_flash_walk``) against
+    their plain versions (f32 stream) on a graph with empty rows and a hub
+    in each direction split into items of ``chunk`` edges (7 ends items
+    inside a group's edge step at every width), to 1e-5 relative."""
+    from stgraph_tpu_torch.ops.flash_gat import flash_gat_bwd_plain, flash_gat_fwd_plain, stability_max
+
+    rng = np.random.default_rng(h * 1000 + f)
+    n = 48
+    src, dst = rng.integers(0, n - 5, 260), rng.integers(0, n - 5, 260)
+    dst[:70] = 3
+    src[-50:] = 7
+    csr = build_csr(src, dst, n, device="cpu")
+    csr_t = csr.transpose()
+    el, er, c = (torch.from_numpy(rng.standard_normal((n, h)).astype(np.float32)) for _ in range(3))
+    fs, gu = (torch.from_numpy(rng.standard_normal((n, h * f)).astype(np.float32)) for _ in range(2))
+    m = stability_max(csr, el, er, 0.2)
+    got = _flash_walk(csr, h, f, elem, chunk, 0.2, el, er, m, fs, "fwd")
+    ref = flash_gat_fwd_plain(csr, el, er, m, fs, h, 0.2, torch.float32, aux=True)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b.double().numpy(), rtol=1e-5, atol=1e-6)
+    got = _flash_walk(csr_t, h, f, elem, chunk, 0.2, el, er, m, fs, "bwd", gu=gu, c=c)
+    ref = flash_gat_bwd_plain(csr_t, el, er, m, c, gu, fs, h, 0.2, torch.float32)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b.double().numpy(), rtol=1e-5, atol=1e-5)
