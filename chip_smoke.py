@@ -329,6 +329,11 @@ PUBMED_ROWMASK_ACC_FLOOR = 0.5781 - 0.05
 WIDE_CHECK_K = (17, 32, 130)  # K5's and the no-gather sum's widths held against their plain versions
 ROWMASK_CHECKS = ((32, 4), (8, 64), (4, 128), (64, 2), (1, 384))  # (H, F) of K1's and K2's heads modes
 ROWMASK_PPI_TILING = (32, 4)
+# K2's heads mode in phase_k2_vs_plain at the rowmask route's tiling (ROWMASK_CHECKS holds the others),
+# and items of K2_CHECK_ITEMS (H, F, edges): hub rows split across items that end inside a step
+K2_HEADS_CHECKS = ((32, 4),)
+K2_CHECK_ITEMS = ((1, 47, 37), (1, 47, 128), (32, 4, 37))
+K4_CHECK_CHUNK = 37  # K4's checks also at items of this many edges
 # The rowmask route with a bf16 stream (the PPI-sized graph: 818,716 edges)
 # against an f64 recomputation of the same softmax attention, each output
 # element against its sum of absolute terms (for ``out``, the
@@ -490,6 +495,40 @@ def poisoned_call(shape, fn):
     return out
 
 
+def poisoned_k2_call(shape_dh, shape_dw, fn):
+    """K2's ``fn()`` with its dh and dw filled with NaN before the kernel
+    runs: the wrapper's ``torch.empty`` of those two shapes returns NaN (two
+    outputs, so the freed-block trick of ``poisoned_call`` cannot place both
+    by the caching allocator's best fit). Fails unless both outputs were
+    poisoned and hold no NaN after the kernel. Returns (dh, dw)."""
+    from stgraph_tpu_torch.ops import spmm_kernels as SK
+
+    real, poisoned = SK.torch, []
+
+    class _PoisoningTorch:  # the wrapper's torch: empty() of the outputs' shapes filled with NaN
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def empty(*size, **kw):
+            t = real.empty(*size, **kw)
+            if t.dtype == real.float32 and tuple(t.shape) in (tuple(shape_dh), tuple(shape_dw)):
+                poisoned.append(tuple(t.shape))
+                t.fill_(float("nan"))
+            return t
+
+    SK.torch = _PoisoningTorch()
+    try:
+        dh, dw = fn()
+    finally:
+        SK.torch = real
+    check(sorted(poisoned) == sorted([tuple(shape_dh), tuple(shape_dw)]),
+          f"K2's outputs of {shape_dh} and {shape_dw} were not both poisoned ({poisoned}): the check would be vacuous")
+    check(not bool(dh.isnan().any().item()) and not bool(dw.isnan().any().item()),
+          f"K2 left elements of dh {shape_dh} or dw {shape_dw} unwritten (NaN)")
+    return dh, dw
+
+
 def k1_agreement(out, csr, w, x, stream, edge_block=None):
     """Hold K1's output against its plain version on the same inputs.
     Returns (max_abs_err, worst err / sum|terms| ratio, max |plain|)."""
@@ -586,37 +625,65 @@ def phase_k1_vs_plain(dev, rng):
 
 
 @timed_phase
-def phase_k2_vs_plain(dev, rng):
+def phase_k2_vs_plain(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000):
+    """K2 against its plain version on the transpose of a 4M-edge graph with
+    1000 empty rows and a 300k-edge hub in each direction, into NaN-poisoned
+    dh and dw (``poisoned_k2_call``): one head at F in {7, 16, 47, 100, 128,
+    130} and the heads mode at (H, F) in ``K2_HEADS_CHECKS``, f32 and bf16
+    streams, at the port's item lengths (``K2_CHUNK``) and at the short items
+    of ``K2_CHECK_ITEMS`` (items ending inside a lane group's step)."""
     from stgraph_tpu_torch.graph.csr import build_csr
-    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_bwd
+    from stgraph_tpu_torch.ops import spmm_kernels as SK
 
-    n, e, empty, hub, hub_deg = 200_000, 4_000_000, 1000, 12_345, 300_000
+    empty, hub = 1000, 12_345
     src = rng.integers(0, n - empty, e)  # the transpose's rows: 1000 empty
     dst = rng.integers(0, n - empty, e)
     dst[:hub_deg] = hub
     src[-hub_deg:] = hub + 1  # a hub row of the transpose too
     csr_t = build_csr(src, dst, n, device=dev).transpose()
     results, worst = [], 0.0
-    for f in (7, 16, 47, 100, 128, 130):
-        g = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(dev)
-        fs = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(dev)
-        w = torch.from_numpy(rng.standard_normal(csr_t.capacity).astype(np.float32)).to(dev)
-        for stream in (torch.float32, torch.bfloat16):
-            dh, dw = spmm_rowmask_bwd(csr_t, w, g, fs, stream_dtype=stream)
-            torch.cuda.synchronize()
-            (dh_err, dh_ratio, dh_ref), (dw_err, dw_ratio, dw_ref), pad_zero = k2_agreement(
-                dh, dw, csr_t, w, g, fs, stream)
-            ok = (dh_ratio <= KERNEL_TOL and dw_ratio <= KERNEL_TOL and pad_zero
-                  and not dh[n - empty:].any().item())
-            tag = f"F={f} {str(stream)[6:]} stream"
-            print(f"k2-check {tag}: dh max_abs_err {dh_err:.3e} (max |plain| {dh_ref:.1f}, "
-                  f"err/sum|terms| {dh_ratio:.2e}); dw max_abs_err {dw_err:.3e} (max |plain| "
-                  f"{dw_ref:.1f}, err/sum|terms| {dw_ratio:.2e}); padding dw zero {pad_zero} "
-                  f"(tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
-            check(ok, f"K2 disagrees with its plain version at {tag}")
-            worst = max(worst, dh_err, dw_err)
-            results.append({"case": tag, "dh_max_abs_err": dh_err, "dh_err_over_mass": dh_ratio,
-                            "dw_max_abs_err": dw_err, "dw_err_over_mass": dw_ratio})
+    cases = [(1, f, None) for f in (7, 16, 47, 100, 128, 130)]
+    cases += [(h, f, None) for h, f in K2_HEADS_CHECKS]
+    cases += list(K2_CHECK_ITEMS)
+    saved = dict(SK.K2_CHUNK)
+    try:
+        for h, f, chunk in cases:
+            if chunk is not None:
+                SK.K2_CHUNK.update(one_head=chunk, heads=chunk)
+            g = torch.from_numpy(rng.standard_normal((n, h * f)).astype(np.float32)).to(dev)
+            fs = torch.from_numpy(rng.standard_normal((n, h * f)).astype(np.float32)).to(dev)
+            w = torch.from_numpy(rng.standard_normal((csr_t.capacity, h)).astype(np.float32)).to(dev)
+            for stream in (torch.float32, torch.bfloat16):
+                dh, dw = poisoned_k2_call((n, h * f), (csr_t.capacity, h), lambda: SK.spmm_rowmask_bwd(
+                    csr_t, w, g, fs, stream_dtype=stream, heads=h))
+                torch.cuda.synchronize()
+                if h == 1:
+                    (dh_err, dh_ratio, dh_ref), (dw_err, dw_ratio, dw_ref), pad_zero = k2_agreement(
+                        dh, dw, csr_t, w.reshape(-1), g, fs, stream)
+                else:
+                    refs = SK.spmm_rowmask_bwd_plain(csr_t, w, g, fs, stream, COMPOSED_PLAIN_EDGE_BLOCK, heads=h)
+                    masses = SK.spmm_rowmask_bwd_plain(csr_t, w.abs(), g.abs(), fs.abs(), stream,
+                                                       COMPOSED_PLAIN_EDGE_BLOCK, heads=h)
+                    (dh_err, dh_ratio, dh_ref), (dw_err, dw_ratio, dw_ref) = _stats([dh, dw], refs, masses)
+                    pad_zero = not dw[csr_t.num_edges:].any().item()
+                    del refs, masses
+                ok = (dh_ratio <= KERNEL_TOL and dw_ratio <= KERNEL_TOL and pad_zero
+                      and not dh[n - empty:].any().item())
+                tag = (f"H={h} F={f} {str(stream)[6:]} stream, items of "
+                       f"{chunk or SK.K2_CHUNK['heads' if h > 1 else 'one_head']} edges")
+                print(f"k2-check {tag}: dh max_abs_err {dh_err:.3e} (max |plain| {dh_ref:.1f}, "
+                      f"err/sum|terms| {dh_ratio:.2e}); dw max_abs_err {dw_err:.3e} (max |plain| "
+                      f"{dw_ref:.1f}, err/sum|terms| {dw_ratio:.2e}); padding dw zero {pad_zero}; poisoned "
+                      f"outputs (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"K2 disagrees with its plain version at {tag}")
+                worst = max(worst, dh_err, dw_err)
+                results.append({"case": tag, "H": h, "F": f, "chunk": chunk, "dh_max_abs_err": dh_err,
+                                "dh_err_over_mass": dh_ratio, "dw_max_abs_err": dw_err, "dw_err_over_mass": dw_ratio})
+                del dh, dw
+            del g, fs, w
+            SK.K2_CHUNK.update(saved)
+    finally:
+        SK.K2_CHUNK.update(saved)
     return {"graph": {"n": n, "e": e, "empty_rows": empty, "hub_deg": hub_deg},
             "cases": results, "max_abs_err": worst}
 
@@ -882,7 +949,7 @@ def phase_k2_at_main_shapes(served):
     gives it (F = 128 and 47), with the forward's own weights and features
     (``fs``) and a random cotangent."""
     from stgraph_tpu_torch.ops import message as M
-    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_bwd, spmm_rowmask_bwd_plain
+    from stgraph_tpu_torch.ops.spmm_kernels import K2_CHUNK, spmm_rowmask_bwd, spmm_rowmask_bwd_plain
     from stgraph_tpu_torch.utils.norm import symmetric_norm
 
     graph = served["graph"]
@@ -936,6 +1003,7 @@ def phase_k2_at_main_shapes(served):
                   f"{dh_ratio:.2e}), dw max_abs_err {dw_err:.3e} (err/sum|terms| {dw_ratio:.2e})")
             worst = max(worst, dh_err, dw_err)
             per_launch.append({"F": f, "E": e, "N": n, "stream": "bf16", "ms": ms, "plain_ms": plain_ms,
+                               "longest_item": longest_item(csr_t, K2_CHUNK["one_head"]),
                                "library_ms": lib_ms, "library_parts_ms": lib, "bound_ms": bound_ms,
                                "bound_by": bound_by, "bytes": nbytes, "ops": ops,
                                "dh_max_abs_err": dh_err, "dh_err_over_mass": dh_ratio,
@@ -1316,9 +1384,11 @@ def phase_gat_kernels_vs_plain(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000
     """K4, K8 (with and without aux) and K9 against their plain versions on
     K2's check graph: 1000 empty rows, a 300k-edge hub in each direction;
     then the in-kernel keep mask, and K8 (with and without aux) and K9 in
-    their dropout mode at rates ``GAT_CHECK_RATES``. K8's and K9's outputs
-    take a block filled with NaN just before (``poisoned_call``)."""
+    their dropout mode at rates ``GAT_CHECK_RATES``. K4's, K8's and K9's
+    outputs take a block filled with NaN just before (``poisoned_call``);
+    K4 also runs at items of ``K4_CHECK_CHUNK`` edges."""
     from stgraph_tpu_torch.graph.csr import build_csr
+    from stgraph_tpu_torch.ops import segment_kernels as SEG
     from stgraph_tpu_torch.ops.flash_gat import flash_gat_bwd, flash_gat_fwd, stability_max
     from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow, segment_max_narrow_plain
 
@@ -1339,10 +1409,20 @@ def phase_gat_kernels_vs_plain(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000
     for h, f in GAT_CHECKS:
         el, er = randn(n, h), randn(n, h)
         fs, g = randn(n, h * f), randn(n, h * f)
-        elmax = segment_max_narrow(csr, el, index=csr.cols)
-        torch.cuda.synchronize()
-        k4_err = (elmax - segment_max_narrow_plain(csr, el, index=csr.cols)).abs().max().item()
-        check(k4_err == 0.0, f"K4 disagrees with its plain version at H={h}: {k4_err}")
+        # K4 into a poisoned output, at its item length and at short items
+        k4_ref = segment_max_narrow_plain(csr, el, index=csr.cols)
+        k4_err = 0.0
+        for chunk in (SEG.K4_CHUNK, K4_CHECK_CHUNK):
+            saved, SEG.K4_CHUNK = SEG.K4_CHUNK, chunk
+            try:
+                segment_max_narrow(csr, el, index=csr.cols)  # the work items, built once
+                elmax = poisoned_call((n, h), lambda: segment_max_narrow(csr, el, index=csr.cols))
+                torch.cuda.synchronize()
+            finally:
+                SEG.K4_CHUNK = saved
+            check(torch.equal(elmax, k4_ref), f"K4 disagrees with its plain version at H={h}, items of {chunk} edges")
+            k4_err = max(k4_err, (elmax - k4_ref).abs().max().item())
+        del k4_ref
         m = stability_max(csr, el, er, GAT_SLOPE)
         for stream in (torch.float32, torch.bfloat16):
             for rate in (0.0,) + GAT_CHECK_RATES:
@@ -1381,7 +1461,8 @@ def phase_gat_kernels_vs_plain(dev, rng, n=200_000, e=4_000_000, hub_deg=300_000
                 worst[k9] = max(worst[k9], dfs_a, dl_a)
                 results.append({"kernel": k9, "case": tag, "rate": rate, "dfs_max_abs_err": dfs_a,
                                 "dfs_err_over_mass": dfs_r, "dl_max_abs_err": dl_a, "dl_err_over_mass": dl_r})
-        print(f"k4-check H={h}: bit-equal to its plain version (max_abs_err {k4_err})")
+        print(f"k4-check H={h}: bit-equal to its plain version into a poisoned output, items of "
+              f"{SEG.K4_CHUNK} and {K4_CHECK_CHUNK} edges (max_abs_err {k4_err})")
         results.append({"kernel": "K4", "case": f"H={h}", "max_abs_err": k4_err})
     return {"graph": {"n": n, "e": e, "empty_rows": empty, "hub_deg": hub_deg},
             "keep_mask": mask_check, "cases": results, "max_abs_err": worst}
@@ -1539,7 +1620,7 @@ def phase_gat_kernels_at_main_shapes(dev, gat):
     inputs, timed in turns with the mode without dropout."""
     from stgraph_tpu_torch.ops.flash_gat import (flash_gat_bwd, flash_gat_bwd_plain, flash_gat_fwd,
                                                  flash_gat_fwd_plain, stability_max)
-    from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow, segment_max_narrow_plain
+    from stgraph_tpu_torch.ops.segment_kernels import K4_CHUNK, segment_max_narrow, segment_max_narrow_plain
     from stgraph_tpu_torch.ops.spmm_kernels import FLASH_CHUNK
 
     graph = gat["model"].graph
@@ -1574,6 +1655,7 @@ def phase_gat_kernels_at_main_shapes(dev, gat):
             print(f"k4-main H={h}: {k4_ms:.3f} ms (plain {k4_plain:.1f} ms, segment_reduce {k4_lib} ms, "
                   f"bound {bound[0]:.3f} ms by {bound[1]}); bit-equal to its plain version")
             out["K4"].append({"H": h, "F": h, "E": e, "N": n, "ms": k4_ms, "plain_ms": k4_plain,
+                              "longest_item": longest_item(csr, K4_CHUNK),
                               "library_ms": k4_lib, "bound_ms": bound[0], "bound_by": bound[1],
                               "bytes": bound[2], "ops": bound[3], "max_abs_err": k4_err})
             m = stability_max(csr, el, er, GAT_SLOPE)
@@ -2561,7 +2643,8 @@ def rowmask_bwd_bound(n: int, e: int, h: int, f: int):
 def longest_item(csr, chunk=None) -> int:
     """The most edges one warp walks in a launch over ``csr`` whose work
     items cap a row at ``chunk`` edges (default ``ROW_CHUNK``, the items of
-    K2-K5; K1's modes take ``K1_CHUNK``, K8 and K9 ``FLASH_CHUNK``)."""
+    K3 and K5; K1's modes take ``K1_CHUNK``, K2's ``K2_CHUNK``, K4
+    ``K4_CHUNK``, K8 and K9 ``FLASH_CHUNK``)."""
     from stgraph_tpu_torch.ops.spmm_kernels import ROW_CHUNK
 
     return int(min(np.diff(csr.host_arrays()[0]).max(initial=0), chunk or ROW_CHUNK))
@@ -2648,7 +2731,8 @@ def phase_rowmask_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=150
                   f"den max_abs_err {da:.3e} ({dr:.2e}) (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
             check(ok, f"K1 with heads and the denominator disagrees at {h} x {f}, {sname} stream")
             del out, den, ref, ref_den, mass
-            dh, dw = spmm_rowmask_bwd(csr_t, w, g, x, stream_dtype=stream, heads=h)
+            dh, dw = poisoned_k2_call((n, h * f), (csr_t.capacity, h), lambda: spmm_rowmask_bwd(
+                csr_t, w, g, x, stream_dtype=stream, heads=h))
             torch.cuda.synchronize()
             refs = spmm_rowmask_bwd_plain(csr_t, w, g, x, stream, block, heads=h)
             masses = spmm_rowmask_bwd_plain(csr_t, w, g.abs(), x.abs(), stream, block, heads=h)
@@ -2834,6 +2918,7 @@ def phase_rowmask_ppi(dev, ppi):
     from stgraph_tpu_torch.ops.spmm_blocked import positions_in
     from stgraph_tpu_torch.ops.spmm_kernels import (
         K1_CHUNK,
+        K2_CHUNK,
         spmm_rowmask,
         spmm_rowmask_bwd,
         spmm_rowmask_bwd_plain,
@@ -2919,6 +3004,8 @@ def phase_rowmask_ppi(dev, ppi):
         for key, where, c, kernel, plain, mass, library, bound, lib_name in cases:
             if key in ("K1", "K1_nogather"):
                 got = poisoned_call((c.num_nodes, h * f if key == "K1" else h), kernel)
+            elif key == "K2":
+                got = poisoned_k2_call((c.num_nodes, h * f), (c.capacity, h), kernel)
             else:
                 got = kernel()
             torch.cuda.synchronize()
@@ -2939,7 +3026,7 @@ def phase_rowmask_ppi(dev, ppi):
             lib = library()
             bound_ms, bound_by, nbytes, ops = bound
             item = longest_item(c, K1_CHUNK["heads"] if key == "K1" else K1_CHUNK["nogather"]
-                                if key == "K1_nogather" else None)
+                                if key == "K1_nogather" else K2_CHUNK["heads"] if key == "K2" else None)
             if key in ("K1", "K2"):
                 sname = "bf16"
             else:  # K5 reads f32; the no-gather sum by its rule (818,716 slots: bf16)
@@ -4318,6 +4405,18 @@ def main() -> int:
     rowmask_main, rowmask_checks = rowmask_ppi["per_launch"], record["rowmask_checks"]["max_abs_err"]
     dist_main = record["dist_gcn_training"]["per_launch"]
     h, f = ROWMASK_PPI_TILING
+    # the designs of the kernels redesigned for Hopper: the port's, and the
+    # first one it replaced, timed against it in turns by benchmarking/micro/
+    k2_designs = {"port": "K1's lane groups (one 16 B load a lane, 32 / G edges a step, a round's gathers ahead), "
+                          "packed bf16x2 products, dw folded within each group by a transpose reduction and "
+                          "stored 32 edges a line; items of K2_CHUNK edges",
+                  "first": "a warp an edge, lanes across the row, a five-shuffle dot an edge, 1024-edge items;"
+                           " timed in turns by benchmarking/micro/k2_k4_bench.py --only turns"}
+    k4_designs = {"port": "16 lanes an item, kU edges a lane in flight with the next batch's indices "
+                          "loaded ahead, vector row loads, a transpose meeting, split rows finished by a ticket "
+                          "(one launch); items of K4_CHUNK edges",
+                  "first": "a warp a row, one edge a lane an iteration, 5 shuffles a column, a second launch for "
+                           "split rows; timed in turns by benchmarking/micro/k2_k4_bench.py --only turns"}
     kernels = [
         kernel_entry("spmm_rowmask (K1, one head: H=1, F=128, 128, 47, bf16 stream)",
                      "stgraph_tpu_torch/csrc/spmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:761", "K1", by_path,
@@ -4333,11 +4432,11 @@ def main() -> int:
                      max(record["k2_checks"]["max_abs_err"], k2_err, record["dist_k1_traced_checks"]["max_abs_err"]["K2"]),
                      # a training step's three launches: F = 128, 128, 47
                      [dict(p, H=1) for f_ in (128, 128, 47) for p in k2_launch if p["F"] == f_],
-                     paths=one_head_paths),
+                     paths=one_head_paths, designs=k2_designs),
         kernel_entry(f"spmm_sddmm_rowmask (K2, heads: H={h}, F={f}, bf16 stream at PPI size, f32 on Pubmed)",
                      "stgraph_tpu_torch/csrc/spmm_sddmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:1248", "K2",
                      by_path, max(rowmask_checks["K2"], rowmask_ppi["max_abs_err"]["K2"]), rowmask_main["K2"],
-                     rowmask_main["K2"][0]["library"], paths=rowmask_paths),
+                     rowmask_main["K2"][0]["library"], paths=rowmask_paths, designs=k2_designs),
         kernel_entry(f"segment_sum_wide (K1's no-gather mode, K={h}, bf16 stream at PPI size, f32 on Pubmed)",
                      "stgraph_tpu_torch/csrc/segment_sum_wide.cu", "stgraph_tpu/ops/segment_pallas.py:710",
                      "K1_nogather", by_path, max(rowmask_checks["K1_nogather"],
@@ -4354,7 +4453,7 @@ def main() -> int:
         kernel_entry("segment_max_narrow (K4)", "stgraph_tpu_torch/csrc/segment_max_narrow.cu",
                      "stgraph_tpu/ops/segment_pallas.py:235", "K4", by_path,
                      max(record["gat_checks"]["max_abs_err"]["K4"], gat_err["K4"]), gat_launch["K4"],
-                     "torch.segment_reduce(max) over the gathered (E, H) plane"),
+                     "torch.segment_reduce(max) over the gathered (E, H) plane", designs=k4_designs),
         kernel_entry("spmm_rowid (K6)", "stgraph_tpu_torch/csrc/spmm_rowid.cu",
                      "stgraph_tpu/ops/segment_pallas.py:1673", "K6", by_path,
                      max(record["rowid_checks"]["max_abs_err"]["K6"], rowid_err["K6"],

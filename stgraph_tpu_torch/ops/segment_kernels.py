@@ -14,7 +14,10 @@ and never builds the (E, H) plane (3.96 GB at ogbn-products size).
 The CUDA kernel lives in ``csrc/segment_max_narrow.cu``. On this card it
 is bound by memory: one compare per gathered value; the compulsory bytes
 (``indptr``, ``cols``, the table and the output once) take about 0.2 ms at
-ogbn-products size with H = 8. It shares K1's work items.
+ogbn-products size with H = 8. It walks K1's work items at its own length
+(``K4_CHUNK`` edges an item), 16 lanes an item, and finishes its
+split rows itself with a ticket counter a split row (zeros kept on the CSR
+beside the items, left zero by every launch).
 
 ``SegmentMaxNarrow`` is the differentiable form. Its backward is the plain
 argmax mask of the JAX custom VJP (``:449-463``): every edge whose value
@@ -66,6 +69,7 @@ from stgraph_tpu_torch.ops import kernel_lib
 from stgraph_tpu_torch.ops.spmm_kernels import K1_CHUNK, ROW_CHUNK, _work_items
 
 __all__ = [
+    "K4_CHUNK",
     "MAX_NARROW_K",
     "SegmentMaxNarrow",
     "SegmentMaxWide",
@@ -85,11 +89,13 @@ __all__ = [
 
 # Largest trailing width the narrow kernel takes (the JAX package's bound).
 MAX_NARROW_K = 16
+# K4's work items: at most K4_CHUNK edges each.
+K4_CHUNK = 1024
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "stg_segment_max_narrow": [_VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _VP, _I, _I, _VP],
+    "stg_segment_max_narrow": [_VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _I, _I, _VP],
 }
 _K3_SIGNATURES = {
     "stg_segment_sum_narrow": [_VP, _VP, _VP, _VP, _I, _VP, _I, _I, _VP],
@@ -169,14 +175,17 @@ def segment_max_narrow(
         raise ValueError(f"K4 needs the CSR, vals and index on one CUDA device, got {csr.device} and {dev}")
     if index is not None and index.dtype != torch.int32:
         raise ValueError(f"K4's index must be int32, got {index.dtype}")
-    if vals.shape[0] * k >= 2**31 or csr.capacity + ROW_CHUNK >= 2**31:
+    if vals.shape[0] * k >= 2**31 or csr.capacity + K4_CHUNK >= 2**31:
         raise ValueError("K4 indexes rows and edges with int32; the graph is too large")
-    table = vals.to(torch.float32).contiguous()
     n = csr.num_nodes
     out = torch.empty(n, k, dtype=torch.float32, device=dev)
+    table = vals.to(torch.float32).contiguous()
     if n == 0:
         return out
-    item_row, item_beg, split_rows = _work_items(csr)
+    chunk = K4_CHUNK
+    item_row, item_beg, split_rows = _work_items(csr, chunk)
+    tickets = csr.cached(f"k4_tickets_{chunk}",
+                         lambda: torch.zeros(split_rows.numel(), dtype=torch.int32, device=dev))
     if split_rows.numel():
         out.index_fill_(0, split_rows, float("-inf"))
     rc = lib.stg_segment_max_narrow(
@@ -188,9 +197,10 @@ def segment_max_narrow(
         item_row.numel(),
         split_rows.data_ptr(),
         split_rows.numel(),
+        tickets.data_ptr(),
         out.data_ptr(),
         k,
-        ROW_CHUNK,
+        chunk,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

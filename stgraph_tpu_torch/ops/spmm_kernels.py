@@ -33,10 +33,12 @@ CSR, with the weights in transpose edge order, one pass gives
     dh[s, :] = sum_{e in row s} w_t[e] * g[cols_t[e], :]            (f32)
     dw_t[e]  = < fs[s, :], g[cols_t[e], :] >     (f32, 0 on padding slots)
 
-It shares K1's work items (on the transpose ``indptr``) and its bound is
-the same kind: memory, about 1.6 ms at ogbn-products size and F = 128.
-With ``heads`` heads (``:1434-1560``) ``w_t`` and ``dw_t`` are (capacity, H)
-and each head's columns form their own dot product.
+It takes K1's design (work items on the transpose ``indptr``, at most
+``K2_CHUNK[mode]`` edges an item, and K1's lane groups, ``k1_lanes``) with
+the dot products folded in, and its bound is the same kind: memory, about
+1.6 ms at ogbn-products size and F = 128. With ``heads`` heads
+(``:1434-1560``) ``w_t`` and ``dw_t`` are (capacity, H) and each head's
+columns form their own dot product.
 
 Every wrapper takes a rectangular CSR (``graph.csr``): the table has
 ``csr.num_cols`` rows and the output ``csr.num_nodes``; a square CSR is the
@@ -76,6 +78,7 @@ from stgraph_tpu_torch.ops import kernel_lib
 __all__ = [
     "FLASH_CHUNK",
     "K1_CHUNK",
+    "K2_CHUNK",
     "ROW_CHUNK",
     "k1_lanes",
     "k1_work_items",
@@ -87,13 +90,17 @@ __all__ = [
 ]
 
 # Edges one warp takes from a row; longer rows are split into several work
-# items whose partial sums meet by atomicAdd. K2-K5 take items of ROW_CHUNK
-# edges; K1, K8 and K9 take their own lengths (K1_CHUNK, FLASH_CHUNK).
+# items whose partial sums meet by atomicAdd. K3 and K5 take items of
+# ROW_CHUNK edges; K1, K2, K4, K8 and K9 take their own lengths (K1_CHUNK,
+# K2_CHUNK, segment_kernels.K4_CHUNK, FLASH_CHUNK).
 ROW_CHUNK = 1024
 # K1's item length by mode: "one_head" (the GCN paths and the shard mode),
 # "heads" (heads > 1, with the denominator) and "nogather" (the no-gather
 # sum, ops.segment_kernels.segment_sum_wide).
 K1_CHUNK = {"one_head": 1024, "heads": 128, "nogather": 128}
+# K2's item length by mode: "one_head" (the GCN step) and "heads" (the
+# rowmask route's backward).
+K2_CHUNK = {"one_head": 512, "heads": 128}
 # K8's ("fwd") and K9's ("bwd", on the transpose CSR) item lengths
 # (ops.flash_gat).
 FLASH_CHUNK = {"fwd": 512, "bwd": 512}
@@ -105,7 +112,7 @@ _SIGNATURES = {
     "stg_bf16_product_check": [ctypes.c_ulonglong, ctypes.c_ulonglong, _VP, _VP],
 }
 _K2_SIGNATURES = {
-    "stg_spmm_sddmm_rowmask": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _VP],
+    "stg_spmm_sddmm_rowmask": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
 }
 
 _INT32_LIMIT = 2**31
@@ -493,21 +500,25 @@ def spmm_rowmask_bwd(
 
     lib = kernel_lib.load("spmm_sddmm_rowmask", _K2_SIGNATURES)
     dev = g.device
-    table, ld, bf16 = _gathered_table(csr_t, g, stream_dtype, "K2")
-    if heads > 1 and table.data_ptr() % 16:
-        table = table.clone()  # the heads modes load 4 columns a lane
     if fs.device != dev:
         raise ValueError("fs must be on g's device")
-    fs32 = fs.to(torch.float32).contiguous()  # rounded to the stream in the kernel
-    wt = _edge_weights(w_t, dev)
     f = g.shape[1]
+    # allocated first, so the poisoned-output checks find them in the blocks freed just before
     dh = torch.empty(n, f, dtype=torch.float32, device=dev)
     dw = torch.empty(csr_t.capacity, heads, dtype=torch.float32, device=dev)
+    table, ld, bf16 = _gathered_table(csr_t, g, stream_dtype, "K2")
+    wt = _edge_weights(w_t, dev)
+    if heads > 1:  # the heads modes take aligned rows and load a lane's weights as one vector
+        table, wt = _aligned16(table), _aligned16(wt)
+    fs32 = fs.to(torch.float32).contiguous()  # rounded to the stream in the kernel
     dw[int(csr_t.host_arrays()[0][-1]):] = 0.0  # padding slots belong to no item
     if n == 0 or f == 0:
         dw.zero_()
     else:
-        item_row, item_beg, split_rows = _work_items(csr_t)
+        elem = 2 if bf16 else 4
+        lanes, tile = k1_lanes(f, elem, ld % (16 // elem) == 0 and table.data_ptr() % 16 == 0)
+        chunk = K2_CHUNK["heads" if heads > 1 else "one_head"]
+        item_row, item_beg, split_rows = _work_items(csr_t, chunk)
         if split_rows.numel():
             dh.index_fill_(0, split_rows, 0.0)
         rc = lib.stg_spmm_sddmm_rowmask(
@@ -525,7 +536,9 @@ def spmm_rowmask_bwd(
             f,
             ld,
             heads,
-            ROW_CHUNK,
+            chunk,
+            lanes,
+            tile,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if rc != 0:

@@ -181,6 +181,108 @@ def test_k4_matches_plain_on_the_card(cuda, rng, k):
     assert segment_max_narrow.launches == before + 2
 
 
+def _poison_k2(n, hf, capacity, heads, device):
+    """Blocks of dh's and dw's shapes filled with NaN and freed; their
+    addresses."""
+    torch.cuda.empty_cache()
+    a = torch.full((n, hf), float("nan"), device=device)
+    b = torch.full((capacity, heads), float("nan"), device=device)
+    ptrs = a.data_ptr(), b.data_ptr()
+    del a, b
+    return ptrs
+
+
+def _k2_against_plain(csr_t, w, g, x, stream, heads):
+    """K2 into NaN-poisoned dh and dw, one launch counted, both outputs
+    within 2e-4 of their sums of absolute terms, padding slots 0."""
+    spmm_rowmask_bwd(csr_t, w, g, x, stream_dtype=stream, heads=heads)  # the work items, built once
+    ptrs = _poison_k2(csr_t.num_nodes, g.shape[1], csr_t.capacity, heads, g.device)
+    before = spmm_rowmask_bwd.launches
+    dh, dw = spmm_rowmask_bwd(csr_t, w, g, x, stream_dtype=stream, heads=heads)
+    torch.cuda.synchronize()
+    assert spmm_rowmask_bwd.launches == before + 1
+    assert (dh.data_ptr(), dw.data_ptr()) == ptrs  # the outputs took the poisoned blocks
+    assert not dh.isnan().any() and not dw.isnan().any()
+    ref_dh, ref_dw = spmm_rowmask_bwd_plain(csr_t, w, g, x, stream, heads=heads)
+    mass_dh, mass_dw = spmm_rowmask_bwd_plain(csr_t, w.abs(), g.abs(), x.abs(), stream, heads=heads)
+    _within_mass(dh, ref_dh, mass_dh)
+    _within_mass(dw, ref_dw, mass_dw)
+    assert not dw[csr_t.num_edges:].any()
+
+
+@pytest.mark.parametrize("stream", [None, torch.bfloat16])
+def test_k2_one_head_at_every_width_into_poisoned_outputs(cuda, rng, stream):
+    """K2 at one head at every width from 1 to 256: every lane group (1 to
+    32 lanes an edge), one or two column tiles, f32 rows on their own
+    stride (aligned-down loads where it is not a multiple of 4) and bf16
+    rows padded to 8 columns; a hub in the transpose split into two items."""
+    n = 400
+    src, dst = _graph(rng, n, 6000, hub_deg=300)
+    src[-1500:] = 11
+    csr_t = build_csr(src, dst, n, capacity=6005, device=cuda).transpose()
+    for f in range(1, 257):
+        g, x = (torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)).to(cuda) for _ in range(2))
+        w = torch.from_numpy(rng.standard_normal(csr_t.capacity).astype(np.float32)).to(cuda)
+        _k2_against_plain(csr_t, w, g, x, stream, 1)
+
+
+@pytest.mark.parametrize("h,f", [(32, 4), (4, 32), (64, 2), (1, 200)])
+@pytest.mark.parametrize("stream", [None, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [37, 128])
+def test_k2_heads_and_split_hubs_with_short_items_into_poisoned_outputs(cuda, rng, monkeypatch, h, f, stream, chunk):
+    """K2's heads tilings (a lane's columns two or four whole heads, or a
+    head over several lanes) and one head at 200 columns, with hubs in
+    both directions split into items of 37 edges (ending inside a group's
+    step and inside a round) and of 128."""
+    from stgraph_tpu_torch.ops import spmm_kernels as SKN
+
+    monkeypatch.setitem(SKN.K2_CHUNK, "one_head", chunk)
+    monkeypatch.setitem(SKN.K2_CHUNK, "heads", chunk)
+    n, e = 3000, 60_000
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
+    src[-3 * ROW_CHUNK:] = 11
+    csr_t = build_csr(src, dst, n, capacity=e + 5, device=cuda).transpose()
+    g, x = (torch.from_numpy(rng.standard_normal((n, h * f)).astype(np.float32)).to(cuda) for _ in range(2))
+    w = torch.from_numpy(rng.random((csr_t.capacity, h)).astype(np.float32)).to(cuda)
+    _k2_against_plain(csr_t, w, g, x, stream, h)
+
+
+@pytest.mark.parametrize("k", list(range(1, 17)))
+@pytest.mark.parametrize("chunk", [1024, 37, 128])
+def test_k4_every_width_into_poisoned_outputs(cuda, rng, monkeypatch, k, chunk):
+    """K4 at every width 1-16, indexed and per edge, with a table aligned
+    for vector loads and one 4 B off (scalar loads), with hubs split into
+    items of the port's length and of short ones: bit for bit against its
+    plain version into NaN-poisoned outputs, empty rows 0, rows of negative
+    values keeping their negative maxima, twice in a row (the split rows'
+    tickets left at zero)."""
+    from stgraph_tpu_torch.ops import segment_kernels as SEG
+
+    monkeypatch.setattr(SEG, "K4_CHUNK", chunk)
+    n, e = 3000, 60_000
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
+    csr = build_csr(src, dst, n, capacity=e + 5, device=cuda)
+    for index in (csr.cols, None):
+        rows = n if index is not None else csr.capacity
+        vals = rng.standard_normal((rows, k)).astype(np.float32)
+        vals[:, : (k + 1) // 2] = -np.abs(vals[:, : (k + 1) // 2])  # columns of negative maxima
+        for misaligned in (False, True):
+            t = torch.from_numpy(vals).to(cuda)
+            if misaligned:
+                t = torch.empty(rows * k + 1, device=cuda)[1:].view(rows, k).copy_(t)
+            ref = segment_max_narrow_plain(csr, t, index=index)
+            segment_max_narrow(csr, t, index=index)  # the work items, built once
+            for _ in range(2):
+                ptr = _poison((n, k), cuda)
+                before = segment_max_narrow.launches
+                out = segment_max_narrow(csr, t, index=index)
+                torch.cuda.synchronize()
+                assert segment_max_narrow.launches == before + 1
+                assert out.data_ptr() == ptr  # the output took the poisoned block
+                assert torch.equal(out, ref)
+                assert not out[n - 50:].any() and (out[: n - 50, 0] < 0).all()
+
+
 def _within_mass(out, ref, mass, tol=2e-4):
     assert ((out - ref).abs() <= tol * mass + 1e-6).all(), ((out - ref).abs() / mass.clamp(min=1e-30)).max()
 

@@ -411,38 +411,49 @@ def _work_item_calls(path):
     return calls
 
 
-def test_k1_k8_k9_take_their_own_item_lengths_and_k2_to_k5_keep_row_chunk():
-    """K2, K3, K4 and K5 take ``_work_items``'s default length, ROW_CHUNK,
-    and hand ROW_CHUNK to their kernels; K1's wrappers pass a length of
-    their own (K1_CHUNK), and K8's and K9's theirs (FLASH_CHUNK "fwd" and
-    "bwd"), the same length to ``_work_items`` and to the kernel."""
+def test_k1_k2_k4_k8_k9_take_their_own_item_lengths_and_k3_k5_keep_row_chunk():
+    """K3 and K5 take ``_work_items``'s default length, ROW_CHUNK, and hand
+    ROW_CHUNK to their kernels; K1's wrappers pass a length of their own
+    (K1_CHUNK), K2's theirs (K2_CHUNK by mode), K4 its own (K4_CHUNK, with
+    16 lanes an item) and K8's and K9's theirs (FLASH_CHUNK "fwd" and
+    "bwd"), the same length to ``_work_items`` and to the kernel. The
+    measured lengths are pinned here."""
     import ast
     import inspect
     import os
 
+    from stgraph_tpu_torch.ops import segment_kernels as SEG
     from stgraph_tpu_torch.ops import spmm_kernels as SK
 
     assert SK.ROW_CHUNK == 1024
     assert inspect.signature(SK._work_items).parameters["chunk"].default == SK.ROW_CHUNK
     assert set(SK.FLASH_CHUNK) == {"fwd", "bwd"}
     assert all(c in (128, 256, 512, 1024) for c in SK.FLASH_CHUNK.values())
+    assert SK.K2_CHUNK == {"one_head": 512, "heads": 128}
+    assert SEG.K4_CHUNK == 1024
     ops = os.path.join(os.path.dirname(SK.__file__))
     calls = {}
     for name in ("segment_kernels.py", "spmm_kernels.py", "flash_gat.py"):
         calls.update(_work_item_calls(os.path.join(ops, name)))
-    for fn in ("spmm_rowmask_bwd", "segment_sum_narrow", "segment_max_narrow", "segment_max_wide"):  # K2-K5
+    for fn in ("segment_sum_narrow", "segment_max_wide"):  # K3, K5
         kinds = dict(calls[fn])
         assert len(kinds["items"]) == 1, (fn, kinds)  # the CSR alone: ROW_CHUNK items
         assert "ROW_CHUNK" in kinds["entry"], (fn, kinds)
-    for fn in ("_launch_k1", "segment_sum_wide", "flash_gat_fwd", "flash_gat_bwd"):  # K1, its no-gather mode, K8, K9
+    # K1, its no-gather mode, K2, K4, K8, K9
+    for fn in ("_launch_k1", "segment_sum_wide", "spmm_rowmask_bwd", "segment_max_narrow", "flash_gat_fwd",
+               "flash_gat_bwd"):
         kinds = dict(calls[fn])
         assert kinds["items"][1] == "chunk" and "chunk" in kinds["entry"] and "ROW_CHUNK" not in kinds["entry"]
-    tree = ast.parse(open(os.path.join(ops, "flash_gat.py")).read())
-    for fn, key in (("flash_gat_fwd", "fwd"), ("flash_gat_bwd", "bwd")):
-        body = next(d for d in tree.body if isinstance(d, ast.FunctionDef) and d.name == fn)
-        chunks = [ast.unparse(a.value) for a in ast.walk(body)
-                  if isinstance(a, ast.Assign) and [ast.unparse(t) for t in a.targets] == ["chunk"]]
-        assert chunks == [f"FLASH_CHUNK['{key}']"], (fn, chunks)
+    chunks = {}
+    for name in ("spmm_kernels.py", "segment_kernels.py", "flash_gat.py"):
+        tree = ast.parse(open(os.path.join(ops, name)).read())
+        for d in tree.body:
+            if isinstance(d, ast.FunctionDef):
+                chunks[d.name] = [ast.unparse(a.value) for a in ast.walk(d)
+                                  if isinstance(a, ast.Assign) and [ast.unparse(t) for t in a.targets] == ["chunk"]]
+    assert chunks["flash_gat_fwd"] == ["FLASH_CHUNK['fwd']"] and chunks["flash_gat_bwd"] == ["FLASH_CHUNK['bwd']"]
+    assert chunks["spmm_rowmask_bwd"] == ["K2_CHUNK['heads' if heads > 1 else 'one_head']"]
+    assert chunks["segment_max_narrow"] == ["K4_CHUNK"]
 
 
 def _bf16_bits_rne(x32):
@@ -716,3 +727,298 @@ def test_flash_walk_matches_plain(h, f, elem, chunk):
     ref = flash_gat_bwd_plain(csr_t, el, er, m, c, gu, fs, h, 0.2, torch.float32)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a, b.double().numpy(), rtol=1e-5, atol=1e-5)
+
+
+# -- K2: lane groups, the dw fold, items; K4: lanes an item, its meeting ------
+
+
+def _log2(x):
+    return int(x).bit_length() - 1
+
+
+def _k2_geometry(f, elem, aligned=True):
+    """K2's walk (``csrc/spmm_sddmm_rowmask.cu``) for a row of ``f``
+    columns: K1's lane groups and tile, edges a step, steps and edges a
+    round, and the shift of the dw fold."""
+    from stgraph_tpu_torch.ops.spmm_kernels import k1_lanes
+
+    g, tile = k1_lanes(f, elem, aligned)
+    eps = 32 // g
+    steps = 4 if eps * 4 <= 32 else 32 // eps
+    return dict(g=g, tile=tile, v=16 // elem, eps=eps, steps=steps, rnd=steps * eps,
+                fold_shift=_log2(g) - _log2(steps))
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+def test_k2_lane_groups_and_tiles_keep_each_column_once_at_every_width(elem):
+    """At every width from 1 to 256 in both streams (bf16 rows padded to 8
+    columns; f32 rows on their own stride, aligned-down loads where it is
+    not a multiple of 4): each column is kept and stored by one lane of
+    one tile, every load inside its row; a round's steps fit the group's
+    lanes (the dw fold needs a lane a step), and the fold's hand-over
+    reads each edge of a round from one lane of the edge's group that
+    holds that step's dot."""
+    for f in range(1, 257):
+        ld = -(-f // 8) * 8 if elem == 2 else f
+        g, tile, kept = _k1_walk_columns(f, ld, elem, 0)
+        assert np.all(kept == 1), (f, elem)
+        geo = _k2_geometry(f, elem, ld % (16 // elem) == 0)
+        assert (geo["g"], geo["tile"]) == (g, tile)
+        assert geo["steps"] <= g and 32 % geo["rnd"] == 0 and geo["fold_shift"] >= 0
+        for t in range(geo["rnd"]):
+            lane = (t % geo["eps"]) * g + ((t // geo["eps"]) << geo["fold_shift"])
+            assert lane // g == t % geo["eps"] and (lane % g) >> geo["fold_shift"] == t // geo["eps"]
+
+
+def _fold(d, lanes, width, steps, op):
+    """The transpose reduction of ``steps`` values a lane (``d``: (32,
+    steps)) over groups of ``width`` lanes, as the kernels run it: at each
+    level a lane keeps one half of its values and takes its partner's half
+    of the same steps. Returns the lanes' values after it."""
+    d = d.copy()
+    lvl, s = 0, width >> 1
+    while s > 0:
+        half = (steps >> lvl) >> 1
+        partner = lanes ^ s
+        if half > 0:
+            upper = (lanes & s) != 0
+            new = d.copy()
+            for i in range(half):
+                send = np.where(upper, d[:, i], d[:, half + i])
+                keep = np.where(upper, d[:, half + i], d[:, i])
+                new[:, i] = op(keep, send[partner])
+            d = new
+        else:
+            d[:, 0] = op(d[:, 0], d[partner, 0])
+        lvl, s = lvl + 1, s >> 1
+    return d
+
+
+def _k2_walk(csr_t, w, g, fs, heads, elem, chunk):
+    """K2 by its kernel's index arithmetic (``csrc/spmm_sddmm_rowmask.cu``,
+    aligned rows) in f64 without the bf16 roundings: items of ``chunk``
+    edges, column tiles, batches of 32 (col, w) pairs, rounds of the
+    groups' gathers, both products, the one-head dw fold and its hand-over
+    to the lane of each edge's place, the heads' dots and their stores, the
+    groups' meeting and dh's stores. Checks each gather and counts each
+    store; returns (dh, dw)."""
+    from stgraph_tpu_torch.ops.spmm_kernels import k1_work_items
+
+    n, hf = fs.shape
+    geo = _k2_geometry(hf, elem)
+    gl, tile, v, eps, steps, rnd = geo["g"], geo["tile"], geo["v"], geo["eps"], geo["steps"], geo["rnd"]
+    head_f = hf // heads
+    nh = 1 if head_f >= v else v // head_f
+    lph = head_f // v if nh == 1 else 1
+    indptr, _, cols, _ = csr_t.host_arrays()
+    e_real, cap = int(indptr[-1]), csr_t.capacity
+    ld = -(-hf // v) * v
+    table = np.zeros((csr_t.num_cols, ld))
+    table[:, :hf] = g.double().numpy()
+    fs, w = fs.double().numpy(), w.double().numpy().reshape(cap, heads)
+    lanes = np.arange(32)
+    grp, col = lanes // gl, (lanes % gl) * v
+    dh = np.full((n, hf), np.nan)
+    dw = np.full((cap, heads), np.nan)
+    dw[e_real:] = 0.0
+    dh_stores, dw_stores = np.zeros((n, hf), np.int64), np.zeros((cap, heads), np.int64)
+    item_row, item_beg, split_rows = k1_work_items(indptr, chunk)
+    dh[split_rows] = 0.0
+    for row, beg in zip(item_row, item_beg):
+        beg, row_end = int(beg), int(indptr[row + 1])
+        end = min(beg + chunk, row_end)
+        split = row_end - int(indptr[row]) > chunk
+        for c0 in range(0, hf, tile):
+            tw = min(tile, hf - c0)
+            active = col < tw
+            cidx = col[:, None] + np.arange(v)
+            x = np.where(cidx < tw, fs[row, np.minimum(c0 + cidx, hf - 1)], 0.0)
+            head0 = np.minimum(c0 + col, hf - 1) // head_f
+            opens = active & ((nh > 1) | ((c0 + col) % head_f == 0))
+            khead = head0[:, None] + (np.arange(v) * nh // v)  # each column's head
+            acc = np.zeros((32, v))
+            for base in range(beg, end, 32):
+                cnt = min(32, end - base)
+                my_col = np.where(lanes < cnt, cols[np.minimum(base + lanes, cap - 1)], 0)
+                my_dw = np.zeros(32)
+                for j0 in range(0, cnt, rnd):
+                    d = np.zeros((32, steps))
+                    for u in range(steps):
+                        j = j0 + u * eps + grp
+                        ok = (j < cnt) & active
+                        src = my_col[j]
+                        q = np.zeros((32, v))
+                        for lane in np.flatnonzero(ok):
+                            assert c0 + col[lane] + v <= ld  # inside the padded row
+                            q[lane] = table[src[lane], c0 + col[lane]:c0 + col[lane] + v]
+                        wt = np.where(ok[:, None], w[np.minimum(base + j, cap - 1)[:, None], khead], 0.0)
+                        acc += q * wt
+                        prod = x * q
+                        if heads == 1:
+                            d[:, u] = prod.sum(1)
+                        else:
+                            dots = np.stack([prod[:, (np.arange(v) * nh // v) == h].sum(1) for h in range(nh)], 1)
+                            s = lph >> 1
+                            while s > 0:
+                                dots[:, 0] = dots[:, 0] + dots[lanes ^ s, 0]
+                                s >>= 1
+                            for lane in np.flatnonzero(opens & (j < cnt)):
+                                e = base + j[lane]
+                                dw[e, head0[lane]:head0[lane] + nh] = dots[lane]
+                                dw_stores[e, head0[lane]:head0[lane] + nh] += 1
+                    if heads == 1:
+                        folded = _fold(d, lanes, gl, steps, np.add)
+                        t = (lanes - j0) & (rnd - 1)
+                        frm = (t % eps) * gl + ((t // eps) << geo["fold_shift"])
+                        sel = (lanes >= j0) & (lanes < j0 + rnd)
+                        my_dw[sel] = folded[frm, 0][sel]
+                if heads == 1:
+                    e = base + np.arange(cnt)
+                    dw[e, 0] = my_dw[:cnt] if c0 == 0 else dw[e, 0] + my_dw[:cnt]
+                    if c0 == 0:
+                        dw_stores[e, 0] += 1
+            tot = acc.reshape(eps, gl, v).sum(0)  # the groups meet in lanes 0 .. gl - 1
+            for sub in range(gl):
+                for k in range(v):
+                    c = sub * v + k
+                    if c < tw:
+                        dh[row, c0 + c] = (dh[row, c0 + c] + tot[sub, k]) if split else tot[sub, k]
+                        dh_stores[row, c0 + c] += 1
+    assert np.all(dw_stores[:e_real] == 1)  # every real (edge, head) stored once
+    deg = np.diff(indptr)
+    assert np.all(dh_stores[deg <= chunk] == 1)
+    assert np.all(dh_stores[deg > chunk] == -(-deg[deg > chunk] // chunk)[:, None])
+    return dh, dw
+
+
+@pytest.mark.parametrize("heads,f,elem", [
+    (1, 128, 2), (1, 47, 2), (1, 128, 4), (1, 300, 2), (1, 200, 4),  # one head; one and two tiles
+    (32, 4, 2), (32, 4, 4), (4, 32, 2), (64, 2, 2), (64, 2, 4),  # heads: in a lane, or over lanes
+])
+@pytest.mark.parametrize("chunk", [37, 7])
+def test_k2_walk_matches_plain(heads, f, elem, chunk):
+    """K2 by its walk's index arithmetic (``_k2_walk``) against its plain
+    version (f32 stream) on a transpose CSR with empty rows and a hub in
+    each direction split into items of ``chunk`` edges (items ending inside
+    a group's step and inside a round), to 1e-5 relative."""
+    from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask_bwd_plain
+
+    rng = np.random.default_rng(heads * 1000 + f)
+    n = 48
+    src, dst = rng.integers(0, n - 5, 300), rng.integers(0, n - 5, 300)
+    dst[:70] = 3
+    src[-60:] = 7
+    csr_t = build_csr(src, dst, n, capacity=305, device="cpu").transpose()
+    hf = heads * f
+    g, fs = (torch.from_numpy(rng.standard_normal((n, hf)).astype(np.float32)) for _ in range(2))
+    w = torch.from_numpy(rng.standard_normal((csr_t.capacity, heads)).astype(np.float32))
+    dh, dw = _k2_walk(csr_t, w, g, fs, heads, elem, chunk)
+    ref_dh, ref_dw = spmm_rowmask_bwd_plain(csr_t, w, g, fs, torch.float32, heads=heads)
+    np.testing.assert_allclose(dh, ref_dh.double().numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dw, ref_dw.double().numpy().reshape(dw.shape), rtol=1e-5, atol=1e-5)
+
+
+def _atomic_max_bits(old, v):
+    """``atomic_max_float`` of ``csrc/segment_max_narrow.cu`` on f32 bits:
+    an int max for non-negative bit patterns, an unsigned min otherwise."""
+    o, b = np.float32(old).view(np.int32), np.float32(v).view(np.int32)
+    if b >= 0:
+        return np.int32(max(o, b)).view(np.float32)
+    return np.uint32(min(o.view(np.uint32), b.view(np.uint32))).view(np.float32)
+
+
+def _k4_walk(csr, vals, index, chunk, lanes_per_item):
+    """K4 by its kernel's index arithmetic (``csrc/segment_max_narrow.cu``):
+    items of ``chunk`` edges, ``lanes_per_item`` lanes an item, batches of
+    kU edges a lane with the next batch's indices loaded ahead, the
+    lanes' transpose meeting, the stores, and split rows met by the atomic
+    float max and finished by the last item's ticket. Returns the output
+    (f32) and the tickets after the launch."""
+    from stgraph_tpu_torch.ops.spmm_kernels import k1_work_items
+
+    kl = lanes_per_item
+    k = vals.shape[1]
+    kp = 1 << (k - 1).bit_length()
+    ku = 8 if k <= 2 else 4 if k <= 8 else 2
+    kr = kp // kl if kp > kl else 1
+    indptr = csr.host_arrays()[0]
+    vals = vals.numpy()
+    index = None if index is None else index.numpy()
+    item_row, item_beg, split_rows = k1_work_items(indptr, chunk)
+    out = np.full((csr.num_nodes, k), np.nan, np.float32)
+    out[split_rows] = -np.inf
+    tickets = np.zeros(split_rows.size, np.int64)
+    sl = np.arange(kl)
+    for row, beg in zip(item_row, item_beg):
+        beg, row_beg, row_end = int(beg), int(indptr[row]), int(indptr[row + 1])
+        end = min(beg + chunk, row_end)
+        split = row_end - row_beg > chunk
+
+        def indices(b0):
+            e = b0 + np.arange(ku)[:, None] * kl + sl
+            return np.where(e < end, e if index is None else index[np.minimum(e, index.size - 1)], -1)
+
+        acc = np.full((kl, kp), -np.inf, np.float32)
+        idx = indices(beg)
+        for b0 in range(beg, end, ku * kl):
+            v = np.where(idx[..., None] >= 0, vals[np.maximum(idx, 0)], np.float32(-np.inf))  # (kU, kL, K)
+            idx = indices(b0 + ku * kl)
+            acc[:, :k] = np.maximum(acc[:, :k], v.max(0))
+        lanes = np.arange(32)
+        full = np.full((32, kp), -np.inf, np.float32)
+        full[:kl] = acc  # the warp's first item; the levels stay inside it (xor < kL)
+        acc = _fold(full, lanes, kl, kp, np.maximum)[:kl]
+        c0 = sl >> (_log2(kl) - _log2(kp)) if kp <= kl else sl * kr
+        stores = (sl & (kl // kp - 1)) == 0 if kp <= kl else np.ones(kl, bool)
+        for lane in np.flatnonzero(stores):
+            for i in range(kr):
+                c = c0[lane] + i
+                if c < k:
+                    if split:
+                        out[row, c] = _atomic_max_bits(out[row, c], acc[lane, i])
+                    else:
+                        out[row, c] = 0.0 if acc[lane, i] == -np.inf else acc[lane, i]
+        if split:
+            slot = int(np.searchsorted(split_rows, row))
+            tickets[slot] += 1
+            if tickets[slot] == -(-(row_end - row_beg) // chunk):
+                tickets[slot] = 0
+                out[row][out[row] == -np.inf] = 0.0
+    return out, tickets
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("form", ["index", "per edge"])
+def test_k4_walk_matches_plain_bit_for_bit(k, form):
+    """K4 by its walk's index arithmetic (``_k4_walk``) against its plain
+    version, equal bit for bit (a maximum is exact), with empty rows, a
+    row of -inf values, all-negative rows, -0.0 values and two hubs split
+    into items of 37 and 64 edges, at 8, 16 and 32 lanes an item; every
+    split row's ticket is back at zero after the launch."""
+    from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow_plain
+
+    rng = np.random.default_rng(k * 10 + (form == "index"))
+    n = 48
+    src, dst = rng.integers(0, n - 5, 400), rng.integers(0, n - 5, 400)
+    dst[:90] = 3
+    dst[90:160] = 9
+    dst[160:170] = 11
+    csr = build_csr(src, dst, n, capacity=405, device="cpu")
+    rows = n if form == "index" else csr.capacity
+    vals = rng.standard_normal((rows, k)).astype(np.float32)
+    vals[vals > 0.5] *= -1  # many rows all negative
+    if form == "index":
+        vals[rng.integers(0, n, 6)] = -0.0
+        index = csr.cols
+    else:
+        e9 = np.flatnonzero(csr.rows.numpy() == 11)
+        vals[e9] = -np.inf  # row 11: every value -inf
+        vals[rng.integers(0, rows, 20)] = -0.0
+        index = None
+    t = torch.from_numpy(vals)
+    ref = segment_max_narrow_plain(csr, t, index=index).numpy()
+    for chunk in (37, 64):
+        for lanes in (8, 16, 32):
+            out, tickets = _k4_walk(csr, t, index, chunk, lanes)
+            assert np.array_equal(out, ref), (chunk, lanes)
+            assert not tickets.any()
