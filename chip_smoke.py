@@ -2643,8 +2643,8 @@ def rowmask_bwd_bound(n: int, e: int, h: int, f: int):
 def longest_item(csr, chunk=None) -> int:
     """The most edges one warp walks in a launch over ``csr`` whose work
     items cap a row at ``chunk`` edges (default ``ROW_CHUNK``, the items of
-    K3 and K5; K1's modes take ``K1_CHUNK``, K2's ``K2_CHUNK``, K4
-    ``K4_CHUNK``, K8 and K9 ``FLASH_CHUNK``)."""
+    K3; K1's modes take ``K1_CHUNK``, K2's ``K2_CHUNK``, K4 ``K4_CHUNK``, K5
+    ``K5_CHUNK``, K8 and K9 ``FLASH_CHUNK``)."""
     from stgraph_tpu_torch.ops.spmm_kernels import ROW_CHUNK
 
     return int(min(np.diff(csr.host_arrays()[0]).max(initial=0), chunk or ROW_CHUNK))
@@ -2809,6 +2809,10 @@ def phase_pubmed_rowmask(dev, args, workdir):
           f"Pubmed rowmask GAT train accuracy {acc:.4f} is below {PUBMED_ROWMASK_ACC_FLOOR:.4f}")
     profile = phase_profile(step, "one Pubmed rowmask epoch")  # after the counts and the accuracy
     del model, opt
+    with torch.inference_mode():  # K5 at this path's shape: (E, 32) scores on the Pubmed CSR
+        csr = graph.fwd_csr
+        k5 = k5_at_shape(csr, torch.randn(csr.capacity, PUBMED_ROWMASK_HEADS[0], device=dev,
+                                          generator=torch.Generator(device=dev).manual_seed(args.seed + 23)), "pubmed")
 
     logits, grads = {}, {}
     for impl in ("auto", "torch"):
@@ -2839,7 +2843,7 @@ def phase_pubmed_rowmask(dev, args, workdir):
     check(worst <= COMPOSED_GRAD_TOL, f"a Pubmed rowmask GAT gradient disagrees with the vertex program: {rows}")
     return {"synthetic": pubmed.synthetic, "n": n, "e": pubmed.gdata["num_edges"], "epoch_s": epoch_s,
             "train_acc": acc, "loss": loss.item(), "launches": counts, "profile": profile, "logit_err": err,
-            "max_abs_plain_logit": scale, "grads": rows, "worst_grad_err_over_max": worst}
+            "max_abs_plain_logit": scale, "grads": rows, "worst_grad_err_over_max": worst, "k5": k5}
 
 
 def rowmask_reference(csr, el, er, fs, g, slope):
@@ -3006,8 +3010,8 @@ def phase_rowmask_ppi(dev, ppi):
                 got = poisoned_call((c.num_nodes, h * f if key == "K1" else h), kernel)
             elif key == "K2":
                 got = poisoned_k2_call((c.num_nodes, h * f), (c.capacity, h), kernel)
-            else:
-                got = kernel()
+            else:  # K5
+                got = poisoned_call((c.num_nodes, h), kernel)
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             ref = plain()
@@ -3026,7 +3030,7 @@ def phase_rowmask_ppi(dev, ppi):
             lib = library()
             bound_ms, bound_by, nbytes, ops = bound
             item = longest_item(c, K1_CHUNK["heads"] if key == "K1" else K1_CHUNK["nogather"]
-                                if key == "K1_nogather" else K2_CHUNK["heads"] if key == "K2" else None)
+                                if key == "K1_nogather" else K2_CHUNK["heads"] if key == "K2" else SK.K5_CHUNK)
             if key in ("K1", "K2"):
                 sname = "bf16"
             else:  # K5 reads f32; the no-gather sum by its rule (818,716 slots: bf16)
@@ -3040,6 +3044,7 @@ def phase_rowmask_ppi(dev, ppi):
                  "longest_item": item, "ms": ms, "plain_ms": plain_ms, "library_ms": lib, "library": lib_name,
                  "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops, "max_abs_err": a,
                  "err_over_mass": r})
+        records["K5"][0].update(device_launches(lambda: SK.segment_max_wide(csr, s), SK.segment_max_wide))
         # beside the single call, the H calls of one head each
         records["K1"][0]["library_heads_ms"] = _library_multihead_ms(csr, w, fs2, h, e)
         print(f"K1-ppi forward {h} x {f}: {h} x sparse.mm {records['K1'][0]['library_heads_ms']} ms")
@@ -3098,6 +3103,86 @@ def rowid_bounds(cap: int, n: int, f: int, live: int):
     return out
 
 
+def device_launches(fn, counter, calls: int = 5) -> dict:
+    """What one call of ``fn`` adds to the wrapper's count (``counter``, a
+    kernel wrapper: one a call, whatever the call launches), and the device
+    work the profiler sees over ``calls`` calls (kernels, fills, copies)
+    with its names: the launches a call, measured; None where the profiler
+    saw no device work (not measured: late in a full run it has seen none
+    for these calls, while it sees them alone on the same card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = counter.launches
+    fn()
+    torch.cuda.synchronize()
+    launches = counter.launches - before
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"wrapper_count_per_call": launches, "device_work_per_call": len(names) / calls if names else None,
+            "kernels_of_a_call": sorted(set(names))}
+
+
+def k7_at_shape(rows, w, n, where):
+    """K7 as ``lazy_norm`` calls it (the indicator of ``w > 0``) on a store of
+    a main path: bit for bit against its plain version into a poisoned
+    output, then timed beside the plain version, ``torch.bincount`` and its
+    bound, with the device launches of one call."""
+    from stgraph_tpu_torch.ops.rowid_kernels import dyn_degree, dyn_degree_plain
+
+    cap = rows.numel()
+    ind = torch.where(w > 0, 1.0, 0.0)
+    ref = dyn_degree_plain(rows, ind, n)
+    den = poisoned_call((n,), lambda: dyn_degree(rows, w, n, indicator=True))
+    check(torch.equal(den, ref), f"K7 at {where} is not bit-equal to its plain version")
+    bound_ms, bound_by, nbytes, ops = rowid_bounds(cap, n, 1, cap)[1]
+    ms = cuda_ms(lambda: dyn_degree(rows, w, n, indicator=True), iters=200, warmup=5)
+    plain_ms = cuda_ms(lambda: dyn_degree_plain(rows, ind, n), iters=3)
+    try:  # a timed yardstick only; the port never calls it
+        lib_equal = torch.equal(torch.bincount(rows, weights=ind, minlength=n + 1)[:n].float(), den)
+        lib_ms = cuda_ms(lambda: torch.bincount(rows, weights=ind, minlength=n + 1), iters=50)
+    except RuntimeError as exc:
+        print(f"library yardstick bincount unavailable: {exc}")
+        lib_ms, lib_equal = None, None
+    launches = device_launches(lambda: dyn_degree(rows, w, n, indicator=True), dyn_degree)
+    print(f"k7-main {where}: N={n}, {cap} slots: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.1f} us, torch.bincount "
+          f"{lib_ms} ms, bound {bound_ms * 1e3:.2f} us by {bound_by}), wrapper count "
+          f"{launches['wrapper_count_per_call']} a call (device work {launches['device_work_per_call']} "
+          f"{launches['kernels_of_a_call']}); bit-equal, no NaN; bincount equal {lib_equal}")
+    return {"where": where, "N": n, "slots": cap, "live": int(((rows < n) & (w > 0)).sum()), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "library_equal": lib_equal, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "ops": ops, "max_abs_err": 0.0, **launches}
+
+
+def k5_at_shape(csr, vals, where):
+    """K5 on the rowmask route's (E, H) scores: bit for bit against its plain
+    version into a poisoned output, then timed beside the plain version,
+    ``torch.segment_reduce`` and its bound, with the device launches of one
+    call."""
+    from stgraph_tpu_torch.ops import segment_kernels as SK
+
+    n, e, k = csr.num_nodes, csr.num_edges, vals.shape[1]
+    SK.segment_max_wide(csr, vals)  # the work items, built once
+    out = poisoned_call((n, k), lambda: SK.segment_max_wide(csr, vals))
+    check(torch.equal(out, SK.segment_max_wide_plain(csr, vals, COMPOSED_PLAIN_EDGE_BLOCK)),
+          f"K5 at {where} differs from its plain version")
+    bound_ms, bound_by, nbytes, ops = wide_bound(n, e, k)
+    ms = cuda_ms(lambda: SK.segment_max_wide(csr, vals), iters=100, warmup=3)
+    plain_ms = cuda_ms(lambda: SK.segment_max_wide_plain(csr, vals, COMPOSED_PLAIN_EDGE_BLOCK), iters=2)
+    lib_ms = _library_segment_sum_ms(csr, vals, e, "max")
+    launches = device_launches(lambda: SK.segment_max_wide(csr, vals), SK.segment_max_wide)
+    print(f"k5-main {where}: N={n} E={e} K={k}: {ms * 1e3:.2f} us (plain {plain_ms:.3f} ms, "
+          f"torch.segment_reduce(max) {lib_ms} ms, bound {bound_ms * 1e3:.2f} us by {bound_by}), "
+          f"wrapper count {launches['wrapper_count_per_call']} a call (device work {launches['device_work_per_call']} "
+          f"{launches['kernels_of_a_call']}); bit-equal")
+    return {"where": where, "H": k, "E": e, "N": n, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": "torch.segment_reduce(max)", "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops, "max_abs_err": 0.0, **launches}
+
+
 def adversarial_rowid_store(rng, n, chunk):
     """A live-sorted store in K6's chunks of ``chunk`` slots: random rows
     below 100 in chunk 0, an all-sentinel chunk 1, row 150 over chunks 2-4
@@ -3125,11 +3210,12 @@ def adversarial_rowid_store(rng, n, chunk):
 def phase_rowid_kernels_vs_plain(dev, rng, n=200_000, slots=2_000_000, hub_slots=150_000):
     """K6 and K7 against their plain versions on a live-sorted flat store with
     sentinel slots spread through it (5 %), tombstones (10 %, w = 0), 1000
-    empty rows and a hub row of ``hub_slots`` slots, and K6 also on
+    empty rows and a hub row of ``hub_slots`` slots, and on
     ``adversarial_rowid_store``; weighted, unweighted (w in {0, 1}, the lazy
-    store's) and w = None, at F in {8, 32, 128}. K6's chunk plan (launch 1)
-    is held bit for bit against ``rowid_chunk_plan``, and each K6 output
-    takes a block poisoned with NaN (``poisoned_call``)."""
+    store's) and w = None, at F in {8, 32, 128} (K6), and K7 also in its
+    indicator mode. K6's chunk plan (launch 1) is held bit for bit against
+    ``rowid_chunk_plan``, and each output takes a block poisoned with NaN
+    (``poisoned_call``)."""
     from stgraph_tpu_torch.ops.rowid_kernels import (
         EDGE_CHUNK,
         dyn_degree,
@@ -3176,23 +3262,24 @@ def phase_rowid_kernels_vs_plain(dev, rng, n=200_000, slots=2_000_000, hub_slots
                 results.append({"kernel": "K6", "store": store, "F": f, "mode": mode,
                                 "max_abs_err": err.max().item(), "err_over_mass": ratio})
                 del out, ref, mass, err
-    rows_t, cols_t = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (rows, cols))
-    w_t = torch.from_numpy(w).to(dev)
-    modes = {"weighted": w_t, "unweighted": (w_t > 0).float(), "w=None": None}
-    for mode, ww in modes.items():
-        den = dyn_degree(rows_t, ww, n)
-        torch.cuda.synchronize()
-        ref = dyn_degree_plain(rows_t, ww, n)
-        err = (den - ref).abs()
-        # counts are exact; a weight sum (w > 0) is its own sum of |terms|
-        ok = (torch.equal(den, ref) if mode != "weighted" else _err_over_mass(err, ref) <= KERNEL_TOL)
-        ok = ok and not den[n - empty:].any().item()
-        print(f"k7-check {mode}: max_abs_err {err.max().item():.3e} (max |plain| {ref.max().item():.1f}), "
-              f"{'bit-equal' if torch.equal(den, ref) else 'err/sum|terms| %.2e' % _err_over_mass(err, ref)} "
-              f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"K7 disagrees with its plain version ({mode})")
-        worst["K7"] = max(worst["K7"], err.max().item())
-        results.append({"kernel": "K7", "mode": mode, "max_abs_err": err.max().item()})
+    for store, (r_np, _, w_np) in stores.items():
+        rows_t, w_t = torch.from_numpy(r_np.astype(np.int32)).to(dev), torch.from_numpy(w_np).to(dev)
+        modes = {"weighted": (w_t, False), "unweighted": ((w_t > 0).float(), False), "w=None": (None, False),
+                 "indicator": (w_t, True)}
+        for mode, (ww, ind) in modes.items():
+            den = poisoned_call((n,), lambda: dyn_degree(rows_t, ww, n, indicator=ind))
+            ref = dyn_degree_plain(rows_t, (w_t > 0).float() if ind else ww, n)
+            err = (den - ref).abs()
+            # counts are exact; a weight sum (w > 0) is its own sum of |terms|
+            ok = (torch.equal(den, ref) if mode != "weighted" else _err_over_mass(err, ref) <= KERNEL_TOL)
+            ok = ok and not den[n - empty:].any().item()
+            print(f"k7-check {store} store {mode}: no NaN; max_abs_err {err.max().item():.3e} (max |plain| "
+                  f"{ref.max().item():.1f}), "
+                  f"{'bit-equal' if torch.equal(den, ref) else 'err/sum|terms| %.2e' % _err_over_mass(err, ref)} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"K7 disagrees with its plain version ({mode}, {store} store)")
+            worst["K7"] = max(worst["K7"], err.max().item())
+            results.append({"kernel": "K7", "store": store, "mode": mode, "max_abs_err": err.max().item()})
     return {"store": {"n": n, "slots": slots, "empty_rows": empty, "hub_slots": hub_slots,
                       "sentinel_share": 0.05, "tombstone_share": 0.1},
             "cases": results, "max_abs_err": worst}
@@ -3310,11 +3397,10 @@ def phase_dyn_step(dev, seed):
 def phase_rowid_at_main_shapes(dyn):
     """K6 and K7 on the dyn-step store after its 64 steps (tombstones and
     logs in use), F = 128: each kernel, its plain version and a library call
-    timed, full outputs compared (K6's into a poisoned block, its chunk plan
-    bit for bit against ``rowid_chunk_plan``)."""
+    timed, full outputs compared into poisoned blocks (K6's chunk plan bit
+    for bit against ``rowid_chunk_plan``; K7 as ``lazy_norm`` calls it,
+    ``k7_at_shape``)."""
     from stgraph_tpu_torch.ops.rowid_kernels import (
-        dyn_degree,
-        dyn_degree_plain,
         rowid_chunk_plan,
         spmm_rowid,
         spmm_rowid_plain,
@@ -3326,7 +3412,7 @@ def phase_rowid_at_main_shapes(dyn):
     rows, cols, w = st.rows, st.cols, st.w
     cap = rows.numel()
     live = int(((rows < n) & (w > 0)).sum())
-    (b6, by6, bytes6, ops6), (b7, by7, bytes7, ops7) = rowid_bounds(cap, n, f, live)
+    b6, by6, bytes6, ops6 = rowid_bounds(cap, n, f, live)[0]
     out = {}
     with torch.no_grad():
         res, *got = poisoned_call((n, f), lambda: spmm_rowid_with_plan(rows, cols, w, feats, n))
@@ -3361,24 +3447,7 @@ def phase_rowid_at_main_shapes(dyn):
                       "library_ms": lib_ms, "library_build_s": lib_build_s, "library_max_abs_err": lib_err,
                       "bound_ms": b6, "bound_by": by6, "bytes": bytes6, "ops": ops6,
                       "max_abs_err": k6_err, "err_over_mass": ratio}]
-        ind = (w > 0).float()  # lazy_norm's call
-        den = dyn_degree(rows, ind, n)
-        ref = dyn_degree_plain(rows, ind, n)
-        check(torch.equal(den, ref), "K7 at the dyn-step shape is not bit-equal to its plain version")
-        k7_ms = cuda_ms(lambda: dyn_degree(rows, ind, n), iters=20, warmup=2)
-        k7_plain = cuda_ms(lambda: dyn_degree_plain(rows, ind, n), iters=3)
-        try:  # a timed yardstick only; the port never calls it
-            lib_den = torch.bincount(rows, weights=ind, minlength=n + 1)[:n]
-            k7_lib_equal = torch.equal(lib_den.float(), den)
-            k7_lib = cuda_ms(lambda: torch.bincount(rows, weights=ind, minlength=n + 1), iters=20)
-        except RuntimeError as exc:
-            print(f"library yardstick bincount unavailable: {exc}")
-            k7_lib, k7_lib_equal = None, None
-        print(f"k7-main: {k7_ms * 1e3:.1f} us (plain {k7_plain * 1e3:.1f} us, torch.bincount {k7_lib} ms, bound "
-              f"{b7 * 1e3:.1f} us by {by7}); bit-equal to its plain version, bincount equal {k7_lib_equal}")
-        out["K7"] = [{"N": n, "slots": cap, "ms": k7_ms, "plain_ms": k7_plain, "library_ms": k7_lib,
-                      "library_equal": k7_lib_equal, "bound_ms": b7, "bound_by": by7, "bytes": bytes7,
-                      "ops": ops7, "max_abs_err": 0.0}]
+        out["K7"] = [k7_at_shape(rows, w, n, "dyn-step")]  # lazy_norm's call
     return out, {"K6": out["K6"][0]["max_abs_err"], "K7": 0.0}
 
 
@@ -3444,25 +3513,17 @@ def link_loss(h, store, gen):
     return torch.where(mask, loss, 0.0).sum() / mask.sum().clamp(min=1)
 
 
-@timed_phase
-def phase_dtdg_training(dev, args, workdir, name):
-    """``benchmarking/dynamic-temporal-tgcn/train.py --type lazy-scan`` on the
-    port: the pair seeded from ``DeltaGraph.snapshot_store(lags - 1)``, the
-    staged deltas trimmed to the window's largest batch, tail logs 8 batches
-    wide; TGCN(8 -> 32), the link loss, Adam(1e-2), the whole epoch's
-    backward through every timestep. 1 warm and 4 timed epochs, each
-    launching 6T K6 and 3T K7; then K6 on pair.fwd and pair.bwd and K7 at
-    the path's shapes against their plain versions, and the hidden states,
-    loss and parameter gradients of one epoch against the same TGCN over
-    ``NaiveGraph`` snapshot CSRs (K1)."""
-    from stgraph_tpu_torch.graph import DeltaGraph, NaiveGraph
-    from stgraph_tpu_torch.nn import TGCN
-    from stgraph_tpu_torch.ops import spmm_cuda
+def dtdg_pair(dev, name, workdir):
+    """The lazy-scan script's dynamic input on the port: the dataset
+    (``dtdg_dataset``), the pair seeded from ``DeltaGraph.snapshot_store(lags
+    - 1)``, the staged deltas trimmed to the window's largest batch and tail
+    logs 8 batches wide. Returns ``(edge_lists, weight_lists, feats, n,
+    steps, width, tail capacity, pair0, update)``, ``update(pair, t)`` the
+    pair after timestep ``t``'s deltas."""
+    from stgraph_tpu_torch.graph import DeltaGraph
     from stgraph_tpu_torch.ops.dyn_spmm import apply_delta_lazy_pair, lazy_pair_from_edges
-    from stgraph_tpu_torch.ops.rowid_kernels import dyn_degree, dyn_degree_plain, spmm_rowid, spmm_rowid_plain
 
-    lags, hidden = DTDG_LAGS, DTDG_HIDDEN
-    t0 = time.perf_counter()
+    lags = DTDG_LAGS
     edge_lists, weight_lists, feats = dtdg_dataset(name, workdir)
     g = DeltaGraph(edge_lists, weight_lists, device=dev)
     n, steps = g.get_num_nodes(), len(feats)
@@ -3480,6 +3541,34 @@ def phase_dtdg_training(dev, args, workdir, name):
     pair0 = lazy_pair_from_edges(init.cols[live], init.rows[live], n, capacity=g._capacity + tcap,
                                  tail_capacity=tcap, weights=None if init.weights is None else init.weights[live],
                                  device=dev)
+
+    def update(pair, t):
+        return apply_delta_lazy_pair(pair, add[t, :, 0], add[t, :, 1], dele[t, :, 0], dele[t, :, 1],
+                                     add_weights=None if add_w is None else add_w[t])
+
+    return edge_lists, weight_lists, feats, n, steps, width, tcap, pair0, update
+
+
+@timed_phase
+def phase_dtdg_training(dev, args, workdir, name):
+    """``benchmarking/dynamic-temporal-tgcn/train.py --type lazy-scan`` on the
+    port: the pair seeded from ``DeltaGraph.snapshot_store(lags - 1)``, the
+    staged deltas trimmed to the window's largest batch, tail logs 8 batches
+    wide; TGCN(8 -> 32), the link loss, Adam(1e-2), the whole epoch's
+    backward through every timestep. 1 warm and 4 timed epochs, each
+    launching 6T K6 and 3T K7; then K6 on pair.fwd and pair.bwd and K7 at
+    the path's shapes against their plain versions, and the hidden states,
+    loss and parameter gradients of one epoch against the same TGCN over
+    ``NaiveGraph`` snapshot CSRs (K1)."""
+    from stgraph_tpu_torch.graph import NaiveGraph
+    from stgraph_tpu_torch.nn import TGCN
+    from stgraph_tpu_torch.ops import spmm_cuda
+    from stgraph_tpu_torch.ops.rowid_kernels import spmm_rowid, spmm_rowid_plain
+
+    lags, hidden = DTDG_LAGS, DTDG_HIDDEN
+    t0 = time.perf_counter()
+    edge_lists, weight_lists, feats, n, steps, width, tcap, pair0, update = dtdg_pair(dev, name, workdir)
+    capacity = pair0.fwd.capacity
     xs = [torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in feats]
     gen_init = torch.Generator().manual_seed(args.seed)
     model = TGCN(lags, hidden, impl="kernel", device="cpu", generator=gen_init).to(dev)
@@ -3487,10 +3576,6 @@ def phase_dtdg_training(dev, args, workdir, name):
     gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-
-    def update(pair, t):
-        return apply_delta_lazy_pair(pair, add[t, :, 0], add[t, :, 1], dele[t, :, 0], dele[t, :, 1],
-                                     add_weights=None if add_w is None else add_w[t])
 
     def step():
         opt.zero_grad(set_to_none=True)
@@ -3529,7 +3614,7 @@ def phase_dtdg_training(dev, args, workdir, name):
     updates_only()
     update_s = time.perf_counter() - t
     print(f"dtdg-training {name}: N={n}, T={steps}, up to {max(len(e) for e in edge_lists)} edges a snapshot, "
-          f"batches of {width}, capacity {g._capacity + tcap}, tail {tcap}, weighted {weight_lists is not None} "
+          f"batches of {width}, capacity {capacity}, tail {tcap}, weighted {weight_lists is not None} "
           f"(set-up {setup_s:.2f} s); warm epoch {warm_s:.3f} s (loss {warm_loss:.4f}); {DTDG_EPOCHS} Adam epochs, "
           f"s per epoch {[round(v, 4) for v in times]}, losses {[round(v, 4) for v in losses]}, updates alone "
           f"{update_s:.4f} s an epoch; launches {counts}")
@@ -3558,11 +3643,7 @@ def phase_dtdg_training(dev, args, workdir, name):
                   f"{'ok' if ratio <= KERNEL_TOL else 'FAIL'}")
             check(ratio <= KERNEL_TOL, f"{name}: K6 on pair.{side} disagrees with its plain version")
             kernel_worst["K6"] = max(kernel_worst["K6"], err.max().item())
-        ind = torch.where(pair.fwd.w > 0, 1.0, 0.0)  # lazy_norm's call
-        den, den_ref = dyn_degree(pair.fwd.rows, ind, n), dyn_degree_plain(pair.fwd.rows, ind, n)
-        print(f"dtdg-k7 {name} (N={n}, {pair.fwd.rows.numel()} slots): bit-equal to its plain version "
-              f"{torch.equal(den, den_ref)}")
-        check(torch.equal(den, den_ref), f"{name}: K7 with lazy_norm's weights is not bit-equal to its plain version")
+        k7 = k7_at_shape(pair.fwd.rows, pair.fwd.w, n, name)  # lazy_norm's call
 
     # The same TGCN over NaiveGraph snapshot CSRs (impl="kernel": K1 and its
     # backward, an f32 stream like the pair's), the same negatives: the
@@ -3609,11 +3690,11 @@ def phase_dtdg_training(dev, args, workdir, name):
     check(naive_fwd["K1"] == 3 * steps and worst <= HIDDEN_TOL, f"{name}: the lazy pair's hidden states disagree")
     check(loss_err <= HIDDEN_TOL and grad_worst <= DTDG_GRAD_TOL,
           f"{name}: the lazy pair's loss or gradients disagree with the snapshot path's: {grad_rows}")
-    return {"n": n, "timesteps": steps, "batch_width": width, "capacity": g._capacity + tcap,
+    return {"n": n, "timesteps": steps, "batch_width": width, "capacity": capacity,
             "tail_capacity": tcap, "weighted": weight_lists is not None, "setup_s": setup_s,
             "warm_s": warm_s, "warm_loss": warm_loss, "epoch_s": times, "losses": losses,
             "update_s": update_s, "launches": counts, "launches_per_epoch": per_epoch,
-            "kernel_max_abs_err": kernel_worst, "hidden_worst_err_over_max": worst,
+            "kernel_max_abs_err": kernel_worst, "k7": k7, "hidden_worst_err_over_max": worst,
             "loss_vs_naive": [loss_pair, loss_naive], "grad_err_over_max": grad_rows, "profile": profile}
 
 
@@ -4444,7 +4525,8 @@ def main() -> int:
                      rowmask_main["K1_nogather"], rowmask_main["K1_nogather"][0]["library"]),
         kernel_entry(f"segment_max_wide (K5, K={h})", "stgraph_tpu_torch/csrc/segment_max_wide.cu",
                      "stgraph_tpu/ops/segment_pallas.py:466", "K5", by_path, rowmask_ppi["max_abs_err"]["K5"],
-                     rowmask_main["K5"], rowmask_main["K5"][0]["library"]),
+                     rowmask_main["K5"], rowmask_main["K5"][0]["library"],
+                     by_shape={"pubmed": record["pubmed_rowmask"]["k5"], "ppi": rowmask_main["K5"][0]}),
         kernel_entry("segment_sum_narrow (K3)", "stgraph_tpu_torch/csrc/segment_sum_narrow.cu",
                      "stgraph_tpu/ops/segment_pallas.py:155", "K3", by_path,
                      max(record["composed_checks"]["max_abs_err"]["K3"], composed_err["K3"],
@@ -4464,7 +4546,9 @@ def main() -> int:
         kernel_entry("rowid_denom (K7)", "stgraph_tpu_torch/csrc/rowid_denom.cu",
                      "stgraph_tpu/ops/dyn_spmm.py:382", "K7", by_path,
                      max(record["rowid_checks"]["max_abs_err"]["K7"], rowid_err["K7"]), rowid_launch["K7"],
-                     "torch.bincount(rows, weights, minlength=n + 1)"),
+                     "torch.bincount(rows, weights, minlength=n + 1)",
+                     by_shape={**{name: r["k7"] for name, r in record["dtdg_training"].items()},
+                               "dyn-step": rowid_launch["K7"][0]}),
         kernel_entry("flash_gat_fwd (K8)", "stgraph_tpu_torch/csrc/flash_gat_fwd.cu",
                      "stgraph_tpu/ops/flash_gat.py:191", "K8", by_path,
                      max(record["gat_checks"]["max_abs_err"]["K8"], gat_err["K8"]), gat_launch["K8"],

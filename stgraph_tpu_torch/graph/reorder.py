@@ -106,13 +106,23 @@ def gather_working_set(
     A measure of the gather's locality: the edges are taken in (dst, src)
     CSR order, cut into regions of ``region_edges``, and a region costs its
     number of distinct source rows times ``row_bytes``. Lower is better:
-    the region's gathers touch a smaller part of the table.
+    the region's gathers touch a smaller part of the table. Edges already
+    in that order (a CSR's host arrays) are not sorted again; a region's
+    rows are counted on a bitmap of the ids.
     """
     dst = np.asarray(dst)
     src = np.asarray(src)
-    order = np.lexsort((src, dst))
-    s = src[order]
+    if len(src) == 0:
+        return 0.0
+    dd = np.diff(dst)
+    if not (np.all(dd >= 0) and np.all((dd > 0) | (np.diff(src) >= 0))):
+        src = src[np.lexsort((src, dst))]
+    base = min(int(src.min()), 0)
+    seen = np.zeros(max(num_nodes, int(src.max()) + 1) - base, bool)
     sizes = []
-    for lo in range(0, len(s), region_edges):
-        sizes.append(len(np.unique(s[lo : lo + region_edges])) * row_bytes)
-    return float(np.mean(sizes)) if sizes else 0.0
+    for lo in range(0, len(src), region_edges):
+        ids = src[lo : lo + region_edges] - base
+        seen[ids] = True
+        sizes.append(int(np.count_nonzero(seen)) * row_bytes)
+        seen[ids] = False
+    return float(np.mean(sizes))

@@ -120,7 +120,7 @@ def lazy_norm(pair: LazyPair) -> torch.Tensor:
     """(N, 1) ``in_degree^{-1/2}`` over the live edges, zero degree -> 1."""
     n = pair.num_nodes
     st = pair.fwd
-    deg = dyn_degree(st.rows, torch.where(st.w > 0, 1.0, 0.0), n)
+    deg = dyn_degree(st.rows, st.w, n, indicator=True)  # the live slots: w > 0
     # Signed log counting: a live tail entry counts +1 (weighted entries
     # count 1 whatever their weight), an anti entry -1.
     t_rows, _, t_val = _used_logs(st)

@@ -25,10 +25,15 @@ the source).
 K7 (``dyn_degree``, ``csrc/rowid_denom.cu``) replaces
 ``stgraph_tpu/ops/dyn_spmm.py``'s ``dyn_degree`` (``:436``) and its kernel
 ``_rowid_denom_kernel`` (``:382``): the per-row sum of ``w`` (or the count of
-real slots when ``w`` is None), on K6's first edge-chunk design (runs
-flushed by atomicAdd into a zeroed output) with one thread per run of
-``DENOM_CHUNK`` slots. Neither kernel needs the block spans that
-``segment_pallas.traced_block_meta`` (``:1626``) gives the TPU kernels.
+real slots when ``w`` is None, or of the slots with ``w > 0`` in its
+indicator mode) in one launch: a warp a span of 256 slots,
+read by coalesced 16 B loads, runs met by a segmented warp scan, spans
+chained by a single-pass look-back (span ids from an atomic ticket), each
+row's sum stored once and the rows without a slot zeroed in the same launch
+(the design is in the source). Its look-back words and ticket are kept per device and stream
+(``_k7_state``) and need no zeroing between launches. Neither kernel needs
+the block spans that ``segment_pallas.traced_block_meta`` (``:1626``) gives
+the TPU kernels.
 
 Neither wrapper copies anything to the host: the store changes every
 timestep on the device. Each takes the plain version only because the
@@ -44,9 +49,9 @@ from typing import Optional
 import torch
 
 from stgraph_tpu_torch.ops import kernel_lib
+from stgraph_tpu_torch.ops.spmm_kernels import _aligned16
 
 __all__ = [
-    "DENOM_CHUNK",
     "EDGE_CHUNK",
     "dyn_degree",
     "dyn_degree_plain",
@@ -57,7 +62,7 @@ __all__ = [
 ]
 
 EDGE_CHUNK = 256  # slots one K6 lane group takes
-DENOM_CHUNK = 16  # slots one K7 thread takes
+_K7_SPAN = 256  # slots a K7 warp takes: the kernel's kP x 128 (csrc/rowid_denom.cu)
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,7 +71,10 @@ _K6_SIGNATURES = {
     "stg_rowid_chunk_plan": [_VP, _I64, _I, _I, _VP, _VP, _VP, _VP, _I, _VP],
     "stg_spmm_rowid": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I, _I, _I, _VP],
 }
-_K7_SIGNATURES = {"stg_rowid_denom": [_VP, _VP, _VP, ctypes.c_int64, _I, _I, _VP]}
+_K7_SIGNATURES = {"stg_rowid_denom": [_VP, _VP, _VP, _VP, _VP, _I64, _I, _I, _I, _VP]}
+_K7_EPOCHS = 2**30  # the kernel's status words hold 2 epoch + 1 in an int32
+# (device index, stream) -> [status (spans, 4) int32, ticket (1,) int32, epoch]
+_K7_STATE: dict = {}
 
 
 def _check_store(rows: torch.Tensor, w: Optional[torch.Tensor], num_nodes: int, *others) -> None:
@@ -244,33 +252,69 @@ def dyn_degree_plain(rows: torch.Tensor, w: Optional[torch.Tensor], num_nodes: i
     return den[:n].float()
 
 
-def dyn_degree(rows: torch.Tensor, w: Optional[torch.Tensor], num_nodes: int) -> torch.Tensor:
-    """K7: (num_nodes,) f32 per-row sum of ``w`` over a live-sorted flat
-    store, or the count of real slots per row when ``w`` is None."""
-    _check_store(rows, w, num_nodes)
-    if rows.device.type == "cpu":
-        return dyn_degree_plain(rows, w, num_nodes)
+def _k7_state(dev: torch.device, stream: int, spans: int):
+    """K7's look-back words and ticket for ``stream`` on ``dev``, with room
+    for ``spans`` spans, and this launch's epoch. Made (zeroed) on first use,
+    when they must grow, and when the epochs run out; every launch leaves
+    the ticket 0, and its words' epochs below the next launch's. K7's
+    launches on one stream are ordered, so they can share them."""
+    key = (dev.index, stream)
+    state = _K7_STATE.get(key)
+    if state is None or state[0].shape[0] < spans or state[2] + 1 >= _K7_EPOCHS:
+        size = max(spans, 0 if state is None else state[0].shape[0])
+        state = [torch.zeros(1 << (size - 1).bit_length(), 4, dtype=torch.int32, device=dev),
+                 torch.zeros(1, dtype=torch.int32, device=dev), 0]
+        _K7_STATE[key] = state
+    state[2] += 1
+    return state
 
-    lib = kernel_lib.load("rowid_denom", _K7_SIGNATURES)
+
+def dyn_degree(rows: torch.Tensor, w: Optional[torch.Tensor], num_nodes: int, indicator: bool = False) -> torch.Tensor:
+    """K7: (num_nodes,) f32 per-row sum of ``w`` over a live-sorted flat
+    store, or the count of real slots per row when ``w`` is None; with
+    ``indicator`` the count of the slots whose ``w`` is above 0 (the sum of
+    ``torch.where(w > 0, 1.0, 0.0)``, without making it). One launch."""
+    _check_store(rows, w, num_nodes)
+    if indicator and w is None:
+        raise ValueError("dyn_degree's indicator mode counts w > 0: it needs w")
+    if rows.device.type == "cpu":
+        return dyn_degree_plain(rows, torch.where(w > 0, 1.0, 0.0) if indicator else w, num_nodes)
+
     dev = rows.device
     if w is not None and (w.device != dev or w.dtype != torch.float32):
         raise ValueError("K7 takes f32 weights on the rows' device")
     if rows.dtype != torch.int32:
         raise ValueError(f"K7 takes int32 rows, got {rows.dtype}")
-    n = num_nodes
-    den = torch.zeros(n, dtype=torch.float32, device=dev)
-    if n == 0 or rows.numel() == 0:
-        return den
-    rows = rows.contiguous()
-    w = None if w is None else w.contiguous()
+    n, cap = num_nodes, rows.numel()
+    if n == 0 or cap == 0:
+        return torch.zeros(n, dtype=torch.float32, device=dev)
+    return _dyn_degree_into(rows, w, n, indicator, torch.empty(n, dtype=torch.float32, device=dev))
+
+
+def _dyn_degree_into(rows, w, n, indicator, den):
+    """K7's launch into ``den`` ((n,) f32 on the card, whatever it holds:
+    the kernel writes every element); ``dyn_degree`` checked the rest."""
+    lib = kernel_lib.load("rowid_denom", _K7_SIGNATURES)
+    dev = rows.device
+    cap = rows.numel()
+    if den.shape != (n,) or den.dtype != torch.float32 or den.device != dev or not den.is_contiguous():
+        raise ValueError(f"K7's output must be ({n},) contiguous f32 on {dev}")
+    rows = _aligned16(rows)
+    w = None if w is None else _aligned16(w)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    spans = -(-cap // _K7_SPAN)
+    status, ticket, epoch = _k7_state(dev, stream, spans)
     rc = lib.stg_rowid_denom(
         rows.data_ptr(),
         None if w is None else w.data_ptr(),
         den.data_ptr(),
-        rows.numel(),
+        status.data_ptr(),
+        ticket.data_ptr(),
+        cap,
         n,
-        DENOM_CHUNK,
-        torch.cuda.current_stream(dev).cuda_stream,
+        0 if w is None else (2 if indicator else 1),
+        epoch,
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"K7 (rowid_denom) launch failed with cudaError {rc}")

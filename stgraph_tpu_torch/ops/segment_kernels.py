@@ -39,7 +39,11 @@ K = 4. ``SegmentSumNarrow``'s backward is the destination gather
 K5 (``segment_max_wide``, ``csrc/segment_max_wide.cu``) replaces
 ``segment_pallas.segment_max_wide`` (``:620-654``) and its Pallas kernel
 ``_wide_max_kernel`` (``:466``, through ``_wide_call`` ``:573``): K4's
-maximum for any width K, empty rows 0. K1's no-gather mode
+maximum for any width K, empty rows 0. It walks its own work items
+(``k5_work_items``: one int4 an item, at most ``K5_CHUNK`` edges), 16 lanes
+an item, and finishes split rows in the same launch through a scratch row
+of -inf and a ticket a split row, both kept on the CSR and left as they
+were by every launch: one launch a call. K1's no-gather mode
 (``segment_sum_wide``, ``csrc/segment_sum_wide.cu``) replaces
 ``segment_pallas.segment_sum_wide`` (``:661-760``), the row-wise SpMM
 kernel run on the (E, K) plane itself: K3's sum for any width, with the
@@ -66,10 +70,11 @@ import torch
 
 from stgraph_tpu_torch.graph.csr import CSR
 from stgraph_tpu_torch.ops import kernel_lib
-from stgraph_tpu_torch.ops.spmm_kernels import K1_CHUNK, ROW_CHUNK, _work_items
+from stgraph_tpu_torch.ops.spmm_kernels import K1_CHUNK, ROW_CHUNK, _work_items, k1_work_items
 
 __all__ = [
     "K4_CHUNK",
+    "K5_CHUNK",
     "MAX_NARROW_K",
     "SegmentMaxNarrow",
     "SegmentMaxWide",
@@ -84,6 +89,7 @@ __all__ = [
     "segment_sum_narrow_plain",
     "segment_sum_wide",
     "segment_sum_wide_plain",
+    "k5_work_items",
     "wide_stream_is_bf16",
 ]
 
@@ -91,6 +97,8 @@ __all__ = [
 MAX_NARROW_K = 16
 # K4's work items: at most K4_CHUNK edges each.
 K4_CHUNK = 1024
+# K5's work items (k5_work_items): at most K5_CHUNK edges each.
+K5_CHUNK = 128
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -101,7 +109,7 @@ _K3_SIGNATURES = {
     "stg_segment_sum_narrow": [_VP, _VP, _VP, _VP, _I, _VP, _I, _I, _VP],
 }
 _K5_SIGNATURES = {
-    "stg_segment_max_wide": [_VP, _VP, _VP, _VP, _I, _VP, _I, _VP, _I, _I, _VP],
+    "stg_segment_max_wide": [_VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _I, _VP],
 }
 _WIDE_SUM_SIGNATURES = {
     "stg_segment_sum_wide": [_VP, _VP, _I, _VP, _VP, _I, _VP, _I, _I, _VP],
@@ -335,10 +343,49 @@ def segment_max_wide_plain(csr: CSR, vals: torch.Tensor, edge_block: Optional[in
     return _max_plain(csr, vals, None, _check_wide(csr, vals), edge_block)
 
 
+def k5_work_items(indptr: np.ndarray, chunk: int):
+    """Host layout of K5's work: ``k1_work_items``'s items at ``chunk``
+    edges each, as ``(items, split_rows, split_items)``.
+
+    ``items`` is (num_items, 4) int32, one row an item: the row (``~row``
+    when the row spans several items), its first edge, its end, and the
+    row's slot in ``split_rows`` (-1 when not split). ``split_rows`` (int64,
+    ascending) are the rows of more than ``chunk`` edges and
+    ``split_items`` (int32) the number of items of each.
+    """
+    indptr = np.asarray(indptr, np.int64)
+    item_row, item_beg, split_rows = k1_work_items(indptr, chunk)
+    deg = np.diff(indptr)
+    row = item_row.astype(np.int64)
+    end = np.minimum(item_beg.astype(np.int64) + chunk, indptr[1:][row])
+    split = deg[row] > chunk
+    slot = np.where(split, np.searchsorted(split_rows, row), -1)
+    items = np.stack([np.where(split, ~row, row), item_beg, end, slot], 1).astype(np.int32)
+    return items, split_rows, (-(-deg[split_rows] // chunk)).astype(np.int32)
+
+
+def _k5_plan(csr: CSR, chunk: int, k: int):
+    """K5's work items on the CSR's device, its split rows' tickets (zeros)
+    and scratch rows ((split rows, k) of -inf), each made once per CSR and
+    kept there: every launch leaves the tickets 0 and the scratch -inf, so
+    K5's launches on one CSR stay ordered on one stream."""
+
+    def make():
+        items, split_rows, split_items = k5_work_items(csr.host_arrays()[0], chunk)
+        dev = csr.device
+        return (torch.from_numpy(items).to(dev), torch.from_numpy(split_items).to(dev),
+                torch.zeros(split_rows.size, dtype=torch.int32, device=dev))
+
+    items, split_items, tickets = csr.cached(f"k5_items_{chunk}", make)
+    scratch = csr.cached(f"k5_scratch_{chunk}_{k}", lambda: torch.full(
+        (split_items.numel(), k), float("-inf"), dtype=torch.float32, device=csr.device))
+    return items, split_items, tickets, scratch
+
+
 def segment_max_wide(csr: CSR, vals: torch.Tensor) -> torch.Tensor:
     """K5: ``out[d, k] = max over row d of vals[e, k]``, (N, K) f32, any K;
     empty rows give 0. ``vals`` is (capacity, K) in CSR order. Not
-    differentiable: ``SegmentMaxWide`` is."""
+    differentiable: ``SegmentMaxWide`` is. One launch a call."""
     k = _check_wide(csr, vals)
     if vals.device.type == "cpu":
         return segment_max_wide_plain(csr, vals)
@@ -347,25 +394,23 @@ def segment_max_wide(csr: CSR, vals: torch.Tensor) -> torch.Tensor:
     dev = vals.device
     if csr.device != dev:
         raise ValueError(f"K5 needs the CSR and vals on one CUDA device, got {csr.device} and {dev}")
-    plane = vals.to(torch.float32).contiguous()
     n = csr.num_nodes
     out = torch.empty(n, k, dtype=torch.float32, device=dev)
+    plane = vals.to(torch.float32).contiguous()
     if n == 0:
         return out
-    item_row, item_beg, split_rows = _work_items(csr)
-    if split_rows.numel():
-        out.index_fill_(0, split_rows, float("-inf"))
+    chunk = K5_CHUNK
+    items, split_items, tickets, scratch = _k5_plan(csr, chunk, k)
     rc = lib.stg_segment_max_wide(
-        csr.indptr.data_ptr(),
         plane.data_ptr(),
-        item_row.data_ptr(),
-        item_beg.data_ptr(),
-        item_row.numel(),
-        split_rows.data_ptr(),
-        split_rows.numel(),
+        items.data_ptr(),
+        items.shape[0],
+        split_items.data_ptr(),
+        split_items.numel(),
+        tickets.data_ptr(),
+        scratch.data_ptr(),
         out.data_ptr(),
         k,
-        ROW_CHUNK,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

@@ -90,9 +90,9 @@ __all__ = [
 ]
 
 # Edges one warp takes from a row; longer rows are split into several work
-# items whose partial sums meet by atomicAdd. K3 and K5 take items of
-# ROW_CHUNK edges; K1, K2, K4, K8 and K9 take their own lengths (K1_CHUNK,
-# K2_CHUNK, segment_kernels.K4_CHUNK, FLASH_CHUNK).
+# items whose partial sums meet by atomicAdd. K3 takes items of ROW_CHUNK
+# edges; K1, K2, K4, K5, K8 and K9 take their own lengths (K1_CHUNK,
+# K2_CHUNK, segment_kernels.K4_CHUNK and K5_CHUNK, FLASH_CHUNK).
 ROW_CHUNK = 1024
 # K1's item length by mode: "one_head" (the GCN paths and the shard mode),
 # "heads" (heads > 1, with the denominator) and "nogather" (the no-gather

@@ -463,6 +463,41 @@ def test_k5_matches_plain_on_the_card(cuda, rng, k):
     assert not out[n - 50:].any()
 
 
+@pytest.mark.parametrize("k", [5, 17, 32, 130])
+@pytest.mark.parametrize("chunk", [128, 37])
+def test_k5_split_hubs_in_one_launch_into_poisoned_outputs(cuda, rng, monkeypatch, k, chunk):
+    """K5 with hubs split into items of the port's length and of a short
+    one, at widths of one column tile and of three (130: 64 + 64 + 2),
+    unaligned (scalar loads) and aligned, with a row of -inf, -0.0 values
+    and all-negative columns: one launch a call, bit for bit against its
+    plain version into NaN-poisoned outputs, twice in a row, the split
+    rows' tickets back at 0 and their scratch rows at -inf after each."""
+    monkeypatch.setattr(SK, "K5_CHUNK", chunk)
+    n, e = 3000, 60_000
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
+    dst[-700:] = 11  # a second hub
+    csr = build_csr(src, dst, n, capacity=e + 5, device=cuda)
+    vals = rng.standard_normal((csr.capacity, k)).astype(np.float32)
+    vals[:, : (k + 1) // 2] = -np.abs(vals[:, : (k + 1) // 2])  # columns of negative maxima
+    vals[csr.rows.cpu().numpy() == 13] = -np.inf
+    vals[rng.integers(0, csr.capacity, 500)] = -0.0
+    t = torch.from_numpy(vals).to(cuda)
+    ref = segment_max_wide_plain(csr, t)
+    segment_max_wide(csr, t)  # the work items, built once
+    items, split_items, tickets, scratch = SK._k5_plan(csr, chunk, k)
+    assert split_items.numel() >= 2 and (split_items > 1).all()
+    for _ in range(2):
+        ptr = _poison((n, k), cuda)
+        before = segment_max_wide.launches
+        out = segment_max_wide(csr, t)
+        torch.cuda.synchronize()
+        assert segment_max_wide.launches == before + 1
+        assert out.data_ptr() == ptr  # the output took the poisoned block
+        assert torch.equal(out, ref)
+        assert not tickets.any() and torch.isneginf(scratch).all()
+        assert not out[n - 50:].any() and not out[13].any()
+
+
 @pytest.mark.parametrize("k", [17, 32, 130])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_wide_sum_matches_plain_on_the_card(cuda, rng, monkeypatch, k, bf16):
@@ -901,13 +936,49 @@ def test_k7_matches_plain_on_the_card(cuda, rng):
     counts = RK.dyn_degree(t(rows), None, n)
     live = RK.dyn_degree(t(rows), t((w > 0).astype(np.float32)), n)
     wsum = RK.dyn_degree(t(rows), t(w), n)
+    indicator = RK.dyn_degree(t(rows), t(w), n, indicator=True)
     torch.cuda.synchronize()
-    assert RK.dyn_degree.launches == before + 3
+    assert RK.dyn_degree.launches == before + 4
+    assert torch.equal(indicator, live)
     assert torch.equal(counts, RK.dyn_degree_plain(t(rows), None, n))  # counts are exact
     assert torch.equal(live, RK.dyn_degree_plain(t(rows), t((w > 0).astype(np.float32)), n))
     ref = RK.dyn_degree_plain(t(rows), t(w), n)
     assert ((wsum - ref).abs() <= 2e-4 * ref.abs() + 1e-6).all()  # w > 0: the sum is its own mass
     assert not counts[n - 50:].any()
+
+
+@pytest.mark.parametrize("store,hub", [("random", 200), ("random", 4_000), ("random", 20_000), ("adversarial", 0)])
+def test_k7_writes_every_row_of_a_poisoned_output_at_every_chain_length(cuda, rng, store, hub):
+    """K7 into a NaN-poisoned output (its private ``out`` entry), in every
+    mode, on random stores whose hub row takes 200 slots (one or two spans
+    of 256), 4,000 (inside a look-back window of 32 spans) and 20,000 (more
+    than a window), and on the adversarial store (rows 401 to n - 1 without a slot after
+    the last live row): no NaN left, counts and indicator sums bit-equal,
+    weighted sums within 2e-4, the same weighted sums bit for bit on a
+    second call, the ticket back at 0."""
+    n = 3000
+    rows, _, w = (_rowid_store(rng, n, 80_000, hub, True) if store == "random"
+                  else _adversarial_rowid_store(rng, n, True))
+    rows, w = torch.from_numpy(rows).to(cuda), torch.from_numpy(w).to(cuda)
+    for ww, indicator in ((None, False), (w, False), (w, True)):
+        ref = RK.dyn_degree_plain(rows, torch.where(w > 0, 1.0, 0.0) if indicator else ww, n)
+        outs = []
+        for _ in range(2):
+            den = torch.full((n,), float("nan"), device=cuda)
+            before = RK.dyn_degree.launches
+            RK._dyn_degree_into(rows, ww, n, indicator, den)
+            torch.cuda.synchronize()
+            assert RK.dyn_degree.launches == before + 1
+            assert not den.isnan().any()
+            outs.append(den)
+        if ww is None or indicator:
+            assert torch.equal(outs[0], ref) and torch.equal(outs[1], ref)
+        else:
+            assert ((outs[0] - ref).abs() <= 2e-4 * ref.abs() + 1e-6).all()
+            assert torch.equal(outs[0], outs[1])  # a fixed order of the sums
+        assert not outs[0][n - 50:].any()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert RK._K7_STATE[(rows.device.index, stream)][1].item() == 0
 
 
 @pytest.mark.parametrize("weighted", [False, True])

@@ -412,11 +412,12 @@ def _work_item_calls(path):
 
 
 def test_k1_k2_k4_k8_k9_take_their_own_item_lengths_and_k3_k5_keep_row_chunk():
-    """K3 and K5 take ``_work_items``'s default length, ROW_CHUNK, and hand
-    ROW_CHUNK to their kernels; K1's wrappers pass a length of their own
+    """K3 takes ``_work_items``'s default length, ROW_CHUNK, and hands
+    ROW_CHUNK to its kernel; K1's wrappers pass a length of their own
     (K1_CHUNK), K2's theirs (K2_CHUNK by mode), K4 its own (K4_CHUNK, with
     16 lanes an item) and K8's and K9's theirs (FLASH_CHUNK "fwd" and
-    "bwd"), the same length to ``_work_items`` and to the kernel. The
+    "bwd"), the same length to ``_work_items`` and to the kernel; K5 builds
+    its own items (``_k5_plan``, one int4 an item) at K5_CHUNK. The
     measured lengths are pinned here."""
     import ast
     import inspect
@@ -431,14 +432,15 @@ def test_k1_k2_k4_k8_k9_take_their_own_item_lengths_and_k3_k5_keep_row_chunk():
     assert all(c in (128, 256, 512, 1024) for c in SK.FLASH_CHUNK.values())
     assert SK.K2_CHUNK == {"one_head": 512, "heads": 128}
     assert SEG.K4_CHUNK == 1024
+    assert SEG.K5_CHUNK == 128
     ops = os.path.join(os.path.dirname(SK.__file__))
     calls = {}
     for name in ("segment_kernels.py", "spmm_kernels.py", "flash_gat.py"):
         calls.update(_work_item_calls(os.path.join(ops, name)))
-    for fn in ("segment_sum_narrow", "segment_max_wide"):  # K3, K5
-        kinds = dict(calls[fn])
-        assert len(kinds["items"]) == 1, (fn, kinds)  # the CSR alone: ROW_CHUNK items
-        assert "ROW_CHUNK" in kinds["entry"], (fn, kinds)
+    kinds = dict(calls["segment_sum_narrow"])  # K3
+    assert len(kinds["items"]) == 1, kinds  # the CSR alone: ROW_CHUNK items
+    assert "ROW_CHUNK" in kinds["entry"], kinds
+    assert "items" not in dict(calls["segment_max_wide"])  # K5: its own items, not _work_items
     # K1, its no-gather mode, K2, K4, K8, K9
     for fn in ("_launch_k1", "segment_sum_wide", "spmm_rowmask_bwd", "segment_max_narrow", "flash_gat_fwd",
                "flash_gat_bwd"):
@@ -454,6 +456,11 @@ def test_k1_k2_k4_k8_k9_take_their_own_item_lengths_and_k3_k5_keep_row_chunk():
     assert chunks["flash_gat_fwd"] == ["FLASH_CHUNK['fwd']"] and chunks["flash_gat_bwd"] == ["FLASH_CHUNK['bwd']"]
     assert chunks["spmm_rowmask_bwd"] == ["K2_CHUNK['heads' if heads > 1 else 'one_head']"]
     assert chunks["segment_max_narrow"] == ["K4_CHUNK"]
+    assert chunks["segment_max_wide"] == ["K5_CHUNK"]
+    tree = ast.parse(open(os.path.join(ops, "segment_kernels.py")).read())
+    k5 = next(d for d in tree.body if isinstance(d, ast.FunctionDef) and d.name == "segment_max_wide")
+    plans = [ast.unparse(c) for c in ast.walk(k5) if isinstance(c, ast.Call) and getattr(c.func, "id", "") == "_k5_plan"]
+    assert plans == ["_k5_plan(csr, chunk, k)"]
 
 
 def _bf16_bits_rne(x32):
@@ -1022,3 +1029,303 @@ def test_k4_walk_matches_plain_bit_for_bit(k, form):
             out, tickets = _k4_walk(csr, t, index, chunk, lanes)
             assert np.array_equal(out, ref), (chunk, lanes)
             assert not tickets.any()
+
+
+def _k5_walk(csr, vals, chunk, rng, lanes=16, ku=4):
+    """K5 by its kernel's index arithmetic (``csrc/segment_max_wide.cu``):
+    ``k5_work_items`` at ``chunk`` edges, ``lanes`` lanes an item, column
+    tiles of 4 ``lanes`` columns split into power-of-two column groups and
+    edge offsets, batches of ``ku`` edges a lane, the offsets' xor meeting,
+    and split rows met by the atomic float max in scratch rows of -inf,
+    finished by the last (item, tile) to take its row's ticket. The (item,
+    tile) pairs run in a random order. Returns the output (f32, NaN where
+    unwritten), the tickets and the scratch after the launch."""
+    from stgraph_tpu_torch.ops.segment_kernels import k5_work_items
+
+    v = vals.numpy()
+    n, k = csr.num_nodes, v.shape[1]
+    items, split_rows, split_items = k5_work_items(csr.host_arrays()[0], chunk)
+    out = np.full((n, k), np.nan, np.float32)
+    scratch = np.full((split_rows.size, k), -np.inf, np.float32)
+    tickets = np.zeros(split_rows.size, np.int64)
+    tile_w = 4 * lanes
+    tiles = -(-k // tile_w)
+    sl = np.arange(lanes)
+    for flat in rng.permutation(items.shape[0] * tiles):
+        code, beg, end, slot = (int(x) for x in items[flat % items.shape[0]])
+        c0 = flat // items.shape[0] * tile_w
+        split, row = code < 0, ~code if code < 0 else code
+        kt = min(tile_w, k - c0)
+        gp = 1
+        while 4 * gp < kt:
+            gp *= 2
+        step = lanes // gp
+        col, off = 4 * (sl % gp), sl // gp
+        acc = np.full((lanes, 4), -np.inf, np.float32)
+        seen = np.zeros((gp, max(end - beg, 0)), np.int64)  # edges read by each column group
+        for lane in range(lanes):
+            ncol = min(4, kt - col[lane])
+            if ncol <= 0:
+                continue
+            for b0 in range(beg + off[lane], end, ku * step):  # batches; the next loaded ahead
+                for u in range(ku):
+                    e = b0 + u * step
+                    if e < end:
+                        acc[lane, :ncol] = np.maximum(acc[lane, :ncol], v[e, c0 + col[lane]:c0 + col[lane] + ncol])
+                        seen[lane % gp, e - beg] += 1
+        assert np.all(seen[: -(-kt // 4)] == 1)  # every edge once for every column group
+        s = gp
+        while s < lanes:
+            acc = np.maximum(acc, acc[sl ^ s])
+            s *= 2
+        for lane in range(gp):
+            for c in range(min(4, kt - col[lane])):
+                j = c0 + col[lane] + c
+                if split:
+                    scratch[slot, j] = _atomic_max_bits(scratch[slot, j], acc[lane, c])
+                else:
+                    out[row, j] = 0.0 if acc[lane, c] == -np.inf else acc[lane, c]
+        if split:
+            tickets[slot] += 1
+            if tickets[slot] == split_items[slot] * tiles:
+                tickets[slot] = 0
+                out[row] = np.where(scratch[slot] == -np.inf, np.float32(0), scratch[slot])
+                scratch[slot] = -np.inf
+    return out, tickets, scratch
+
+
+@pytest.mark.parametrize("k", [5, 17, 32, 130])
+def test_k5_walk_matches_plain_bit_for_bit(k):
+    """K5 by its walk's index arithmetic (``_k5_walk``) against its plain
+    version, equal bit for bit (a maximum is exact), with empty rows, a
+    row of -inf values, all-negative rows, -0.0 values and two hubs split
+    into items of 37 and 64 edges, the (item, tile) pairs in two random
+    orders; every ticket is back at zero and every scratch row at -inf
+    after the launch, and every row is written."""
+    from stgraph_tpu_torch.ops.segment_kernels import k5_work_items, segment_max_wide_plain
+
+    rng = np.random.default_rng(k)
+    n = 48
+    src, dst = rng.integers(0, n - 5, 400), rng.integers(0, n - 5, 400)
+    dst[:90] = 3
+    dst[90:160] = 9
+    dst[160:170] = 11
+    csr = build_csr(src, dst, n, capacity=405, device="cpu")
+    vals = rng.standard_normal((csr.capacity, k)).astype(np.float32)
+    vals[vals > 0.5] *= -1  # many rows all negative
+    vals[csr.rows.numpy() == 11] = -np.inf  # row 11: every value -inf
+    vals[rng.integers(0, csr.capacity, 20)] = -0.0
+    t = torch.from_numpy(vals)
+    ref = segment_max_wide_plain(csr, t).numpy()
+    for chunk in (37, 64):
+        items, split_rows, split_items = k5_work_items(csr.host_arrays()[0], chunk)
+        deg = np.diff(csr.host_arrays()[0].astype(np.int64))
+        assert list(split_rows) == [3, 9] and np.array_equal(split_items, -(-deg[[3, 9]] // chunk))
+        for order in range(2):
+            out, tickets, scratch = _k5_walk(csr, t, chunk, np.random.default_rng(order))
+            assert np.array_equal(out, ref), (chunk, order)
+            assert not tickets.any() and np.all(scratch == -np.inf)
+
+
+def test_k5_work_items_cover_every_edge_once_with_their_split_slots():
+    """``k5_work_items``: one int4 an item (row or ~row, first edge, end,
+    split slot), every row in at least one item, the items of a row
+    contiguous and covering its edges once, split rows coded ~row with
+    their slot in ``split_rows`` and their item count."""
+    from stgraph_tpu_torch.ops.segment_kernels import k5_work_items
+
+    csr, _ = _layout(np.random.default_rng(5), n=700, e=6000, hub_deg=600)
+    indptr = csr.host_arrays()[0].astype(np.int64)
+    for chunk in (128, 37):
+        items, split_rows, split_items = k5_work_items(indptr, chunk)
+        assert items.dtype == np.int32 and items.shape[1] == 4
+        code, beg, end, slot = items.T
+        rows = np.where(code < 0, ~code, code)
+        assert np.all(np.diff(rows) >= 0) and np.all(end - beg <= chunk) and np.all(end >= beg)
+        assert np.array_equal(np.unique(rows), np.arange(csr.num_nodes))
+        assert np.array_equal(beg[1:][rows[1:] == rows[:-1]], end[:-1][rows[1:] == rows[:-1]])  # contiguous
+        assert np.array_equal(np.bincount(rows, weights=end - beg, minlength=csr.num_nodes), np.diff(indptr))
+        deg = np.diff(indptr)
+        assert np.array_equal(split_rows, np.flatnonzero(deg > chunk)) and 300 in split_rows
+        assert np.array_equal(code < 0, deg[rows] > chunk)
+        assert np.all(slot[code >= 0] == -1) and np.array_equal(split_rows[slot[code < 0]], rows[code < 0])
+        assert np.array_equal(split_items, np.bincount(slot[code < 0], minlength=split_rows.size))
+
+
+def _k7_walk(rows, w, n, mode, lanes, passes, rng):
+    """K7 by its kernel's arithmetic (``csrc/rowid_denom.cu``) in f32, with
+    a warp of ``lanes`` lanes (32 on the card): spans of ``passes`` passes
+    of 4 ``lanes`` slots taken in ticket order, each lane's 4 slots reduced
+    to (first row, last row, sum of the last row's values), the Kogge-Stone
+    segmented scan, the look-back over ``lanes`` predecessors at a time
+    (each predecessor's inclusive value visible or not at random, as the
+    card's timing makes it; the nearest inclusive value awaited when the
+    chain is longer than the window), the warp's zeroing of the rows
+    strictly inside its span, then each lane's stores of the rows it
+    finishes, and the zeroing of the gaps between spans. Returns ``den``
+    (f32, NaN where unwritten) and how many times each row was stored a
+    sum and a zero."""
+    f32 = np.float32
+    cap = rows.size
+    span = 4 * lanes * passes
+    spans = -(-cap // span)
+    den = np.full(n, np.nan, f32)
+    sums, zeros = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    none = (-1, -1, f32(0))
+
+    def comb(a, b):
+        if b[1] < 0:
+            return a
+        if a[1] < 0:
+            return b
+        return (a[0], b[1], f32(a[2] + b[2]) if b[1] == a[1] else b[2])
+
+    def store(r, x):
+        den[r] = x
+        sums[r] += 1
+
+    def zero(lo, hi):
+        den[lo:hi] = 0.0
+        zeros[lo:hi] += 1
+
+    agg_of, inc_of = {}, {}
+    for s in range(spans):
+        e = s * span + np.arange(passes * lanes * 4).reshape(passes, lanes, 4)
+        r = np.where(e < cap, rows[np.minimum(e, cap - 1)], n)
+        r = np.where((r >= 0) & (r < n), r, -1)
+        ww = np.where(e < cap, w[np.minimum(e, cap - 1)], f32(0)) if w is not None else None
+        v = (np.ones(r.shape, f32) if mode == 0 else ww.astype(f32) if mode == 1
+             else np.where(ww > 0, f32(1), f32(0)))
+        ex, tot, agg = [], [], none
+        for p in range(passes):
+            segs = []
+            for lane in range(lanes):
+                m = none
+                for j in range(4):
+                    rj = int(r[p, lane, j])
+                    if rj < 0:
+                        continue
+                    m = (rj, rj, v[p, lane, j]) if m[1] < 0 else (
+                        (m[0], rj, f32(m[2] + v[p, lane, j])) if rj == m[1] else (m[0], rj, v[p, lane, j]))
+                segs.append(m)
+            x, d = list(segs), 1
+            while d < lanes:
+                x = [comb(x[i - d], x[i]) if i >= d else x[i] for i in range(lanes)]
+                d *= 2
+            ex.append([none] + x[:-1])
+            tot.append(x[-1])
+            agg = comb(agg, x[-1])
+        agg_of[s] = agg
+        zero(agg[0] + 1, max(agg[1], agg[0] + 1))  # the rows strictly inside the span, before any sum
+        carry = none
+        if s > 0:
+            q0 = s - 1
+            while True:
+                window = []  # (inclusive?, f, l, s) of s-1-lane
+                for lane in range(lanes):
+                    q = q0 - lane
+                    if q < 0:
+                        window.append((True, -1, -1, f32(0)))
+                    elif rng.random() < 0.5:
+                        window.append((True,) + inc_of[q])
+                    else:
+                        window.append((False,) + agg_of[q])
+                info = [i for i, d_ in enumerate(window) if d_[0] or d_[2] >= 0]
+                if not info:
+                    q0 -= lanes
+                    continue
+                i0 = info[0]
+                row = window[i0][2]
+                if row < 0:
+                    break
+                ends = [i for i in range(i0, lanes) if window[i][0]
+                        or (window[i][2] >= 0 and (window[i][2] != row or window[i][1] != window[i][2]))]
+                if not ends:
+                    carry = (row, row, inc_of[s - 1][2])  # the nearest inclusive value, awaited
+                    assert inc_of[s - 1][1] == row
+                    break
+                total = None
+                for i in range(ends[0], i0 - 1, -1):  # oldest first
+                    if window[i][2] == row:
+                        total = window[i][3] if total is None else f32(total + window[i][3])
+                carry = (row, row, total)
+                break
+        inc_of[s] = comb(carry, agg)
+        c = carry
+        for p in range(passes):
+            for lane in range(lanes):
+                _, prev, acc = comb(c, ex[p][lane])
+                for j in range(4):
+                    rj = int(r[p, lane, j])
+                    if rj < 0:
+                        continue
+                    if rj != prev:
+                        if prev >= 0:
+                            store(prev, acc)
+                        if prev < agg[0]:  # the gap before the span's first live row, by the warp
+                            zero(prev + 1, rj)
+                        prev, acc = rj, f32(0)
+                    acc = f32(acc + v[p, lane, j])
+            c = comb(c, tot[p])
+    last = inc_of[spans - 1]
+    if last[1] >= 0:
+        store(last[1], last[2])
+    zero(last[1] + 1, n)
+    return den, sums, zeros
+
+
+def _k7_stores():
+    """The adversarial store of K6's plan tests and three random ones (a
+    ragged last span, 30 % sentinels, a run of 200 sentinel slots, a hub
+    of 300 slots), each with positive weights and 10 % tombstones."""
+    rows, _, w, n = _adversarial_store()
+    yield "adversarial", rows, w, n
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        n, cap = 300, 2000 + seed
+        r = np.sort(rng.integers(0, n - 30, cap))
+        r[:300] = 17
+        r = np.sort(r)
+        r[rng.random(cap) < 0.3] = n
+        r[1200:1400] = n
+        w = np.where((r < n) & (rng.random(cap) > 0.1), rng.random(cap) + 0.1, 0.0).astype(np.float32)
+        yield f"random{seed}", r.astype(np.int32), w, n
+
+
+@pytest.mark.parametrize("lanes,passes", [(4, 1), (4, 2), (32, 1), (32, 2)])
+def test_k7_walk_matches_plain_and_writes_every_row_once(lanes, passes):
+    """K7 by its walk (``_k7_walk``) on the adversarial and random stores
+    of K6's plan tests, at two span lengths and two warp widths (4 lanes:
+    a look-back window of 4 spans, so chains outrun it): counts and
+    indicator sums bit-equal to ``dyn_degree_plain``, weighted sums within
+    2e-4 of each row's sum; every row that has a slot stored its sum
+    exactly once (after at most one zero, from its span's bulk zeroing),
+    every row without one zeroed exactly once; the weighted sums bit for
+    bit the same under another timing of the look-back (a fixed order)."""
+    for name, rows, w, n in _k7_stores():
+        r_t, w_t = torch.from_numpy(rows), torch.from_numpy(w)
+        has = np.zeros(n, bool)
+        has[rows[rows < n]] = True
+        for mode in (0, 1, 2):
+            ref = RK.dyn_degree_plain(r_t, None if mode == 0 else torch.where(w_t > 0, 1.0, 0.0)
+                                      if mode == 2 else w_t, n).numpy()
+            den, sums, zeros = _k7_walk(rows, None if mode == 0 else w, n, mode, lanes, passes,
+                                        np.random.default_rng(mode))
+            assert np.array_equal(sums, has.astype(np.int64)), (name, mode)
+            assert np.all(zeros[~has] == 1) and np.all(zeros[has] <= 1), (name, mode)
+            if mode == 1:
+                np.testing.assert_allclose(den, ref, rtol=2e-4, atol=1e-6)
+                again, *_ = _k7_walk(rows, w, n, mode, lanes, passes, np.random.default_rng(99))
+                assert np.array_equal(den, again), name
+            else:
+                assert np.array_equal(den, ref), (name, mode)
+
+
+def test_dyn_degree_indicator_mode_on_the_cpu_is_the_plain_version_of_the_indicator():
+    rows, _, w, n = _adversarial_store()
+    r_t, w_t = torch.from_numpy(rows), torch.from_numpy(w)
+    got = RK.dyn_degree(r_t, w_t, n, indicator=True)
+    assert torch.equal(got, RK.dyn_degree_plain(r_t, torch.where(w_t > 0, 1.0, 0.0), n))
+    assert got[7] == 0 and got[5] == 21  # row 7: tombstones only; row 5: 24 slots less 3 sentinels
+    with pytest.raises(ValueError):
+        RK.dyn_degree(r_t, None, n, indicator=True)
