@@ -108,13 +108,15 @@ Phases (any failure exits nonzero and prints no result line):
     memory; a profile of one request; K3 and K10 at the first layer's shapes
     with its own weights and features (kernel, plain version, library calls:
     for K10 one ``torch.sparse.mm`` over the block-diagonal-by-head pattern
-    and, beside it, H calls of one head each; full outputs compared);
+    and, beside it, H calls of one head each; full outputs compared, K3's in
+    a poisoned block and bit-equal over two calls, with its device time and
+    launches a call: ``k3_at_shape``);
 28. K3 and K10 against their plain versions (run after 15): K3 at K in
     {1, 4, 6, 16} on the forward and transpose CSRs of a graph with a
     150k-edge hub in each direction, empty rows, empty row blocks and padding
     slots; K10 at (H, F) in {(4, 256), (6, 121), (3, 20), (3, 7), (40, 4)}
     on both blocked layouts (a block of over 10^5 slots in each), each
-    output in a block poisoned with NaN;
+    output in a block poisoned with NaN, K3's bit-equal over two calls;
 29. ppi-serving and ppi-training, the eighth and ninth main paths: the same
     model at the PPI widths (50 -> 4x256 -> 4x256 -> 6x121) on a synthetic
     graph of PPI's size (56,944 nodes, 818,716 edges; Chung-Lu degrees as in
@@ -123,8 +125,8 @@ Phases (any failure exits nonzero and prints no result line):
     logits and one step's gradients against the vertex program with K3's
     and K4's plain versions;
 30. K3 and K10 at a PPI training step's shapes: kernel, plain version and
-    library calls timed (K10's as in 27), full outputs compared (K10's in a
-    poisoned block);
+    library calls timed (K10's as in 27), full outputs compared in poisoned
+    blocks (K3's as in 27);
 31. pubmed-rowmask, the tenth main path (run after 22):
     ``benchmarking/gat/train.py --dataset pubmed --num_heads 32 --num_hidden
     4`` (500 -> 32 x 4 with ELU -> 1 x 3, Adam 5e-3, 200 epochs): the 32 x 4
@@ -2089,6 +2091,35 @@ def k3_agreement(out, csr, vals, edge_block=None):
     return _stats([out], [ref], [mass])[0]
 
 
+def k3_at_shape(csr, vals, where, iters, plain_iters):
+    """K3 on a main path's (E, K) plane: within ``KERNEL_TOL`` of its plain
+    version into a poisoned output and bit-equal over two calls, then timed
+    beside the plain version, ``torch.segment_reduce`` and its bound, with
+    the device time and launches of one call (``device_launches``)."""
+    from stgraph_tpu_torch.ops import segment_kernels as SK
+
+    n, e, k = csr.num_nodes, csr.num_edges, vals.shape[1]
+    SK.segment_sum_narrow(csr, vals)  # the plan, built once
+    out = poisoned_call((n, k), lambda: SK.segment_sum_narrow(csr, vals))
+    check(torch.equal(out, SK.segment_sum_narrow(csr, vals)), f"K3 at {where} K={k} differs between two calls")
+    a, r, _ = k3_agreement(out, csr, vals, 1 << 24)
+    del out
+    check(r <= KERNEL_TOL, f"K3 at {where} K={k} disagrees with its plain version: {r}")
+    bound_ms, bound_by, nbytes, ops = k3_bound(n, e, k)
+    ms = cuda_ms(lambda: SK.segment_sum_narrow(csr, vals), iters=iters, warmup=2)
+    plain_ms = cuda_ms(lambda: SK.segment_sum_narrow_plain(csr, vals, 1 << 24), iters=plain_iters, warmup=1)
+    lib_ms = _library_segment_sum_ms(csr, vals, e)
+    launches = device_launches(lambda: SK.segment_sum_narrow(csr, vals), SK.segment_sum_narrow)
+    print(f"k3-main {where} K={k}: N={n} E={e}: {ms:.4f} ms (plain {plain_ms:.2f} ms, segment_reduce {lib_ms} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by}), wrapper count {launches['wrapper_count_per_call']} a call "
+          f"(device work {launches['device_work_per_call']} {launches['kernels_of_a_call']}, "
+          f"{launches['device_ms_per_call']} ms); max_abs_err {a:.3e} (err/sum|terms| {r:.2e}), bit-equal over "
+          f"two calls")
+    return {"where": where, "H": k, "F": 1, "K": k, "E": e, "N": n, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library": "torch.segment_reduce(sum)", "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "ops": ops, "max_abs_err": a, "err_over_mass": r, **launches}
+
+
 def k10_agreement(out, blk, w, x, h, edge_block=COMPOSED_PLAIN_EDGE_BLOCK):
     """K10 against its plain version, as ``k3_agreement``."""
     from stgraph_tpu_torch.ops.spmm_blocked import segment_sum_blocked_plain
@@ -2122,8 +2153,9 @@ def phase_composed_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=15
     ``hub_deg`` edges in each direction (so a 128-row block of each blocked
     layout holds more than 10^5 slots), 1000 empty rows, ten empty row
     blocks and padding slots: K3 at K in {1, 4, 6, 16} on the forward and
-    transpose CSRs, K10 at (H, F) in ``COMPOSED_CHECKS`` on both blocked
-    layouts, each into an output block poisoned with NaN (``poisoned_call``)."""
+    transpose CSRs (bit-equal over two calls), K10 at (H, F) in
+    ``COMPOSED_CHECKS`` on both blocked layouts, each into an output block
+    poisoned with NaN (``poisoned_call``)."""
     from stgraph_tpu_torch.graph.blocked import build_blocked
     from stgraph_tpu_torch.ops.segment_kernels import segment_sum_narrow
     from stgraph_tpu_torch.ops.spmm_blocked import segment_sum_blocked
@@ -2134,8 +2166,9 @@ def phase_composed_kernels_vs_plain(dev, rng, n=100_000, e=1_000_000, hub_deg=15
     for name, c in (("forward", csr), ("transpose", csr_t)):
         for k in K3_CHECK_K:
             vals = torch.from_numpy(rng.standard_normal((c.capacity, k)).astype(np.float32)).to(dev)
-            out = segment_sum_narrow(c, vals)
-            torch.cuda.synchronize()
+            segment_sum_narrow(c, vals)  # the plan, built once
+            out = poisoned_call((n, k), lambda: segment_sum_narrow(c, vals))
+            check(torch.equal(out, segment_sum_narrow(c, vals)), f"K3 on the {name} CSR at K={k} differs between calls")
             a, r, mx = k3_agreement(out, c, vals)
             ok = r <= KERNEL_TOL and (name == "transpose" or not out[n - empty:].any().item())
             print(f"k3-check {name} CSR K={k}: max_abs_err {a:.3e} (err/sum|terms| {r:.2e}, max |plain| "
@@ -2216,7 +2249,7 @@ def phase_composed_ogbn_serving(dev, args, base):
     layer's output in the first request held against an f64 recomputation
     on sampled destination rows and the largest hub; then K3 and K10 at the
     first layer's shapes, with its own weights and features."""
-    from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow, segment_sum_narrow, segment_sum_narrow_plain
+    from stgraph_tpu_torch.ops.segment_kernels import segment_max_narrow
     from stgraph_tpu_torch.ops.spmm_blocked import _to_blocked_w_mh, segment_sum_blocked, segment_sum_blocked_plain
     from stgraph_tpu_torch.serve import Predictor
 
@@ -2298,17 +2331,8 @@ def phase_composed_ogbn_serving(dev, args, base):
         m = segment_max_narrow(csr, s)
         w = torch.where(csr.edge_mask[:, None], torch.exp(s - m[rows_c]), torch.zeros((), device=dev))
         del s, m, rows_c, cols_c
-        a3, r3, _ = k3_agreement(segment_sum_narrow(csr, w), csr, w, 1 << 24)
-        check(r3 <= KERNEL_TOL, f"K3 at ogbn-products shape disagrees: {r3}")
-        k3_ms = cuda_ms(lambda: segment_sum_narrow(csr, w), iters=10, warmup=2)
-        k3_plain = cuda_ms(lambda: segment_sum_narrow_plain(csr, w, 1 << 24), iters=1, warmup=1)
-        k3_lib = _library_segment_sum_ms(csr, w, e)
-        b3 = k3_bound(n, e, h)
-        print(f"k3-ogbn K={h}: {k3_ms:.3f} ms (plain {k3_plain:.1f} ms, segment_reduce {k3_lib} ms, bound "
-              f"{b3[0]:.3f} ms by {b3[1]}); full-graph max_abs_err {a3:.3e} (err/sum|terms| {r3:.2e})")
-        main["K3"] = {"K": h, "E": e, "N": n, "ms": k3_ms, "plain_ms": k3_plain, "library_ms": k3_lib,
-                      "bound_ms": b3[0], "bound_by": b3[1], "bytes": b3[2], "ops": b3[3], "max_abs_err": a3,
-                      "err_over_mass": r3}
+        main["K3"] = k3_at_shape(csr, w, "ogbn forward", iters=10, plain_iters=1)
+        a3 = main["K3"]["max_abs_err"]
         k10_lib_heads = _library_multihead_ms(csr, w, fs, h, e)
         k10_lib = _library_blockdiag_ms(csr, w, fs, h, e)
         wb = _to_blocked_w_mh(blocked, csr, w)
@@ -2541,11 +2565,11 @@ def phase_ppi_gat(dev, args):
 @timed_phase
 def phase_composed_at_main_shapes(dev, ppi):
     """K3 and K10 at a PPI training step's shapes: K3 at K = 4 and 6 on the
-    forward and transpose CSRs, K10 at 4 x 256 and 6 x 121 on both blocked
-    layouts; random positive weights, random features. Each kernel, its
-    plain version and a library call timed, full outputs compared. Returns
-    per-launch records in the order of one training step's launches."""
-    from stgraph_tpu_torch.ops.segment_kernels import segment_sum_narrow, segment_sum_narrow_plain
+    forward and transpose CSRs (``k3_at_shape``), K10 at 4 x 256 and 6 x 121
+    on both blocked layouts; random positive weights, random features. Each
+    kernel, its plain version and a library call timed, full outputs
+    compared. Returns per-launch records in the order of one training
+    step's launches, and K3's records by shape."""
     from stgraph_tpu_torch.ops.spmm_blocked import positions_in, segment_sum_blocked, segment_sum_blocked_plain
 
     graph = ppi["graph"]
@@ -2558,18 +2582,9 @@ def phase_composed_at_main_shapes(dev, ppi):
         for name, c in (("forward", csr), ("transpose", csr_t)):
             for k in sorted({PPI_HEADS[0], PPI_HEADS[-1]}):
                 vals = torch.rand(c.capacity, k, device=dev, generator=gen)
-                a, r, _ = k3_agreement(segment_sum_narrow(c, vals), c, vals)
-                check(r <= KERNEL_TOL, f"K3 at the PPI shape ({name}, K={k}) disagrees: {r}")
-                ms = cuda_ms(lambda: segment_sum_narrow(c, vals), iters=20, warmup=2)
-                plain_ms = cuda_ms(lambda: segment_sum_narrow_plain(c, vals), iters=3, warmup=1)
-                lib = _library_segment_sum_ms(c, vals, e)
-                b = k3_bound(n, e, k)
-                print(f"k3-main {name} CSR K={k}: {ms:.4f} ms (plain {plain_ms:.2f} ms, segment_reduce {lib} ms, "
-                      f"bound {b[0]:.4f} ms by {b[1]}); max_abs_err {a:.3e} (err/sum|terms| {r:.2e})")
-                worst["K3"] = max(worst["K3"], a)
-                k3[(name, k)] = {"csr": name, "H": k, "F": 1, "E": e, "N": n, "ms": ms, "plain_ms": plain_ms,
-                                 "library_ms": lib, "bound_ms": b[0], "bound_by": b[1], "bytes": b[2], "ops": b[3],
-                                 "max_abs_err": a, "err_over_mass": r}
+                k3[(name, k)] = dict(k3_at_shape(c, vals, f"ppi {name}", iters=20, plain_iters=3), csr=name)
+                worst["K3"] = max(worst["K3"], k3[(name, k)]["max_abs_err"])
+                del vals
         for name, c in (("forward", csr), ("transpose", csr_t)):
             blk = graph.blocked_fwd if name == "forward" else graph.blocked_bwd
             for h, f in ((PPI_HEADS[0], PPI_HIDDEN), (PPI_HEADS[-1], PPI_CLASSES)):
@@ -2601,7 +2616,8 @@ def phase_composed_at_main_shapes(dev, ppi):
     # K10 forward on the forward layout, d feat on the transpose layout
     k3_step = [k3[("forward", hh)] for hh in (h0, h0, h2)] * 2 + [k3[("transpose", hh)] for hh in (h0, h0, h2)]
     k10_step = [k10[(name, hh)] for name in ("forward", "transpose") for hh in (h0, h0, h2)]
-    return {"K3": k3_step, "K10": k10_step}, worst
+    return {"K3": k3_step, "K10": k10_step,
+            "K3_by_shape": {f"ppi {name} K={k}": rec for (name, k), rec in k3.items()}}, worst
 
 
 # -- the composed route's rowmask branch: K5, K1's no-gather and heads modes, K2's heads mode --
@@ -2642,9 +2658,10 @@ def rowmask_bwd_bound(n: int, e: int, h: int, f: int):
 
 def longest_item(csr, chunk=None) -> int:
     """The most edges one warp walks in a launch over ``csr`` whose work
-    items cap a row at ``chunk`` edges (default ``ROW_CHUNK``, the items of
-    K3; K1's modes take ``K1_CHUNK``, K2's ``K2_CHUNK``, K4 ``K4_CHUNK``, K5
-    ``K5_CHUNK``, K8 and K9 ``FLASH_CHUNK``)."""
+    items cap a row at ``chunk`` edges (default ``ROW_CHUNK``, the first
+    designs' items; K1's modes take ``K1_CHUNK``, K2's ``K2_CHUNK``, K3
+    ``K3_CHUNK``, K4 ``K4_CHUNK``, K5 ``K5_CHUNK``, K8 and K9
+    ``FLASH_CHUNK``)."""
     from stgraph_tpu_torch.ops.spmm_kernels import ROW_CHUNK
 
     return int(min(np.diff(csr.host_arrays()[0]).max(initial=0), chunk or ROW_CHUNK))
@@ -3107,9 +3124,11 @@ def device_launches(fn, counter, calls: int = 5) -> dict:
     """What one call of ``fn`` adds to the wrapper's count (``counter``, a
     kernel wrapper: one a call, whatever the call launches), and the device
     work the profiler sees over ``calls`` calls (kernels, fills, copies)
-    with its names: the launches a call, measured; None where the profiler
-    saw no device work (not measured: late in a full run it has seen none
-    for these calls, while it sees them alone on the same card)."""
+    with its names and its device ms a call (each kernel's mean event,
+    summed over the kernels): the launches a call, measured; None where the
+    profiler saw no device work (not measured). The profiler records host
+    and device activity together, as the micro benches' does: with the
+    device alone it saw nothing late in a full run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3117,13 +3136,19 @@ def device_launches(fn, counter, calls: int = 5) -> dict:
     fn()
     torch.cuda.synchronize()
     launches = counter.launches - before
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return {"wrapper_count_per_call": launches, "device_work_per_call": len(names) / calls if names else None,
-            "kernels_of_a_call": sorted(set(names))}
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    seen = sum(len(t) for t in by_name.values())
+    return {"wrapper_count_per_call": launches, "device_work_per_call": seen / calls if seen else None,
+            # each kernel's mean event, summed: the profiler may drop events at long calls
+            "device_ms_per_call": sum(sum(t) / len(t) for t in by_name.values()) if seen else None,
+            "kernels_of_a_call": sorted(by_name)}
 
 
 def k7_at_shape(rows, w, n, where):
@@ -4498,6 +4523,13 @@ def main() -> int:
                           "(one launch); items of K4_CHUNK edges",
                   "first": "a warp a row, one edge a lane an iteration, 5 shuffles a column, a second launch for "
                            "split rows; timed in turns by benchmarking/micro/k2_k4_bench.py --only turns"}
+    k3_designs = {"port": "K4's design with a sum: int4 items of K3_CHUNK edges (split rows' first), 8 lanes an "
+                          "item, kU edges a lane in flight, vector row loads, a transpose meeting, split rows summed "
+                          "in a fixed order from scratch slots by the last item's ticket (one launch, the same sums "
+                          "every run)",
+                  "first": "a warp a 1024-edge item, one edge a lane an iteration, 5 shuffles a column, split rows "
+                           "by atomicAdd after an index_fill_ launch; timed in turns by "
+                           "benchmarking/micro/k3_bench.py --only turns"}
     kernels = [
         kernel_entry("spmm_rowmask (K1, one head: H=1, F=128, 128, 47, bf16 stream)",
                      "stgraph_tpu_torch/csrc/spmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:761", "K1", by_path,
@@ -4531,7 +4563,8 @@ def main() -> int:
                      "stgraph_tpu/ops/segment_pallas.py:155", "K3", by_path,
                      max(record["composed_checks"]["max_abs_err"]["K3"], composed_err["K3"],
                          composed["max_abs_err"]["K3"]), composed_launch["K3"],
-                     "torch.segment_reduce(sum) over the CSR-order (E, H) plane"),
+                     "torch.segment_reduce(sum) over the CSR-order (E, H) plane", designs=k3_designs,
+                     by_shape={**composed_launch["K3_by_shape"], "ogbn forward K=4": composed["main"]["K3"]}),
         kernel_entry("segment_max_narrow (K4)", "stgraph_tpu_torch/csrc/segment_max_narrow.cu",
                      "stgraph_tpu/ops/segment_pallas.py:235", "K4", by_path,
                      max(record["gat_checks"]["max_abs_err"]["K4"], gat_err["K4"]), gat_launch["K4"],

@@ -2,8 +2,10 @@
 
 A copy of ``stgraph_tpu/dataset/ogb_dataloader.py`` (host numpy only): the
 ``.npz`` path, the raw-CSV path and the synthetic generator are verbatim, so
-one seed gives both packages the same graph. One difference: the synthetic
-cache file carries a ``.torch`` tag, so the two loaders never share a file.
+one seed gives both packages the same graph. Two differences: the synthetic
+cache file carries a ``.torch`` tag, so the two loaders never share a file,
+and the generator's CDF lookups run on the native library's threads
+(``native.searchsorted_left``, the same indices as ``np.searchsorted``).
 ``reorder=True`` relabels the nodes by the port's ``graph.reorder``, as the
 JAX loader does by its own.
 
@@ -36,6 +38,16 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 __all__ = ["OgbNodeDataLoader", "OGBN_PRODUCTS_STATS"]
+
+def _lookup(cdf: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """``np.searchsorted(cdf, x)`` (side='left'): the same indices, found on
+    the native library's threads where it is built (at ogbn-products size
+    these lookups were about 80 % of the synthesis)."""
+    from stgraph_tpu_torch import native
+
+    found = native.searchsorted_left(cdf, x)
+    return np.searchsorted(cdf, x) if found is None else found
+
 
 # name -> (num_nodes, num_directed_edges, num_feats, num_classes)
 OGBN_PRODUCTS_STATS = (2_449_029, 123_718_280, 100, 47)
@@ -222,15 +234,15 @@ class OgbNodeDataLoader:
         # community's own weight slice (one global searchsorted each).
         mass = np.add.reduceat(w, offsets[:-1])
         comm_cdf = np.cumsum(mass) / mass.sum()
-        ec = np.searchsorted(comm_cdf, rng.random(n_intra))
+        ec = _lookup(comm_cdf, rng.random(n_intra))
         lo = np.where(offsets[ec] > 0, cdf[offsets[ec] - 1], 0.0)
         span = cdf[offsets[ec + 1] - 1] - lo
-        src_v = np.searchsorted(cdf, lo + span * rng.random(n_intra))
-        dst_v = np.searchsorted(cdf, lo + span * rng.random(n_intra))
+        src_v = _lookup(cdf, lo + span * rng.random(n_intra))
+        dst_v = _lookup(cdf, lo + span * rng.random(n_intra))
         # Inter edges: global Chung-Lu draw.
         n_inter = e - n_intra
-        src_g = np.searchsorted(cdf, total * rng.random(n_inter))
-        dst_g = np.searchsorted(cdf, total * rng.random(n_inter))
+        src_g = _lookup(cdf, total * rng.random(n_inter))
+        dst_g = _lookup(cdf, total * rng.random(n_inter))
         perm = rng.permutation(n)
         src = perm[np.clip(np.concatenate([src_v, src_g]), 0, n - 1)]
         dst = perm[np.clip(np.concatenate([dst_v, dst_g]), 0, n - 1)]

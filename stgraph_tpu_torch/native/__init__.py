@@ -1,12 +1,14 @@
 """ctypes binding for the port's native host-side graph builder.
 
 Counterpart of ``stgraph_tpu/native/__init__.py`` (``build_csr``,
-``build_blocked`` and ``reorder_locality``): the library is built with
-``g++`` at first use into ``build/native/`` and loaded with ctypes. Without
-a compiler ``build_csr_arrays``, ``build_blocked_arrays`` and
-``reorder_locality`` return None, and ``graph.csr.build_csr``,
-``graph.blocked.build_blocked`` and ``graph.reorder.locality_order`` take
-their numpy paths, which give the same arrays.
+``build_blocked`` and ``reorder_locality``), and ``searchsorted_left``: the
+library is built with ``g++`` at first use into ``build/native/`` and loaded
+with ctypes. Without a compiler ``build_csr_arrays``,
+``build_blocked_arrays``, ``reorder_locality`` and ``searchsorted_left``
+return None, and ``graph.csr.build_csr``, ``graph.blocked.build_blocked``,
+``graph.reorder.locality_order`` and the synthetic OGB graph
+(``dataset.ogb_dataloader``) take their numpy paths, which give the same
+arrays.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import numpy as np
 
 from stgraph_tpu_torch.utils.build import library_path
 
-__all__ = ["available", "build_blocked_arrays", "build_csr_arrays", "reorder_locality"]
+__all__ = ["available", "build_blocked_arrays", "build_csr_arrays", "reorder_locality", "searchsorted_left"]
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "graph_builder.cpp")
 _lib: Optional[ctypes.CDLL] = None
@@ -37,7 +39,7 @@ def _compile(out: str) -> bool:
     os.close(fd)
     try:
         subprocess.run(
-            [cxx, "-O3", "-shared", "-fPIC", "-std=c++17", "-o", tmp, _SRC],
+            [cxx, "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", "-o", tmp, _SRC],
             check=True,
             capture_output=True,
             timeout=300,
@@ -82,6 +84,9 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.build_blocked.restype = ctypes.c_int
     lib.reorder_locality.argtypes = [i32p, i32p, ctypes.c_int64, ctypes.c_int32, i32p]
     lib.reorder_locality.restype = ctypes.c_int
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    lib.searchsorted_left.argtypes = [f64p, ctypes.c_int64, f64p, ctypes.c_int64, i64p, ctypes.c_int32]
+    lib.searchsorted_left.restype = ctypes.c_int
     _lib = lib
     return _lib
 
@@ -159,3 +164,19 @@ def reorder_locality(src: np.ndarray, dst: np.ndarray, num_nodes: int) -> Option
     if rc != 0:
         return None
     return order
+
+
+def searchsorted_left(a: np.ndarray, v: np.ndarray) -> Optional[np.ndarray]:
+    """``np.searchsorted(a, v, side="left")`` (int64, ``v``'s shape) for a
+    sorted float64 ``a`` without NaN, on the native library's threads; None
+    without the library, or when ``a`` is not sorted or holds a NaN."""
+    lib = _load()
+    if lib is None:
+        return None
+    a = np.ascontiguousarray(a, np.float64).reshape(-1)
+    flat = np.ascontiguousarray(v, np.float64).reshape(-1)
+    out = np.empty(flat.size, np.int64)
+    threads = min(len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count() or 1, 64)
+    if lib.searchsorted_left(a, a.size, flat, flat.size, out, threads) != 0:
+        return None
+    return out.reshape(np.shape(v))

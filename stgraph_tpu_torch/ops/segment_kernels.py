@@ -33,7 +33,13 @@ K3 (``segment_sum_narrow``, ``csrc/segment_sum_narrow.cu``) replaces
 over an (E, K) plane in CSR order; padding slots never count, and empty
 rows give 0. It takes K4's design with a sum in place of the max, and its
 bound is of the same kind: memory, about 0.6 ms at ogbn-products size with
-K = 4. ``SegmentSumNarrow``'s backward is the destination gather
+K = 4. It walks K5's int4 work items (``k5_work_items``, the split rows'
+first) at its own length (``K3_CHUNK``), 8 lanes an item, and finishes
+split rows in the same launch and in a fixed order: each item of a split
+row stores its sums in a scratch slot of its own, and the last item to
+take the row's ticket sums them (``_k3_plan`` keeps the items, slots and
+tickets on the CSR). One launch a call, and the same sums from run to
+run. ``SegmentSumNarrow``'s backward is the destination gather
 ``g[rows] * emask`` of the JAX custom VJP, in plain torch.
 
 K5 (``segment_max_wide``, ``csrc/segment_max_wide.cu``) replaces
@@ -73,6 +79,7 @@ from stgraph_tpu_torch.ops import kernel_lib
 from stgraph_tpu_torch.ops.spmm_kernels import K1_CHUNK, ROW_CHUNK, _work_items, k1_work_items
 
 __all__ = [
+    "K3_CHUNK",
     "K4_CHUNK",
     "K5_CHUNK",
     "MAX_NARROW_K",
@@ -95,6 +102,8 @@ __all__ = [
 
 # Largest trailing width the narrow kernel takes (the JAX package's bound).
 MAX_NARROW_K = 16
+# K3's work items (k5_work_items): at most K3_CHUNK edges each.
+K3_CHUNK = 256
 # K4's work items: at most K4_CHUNK edges each.
 K4_CHUNK = 1024
 # K5's work items (k5_work_items): at most K5_CHUNK edges each.
@@ -106,7 +115,7 @@ _SIGNATURES = {
     "stg_segment_max_narrow": [_VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _I, _I, _VP],
 }
 _K3_SIGNATURES = {
-    "stg_segment_sum_narrow": [_VP, _VP, _VP, _VP, _I, _VP, _I, _I, _VP],
+    "stg_segment_sum_narrow": [_VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _I, _I, _VP],
 }
 _K5_SIGNATURES = {
     "stg_segment_max_wide": [_VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _I, _VP],
@@ -269,10 +278,35 @@ def segment_sum_narrow_plain(csr: CSR, vals: torch.Tensor, edge_block: Optional[
     return out.float()
 
 
+def _k3_plan(csr: CSR, chunk: int, k: int):
+    """K3's work items on the CSR's device (``k5_work_items`` at ``chunk``
+    edges, the split rows' items first: their last sums then run early, not
+    at the launch's end), each split row's (first scratch slot, item count,
+    first edge, 0) and its ticket (zeros), made once per CSR and kept there,
+    and a scratch of k f32 a split row's item, one a width: every launch
+    leaves the tickets 0, so K3's launches on one CSR stay ordered on one
+    stream."""
+
+    def make():
+        indptr = csr.host_arrays()[0]
+        items, split_rows, split_items = k5_work_items(indptr, chunk)
+        items = items[np.argsort(items[:, 0] >= 0, kind="stable")]  # split rows (~row < 0) first
+        first = np.cumsum(split_items, dtype=np.int64) - split_items
+        split = np.stack([first, split_items, np.asarray(indptr)[split_rows], np.zeros_like(first)], 1)
+        dev = csr.device
+        return (torch.from_numpy(items).to(dev), torch.from_numpy(split.astype(np.int32)).to(dev),
+                torch.zeros(split_rows.size, dtype=torch.int32, device=dev), int(split_items.sum()))
+
+    items, split, tickets, slots = csr.cached(f"k3_items_{chunk}", make)
+    scratch = csr.cached(f"k3_scratch_{chunk}_{k}",
+                         lambda: torch.empty(slots, k, dtype=torch.float32, device=csr.device))
+    return items, split, tickets, scratch
+
+
 def segment_sum_narrow(csr: CSR, vals: torch.Tensor) -> torch.Tensor:
     """K3: ``out[d, k] = sum over row d of vals[e, k]``, (N, K) f32; empty
     rows give 0. ``vals`` is (capacity, K) in CSR order, K <= 16. Not
-    differentiable: ``SegmentSumNarrow`` is."""
+    differentiable: ``SegmentSumNarrow`` is. One launch a call."""
     k = _check(csr, vals, None)
     if vals.device.type == "cpu":
         return segment_sum_narrow_plain(csr, vals)
@@ -281,25 +315,27 @@ def segment_sum_narrow(csr: CSR, vals: torch.Tensor) -> torch.Tensor:
     dev = vals.device
     if csr.device != dev:
         raise ValueError(f"K3 needs the CSR and vals on one CUDA device, got {csr.device} and {dev}")
-    if vals.shape[0] * k >= 2**31 or csr.capacity + ROW_CHUNK >= 2**31:
+    chunk = K3_CHUNK
+    if vals.shape[0] * k >= 2**31 or csr.capacity + chunk >= 2**31:
         raise ValueError("K3 indexes edges with int32; the graph is too large")
-    plane = vals.to(torch.float32).contiguous()
     n = csr.num_nodes
+    # allocated first, so the poisoned-output checks find it in the block freed just before
     out = torch.empty(n, k, dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    item_row, item_beg, split_rows = _work_items(csr)
-    if split_rows.numel():
-        out.index_fill_(0, split_rows, 0.0)
+    plane = vals if vals.dtype == torch.float32 and vals.is_contiguous() else vals.to(torch.float32).contiguous()
+    items, split, tickets, scratch = _k3_plan(csr, chunk, k)
     rc = lib.stg_segment_sum_narrow(
-        csr.indptr.data_ptr(),
         plane.data_ptr(),
-        item_row.data_ptr(),
-        item_beg.data_ptr(),
-        item_row.numel(),
+        items.data_ptr(),
+        items.shape[0],
+        split.data_ptr(),
+        split.shape[0],
+        tickets.data_ptr(),
+        scratch.data_ptr(),
         out.data_ptr(),
         k,
-        ROW_CHUNK,
+        chunk,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -344,8 +380,8 @@ def segment_max_wide_plain(csr: CSR, vals: torch.Tensor, edge_block: Optional[in
 
 
 def k5_work_items(indptr: np.ndarray, chunk: int):
-    """Host layout of K5's work: ``k1_work_items``'s items at ``chunk``
-    edges each, as ``(items, split_rows, split_items)``.
+    """Host layout of K5's and K3's work: ``k1_work_items``'s items at
+    ``chunk`` edges each, as ``(items, split_rows, split_items)``.
 
     ``items`` is (num_items, 4) int32, one row an item: the row (``~row``
     when the row spans several items), its first edge, its end, and the

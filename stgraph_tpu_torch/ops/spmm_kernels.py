@@ -89,10 +89,10 @@ __all__ = [
     "spmm_rowmask_traced",
 ]
 
-# Edges one warp takes from a row; longer rows are split into several work
-# items whose partial sums meet by atomicAdd. K3 takes items of ROW_CHUNK
-# edges; K1, K2, K4, K5, K8 and K9 take their own lengths (K1_CHUNK,
-# K2_CHUNK, segment_kernels.K4_CHUNK and K5_CHUNK, FLASH_CHUNK).
+# Edges one warp took from a row in the first designs (longer rows split
+# into several work items). Every kernel now takes its own length
+# (K1_CHUNK, K2_CHUNK, segment_kernels.K3_CHUNK, K4_CHUNK and K5_CHUNK,
+# FLASH_CHUNK).
 ROW_CHUNK = 1024
 # K1's item length by mode: "one_head" (the GCN paths and the shard mode),
 # "heads" (heads > 1, with the denominator) and "nogather" (the no-gather
@@ -118,7 +118,7 @@ _K2_SIGNATURES = {
 _INT32_LIMIT = 2**31
 
 
-def k1_work_items(indptr: np.ndarray, chunk: int = ROW_CHUNK):
+def k1_work_items(indptr: np.ndarray, chunk: int):
     """Host layout of K1's work: one item per row, and ``ceil(deg/chunk)``
     items for a row of more than ``chunk`` edges.
 
@@ -250,7 +250,7 @@ def spmm_rowmask_plain(
     return (out, torch.cat(dens)) if with_denom else out
 
 
-def _work_items(csr: CSR, chunk: int = ROW_CHUNK):
+def _work_items(csr: CSR, chunk: int):
     """``k1_work_items`` of ``csr`` at ``chunk`` edges an item, on its
     device, built once per chunk length."""
 

@@ -288,19 +288,45 @@ def _within_mass(out, ref, mass, tol=2e-4):
 
 
 @pytest.mark.parametrize("k", [1, 4, 6, 16])
-def test_k3_matches_plain_on_the_card(cuda, rng, k):
+def test_k3_matches_plain_on_the_card(cuda, rng, monkeypatch, k):
+    """K3 on the forward and transpose CSRs of a graph with a hub each way
+    (split into items of the port's length and of 37 edges), padding slots
+    and 50 empty rows, against its plain version within 2e-4 of each
+    output's sum of absolute terms, into NaN-poisoned outputs: one launch a
+    call by the profiler, two calls bit-equal (hub rows included), the
+    split rows' tickets back at 0."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     n, e = 3000, 60_000
     src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
     src[-3 * ROW_CHUNK:] = 11  # a hub in the transpose too
     csr = build_csr(src, dst, n, capacity=e + 5, device=cuda)  # with padding slots
     vals = torch.from_numpy(rng.standard_normal((csr.capacity, k)).astype(np.float32)).to(cuda)
-    before = segment_sum_narrow.launches
-    for c in (csr, csr.transpose()):
-        out = segment_sum_narrow(c, vals)
-        torch.cuda.synchronize()
-        _within_mass(out, segment_sum_narrow_plain(c, vals), segment_sum_narrow_plain(c, vals.abs()))
+    for chunk in (SK.K3_CHUNK, 37):
+        monkeypatch.setattr(SK, "K3_CHUNK", chunk)
+        for c in (csr, csr.transpose()):
+            ref, mass = segment_sum_narrow_plain(c, vals), segment_sum_narrow_plain(c, vals.abs())
+            segment_sum_narrow(c, vals)  # the plan, built once
+            outs = []
+            for _ in range(2):
+                ptr = _poison((n, k), cuda)
+                before = segment_sum_narrow.launches
+                out = segment_sum_narrow(c, vals)
+                torch.cuda.synchronize()
+                assert segment_sum_narrow.launches == before + 1
+                assert out.data_ptr() == ptr  # the output took the poisoned block
+                _within_mass(out, ref, mass)
+                outs.append(out)
+            assert torch.equal(outs[0], outs[1])  # the same sums, hub rows included
+            tickets = SK._k3_plan(c, chunk, k)[2]
+            assert tickets.numel() >= 1 and not tickets.any()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                segment_sum_narrow(c, vals)
+                torch.cuda.synchronize()
+            kernels = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+            assert len(kernels) == 1 and "segment_sum_narrow" in kernels[0], kernels
     assert not segment_sum_narrow(csr, vals)[n - 50:].any()
-    assert segment_sum_narrow.launches == before + 3
 
 
 def _poison(shape, device):

@@ -155,3 +155,41 @@ def test_synthetic_ogb_loader_matches_jax(tmp_path):
     np.testing.assert_array_equal(port.get_all_features(), ref.get_all_features())
     np.testing.assert_array_equal(port.get_all_targets(), ref.get_all_targets())
     assert port.node_order is None and ref.node_order is None  # reorder=False keeps the ids
+
+
+def test_synthetic_ogb_loader_matches_jax_at_a_second_scale_and_seed(tmp_path):
+    """The synthesis with its CDF lookups on the native library's threads
+    (``native.searchsorted_left``) gives the JAX loader's arrays at a
+    larger graph and another seed."""
+    port = OgbNodeDataLoader(root=str(tmp_path / "a"), scale=0.002, seed=11)
+    ref = JaxOgb(root=str(tmp_path / "b"), scale=0.002, seed=11)
+    assert port.gdata == ref.gdata
+    np.testing.assert_array_equal(port.get_edge_index(), ref.get_edge_index())
+    np.testing.assert_array_equal(port.get_all_features(), ref.get_all_features())
+    np.testing.assert_array_equal(port.get_all_targets(), ref.get_all_targets())
+
+
+def test_native_lookup_matches_numpy_searchsorted():
+    """``native.searchsorted_left`` against ``np.searchsorted(side="left")``:
+    ties (the first of equal values), values below the first element and
+    past the last, NaN and -0.0 queries, an empty query and an empty array,
+    a 2-D query's shape, and a CDF of 10^5 values with random queries; an
+    unsorted array or one with NaN is refused (None)."""
+    from stgraph_tpu_torch import native
+
+    if not native.available():
+        pytest.skip("needs a C++ compiler for the native library")
+    a = np.array([-2.0, 0.0, 1.0, 1.0, 1.0, 2.0, 2.0, 5.0])
+    v = np.array([-3.0, -2.0, -0.0, 0.5, 1.0, 1.5, 2.0, 4.0, 5.0, 5.5, np.inf, -np.inf, np.nan])
+    for arr, q in ((a, v), (a, v.reshape(13, 1)), (a, np.array([])), (np.array([]), v), (a[:1], v)):
+        got = native.searchsorted_left(arr, q)
+        want = np.searchsorted(arr, q, side="left")
+        assert got.dtype == np.int64 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    rng = np.random.default_rng(2)
+    cdf = np.cumsum(rng.random(100_000) ** 4)
+    cdf[500:900] = cdf[500]  # a run of ties inside the guide's buckets
+    q = np.concatenate([rng.random(200_000) * cdf[-1] * 1.2 - 0.1 * cdf[-1], cdf[::7], [cdf[-1], cdf[0]]])
+    np.testing.assert_array_equal(native.searchsorted_left(cdf, q), np.searchsorted(cdf, q))
+    assert native.searchsorted_left(np.array([1.0, 0.0]), v) is None
+    assert native.searchsorted_left(np.array([0.0, np.nan]), v) is None

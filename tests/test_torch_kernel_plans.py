@@ -374,8 +374,8 @@ def test_k1_lanes_refuse_unaligned_bf16_rows():
 
 
 def test_k1_item_lengths_by_mode():
-    """K1 takes its own item length by mode, cached apart from the other
-    kernels' ROW_CHUNK items; each item holds at most its length."""
+    """K1 takes its own item length by mode, each length's items cached
+    apart; each item holds at most its length."""
     from stgraph_tpu_torch.graph.csr import build_csr
     from stgraph_tpu_torch.ops import spmm_kernels as SK
 
@@ -387,7 +387,6 @@ def test_k1_item_lengths_by_mode():
     csr = build_csr(src, dst, 500, device="cpu")
     indptr = csr.host_arrays()[0].astype(np.int64)
     items = {c: SK._work_items(csr, c) for c in (128, 256, 1024)}
-    assert SK._work_items(csr) is items[SK.ROW_CHUNK]  # the other kernels' items
     for c, (row, beg, split) in items.items():
         assert SK._work_items(csr, c) is items[c]  # built once a length
         row, beg = row.numpy(), beg.numpy().astype(np.int64)
@@ -411,14 +410,16 @@ def _work_item_calls(path):
     return calls
 
 
-def test_k1_k2_k4_k8_k9_take_their_own_item_lengths_and_k3_k5_keep_row_chunk():
-    """K3 takes ``_work_items``'s default length, ROW_CHUNK, and hands
-    ROW_CHUNK to its kernel; K1's wrappers pass a length of their own
-    (K1_CHUNK), K2's theirs (K2_CHUNK by mode), K4 its own (K4_CHUNK, with
-    16 lanes an item) and K8's and K9's theirs (FLASH_CHUNK "fwd" and
-    "bwd"), the same length to ``_work_items`` and to the kernel; K5 builds
-    its own items (``_k5_plan``, one int4 an item) at K5_CHUNK. The
-    measured lengths are pinned here."""
+def test_every_kernel_takes_its_own_item_length():
+    """``_work_items`` has no default length (the first designs' ROW_CHUNK
+    is no kernel's): K1's wrappers pass a length of their own (K1_CHUNK),
+    K2's theirs (K2_CHUNK by mode), K4 its own (K4_CHUNK, with 16 lanes an
+    item) and K8's and K9's theirs (FLASH_CHUNK "fwd" and "bwd"), the same
+    length to ``_work_items`` and to the kernel; K5 builds its own items
+    (``_k5_plan``, one int4 an item) at K5_CHUNK, and K3 its own
+    (``_k3_plan``, K5's items with scratch slots) at K3_CHUNK, which it
+    passes to its plan and to its entry. The measured lengths are pinned
+    here."""
     import ast
     import inspect
     import os
@@ -427,20 +428,21 @@ def test_k1_k2_k4_k8_k9_take_their_own_item_lengths_and_k3_k5_keep_row_chunk():
     from stgraph_tpu_torch.ops import spmm_kernels as SK
 
     assert SK.ROW_CHUNK == 1024
-    assert inspect.signature(SK._work_items).parameters["chunk"].default == SK.ROW_CHUNK
+    assert inspect.signature(SK._work_items).parameters["chunk"].default is inspect.Parameter.empty
     assert set(SK.FLASH_CHUNK) == {"fwd", "bwd"}
     assert all(c in (128, 256, 512, 1024) for c in SK.FLASH_CHUNK.values())
     assert SK.K2_CHUNK == {"one_head": 512, "heads": 128}
     assert SEG.K4_CHUNK == 1024
     assert SEG.K5_CHUNK == 128
+    assert SEG.K3_CHUNK == 256
     ops = os.path.join(os.path.dirname(SK.__file__))
     calls = {}
     for name in ("segment_kernels.py", "spmm_kernels.py", "flash_gat.py"):
         calls.update(_work_item_calls(os.path.join(ops, name)))
-    kinds = dict(calls["segment_sum_narrow"])  # K3
-    assert len(kinds["items"]) == 1, kinds  # the CSR alone: ROW_CHUNK items
-    assert "ROW_CHUNK" in kinds["entry"], kinds
-    assert "items" not in dict(calls["segment_max_wide"])  # K5: its own items, not _work_items
+    for fn in ("segment_sum_narrow", "segment_max_wide"):  # K3, K5: their own items, not _work_items
+        assert "items" not in dict(calls[fn]), fn
+    kinds = dict(calls["segment_sum_narrow"])
+    assert "chunk" in kinds["entry"] and "ROW_CHUNK" not in kinds["entry"], kinds
     # K1, its no-gather mode, K2, K4, K8, K9
     for fn in ("_launch_k1", "segment_sum_wide", "spmm_rowmask_bwd", "segment_max_narrow", "flash_gat_fwd",
                "flash_gat_bwd"):
@@ -457,10 +459,14 @@ def test_k1_k2_k4_k8_k9_take_their_own_item_lengths_and_k3_k5_keep_row_chunk():
     assert chunks["spmm_rowmask_bwd"] == ["K2_CHUNK['heads' if heads > 1 else 'one_head']"]
     assert chunks["segment_max_narrow"] == ["K4_CHUNK"]
     assert chunks["segment_max_wide"] == ["K5_CHUNK"]
+    assert chunks["segment_sum_narrow"] == ["K3_CHUNK"]
     tree = ast.parse(open(os.path.join(ops, "segment_kernels.py")).read())
     k5 = next(d for d in tree.body if isinstance(d, ast.FunctionDef) and d.name == "segment_max_wide")
     plans = [ast.unparse(c) for c in ast.walk(k5) if isinstance(c, ast.Call) and getattr(c.func, "id", "") == "_k5_plan"]
     assert plans == ["_k5_plan(csr, chunk, k)"]
+    k3 = next(d for d in tree.body if isinstance(d, ast.FunctionDef) and d.name == "segment_sum_narrow")
+    plans = [ast.unparse(c) for c in ast.walk(k3) if isinstance(c, ast.Call) and getattr(c.func, "id", "") == "_k3_plan"]
+    assert plans == ["_k3_plan(csr, chunk, k)"]
 
 
 def _bf16_bits_rne(x32):
@@ -1125,6 +1131,104 @@ def test_k5_walk_matches_plain_bit_for_bit(k):
             out, tickets, scratch = _k5_walk(csr, t, chunk, np.random.default_rng(order))
             assert np.array_equal(out, ref), (chunk, order)
             assert not tickets.any() and np.all(scratch == -np.inf)
+
+
+def _k3_walk(csr, vals, chunk, rng, lanes=8):
+    """K3 by its kernel's arithmetic (``csrc/segment_sum_narrow.cu``) in f32:
+    ``_k3_plan``'s items (``k5_work_items`` at ``chunk`` edges) run in a
+    random order, ``lanes`` lanes an item, batches of kU edges a lane (the
+    next batch loaded before this one's adds), the lanes' transpose
+    meeting, unsplit rows stored side by side, and each item of a split row
+    storing its sums in its own scratch slot; the item that takes the row's
+    last ticket sums the row's slots (lane l the slots l, l + lanes, ...,
+    each in item order, then the same meeting), stores the row and resets
+    the ticket. Returns the output (f32, NaN where unwritten) and the
+    tickets after the launch."""
+    from stgraph_tpu_torch.ops.segment_kernels import _k3_plan
+
+    v = vals.numpy()
+    n, k = csr.num_nodes, v.shape[1]
+    items, split, tickets, scratch = (t.numpy() for t in _k3_plan(csr, chunk, k))
+    tickets = tickets.copy().astype(np.int64)
+    kp = 1 << (k - 1).bit_length()
+    ku = 8 if k <= 4 else 4 if k <= 8 else 2
+    kr = kp // lanes if kp > lanes else 1
+    sl = np.arange(lanes)
+    c0 = sl >> (_log2(lanes) - _log2(kp)) if kp <= lanes else sl * kr
+    holds = (sl & (lanes // kp - 1)) == 0 if kp <= lanes else np.ones(lanes, bool)
+    out = np.full((n, k), np.nan, np.float32)
+    scratch = np.full((max(scratch.shape[0], 1), k), np.nan, np.float32)
+
+    def meet(acc):
+        full = np.zeros((32, kp), np.float32)
+        full[:lanes] = acc  # the warp's first item; the levels stay inside it (xor < lanes)
+        return _fold(full, np.arange(32), lanes, kp, np.add)[:lanes]
+
+    def store(dst, acc):
+        for lane in np.flatnonzero(holds):
+            for i in range(kr):
+                if c0[lane] + i < k:
+                    dst[c0[lane] + i] = acc[lane, i]
+
+    def batch(e0, end):
+        e = e0 + np.arange(ku)[:, None] * lanes + sl  # (kU, lanes)
+        return np.where((e < end)[..., None], v[np.minimum(e, v.shape[0] - 1)], np.float32(0))
+
+    for code, beg, end, slot in items[rng.permutation(items.shape[0])]:
+        acc = np.zeros((lanes, kp), np.float32)
+        cur = batch(beg, end)
+        for b0 in range(beg, end, ku * lanes):
+            nxt = batch(b0 + ku * lanes, end)
+            for u in range(ku):
+                acc[:, :k] += cur[u]
+            cur = nxt
+        acc = meet(acc)
+        if code >= 0:
+            store(out[code], acc)
+            continue
+        first, count, first_edge, _ = split[slot]
+        store(scratch[first + (beg - first_edge) // chunk], acc)
+        tickets[slot] += 1
+        if tickets[slot] == count:
+            tickets[slot] = 0
+            tot = np.zeros((lanes, kp), np.float32)
+            for lane in range(lanes):
+                for j in range(lane, count, lanes):
+                    tot[lane, :k] += scratch[first + j]
+            store(out[~code], meet(tot))
+    return out, tickets
+
+
+@pytest.mark.parametrize("k", [1, 4, 6, 16])
+def test_k3_walk_matches_plain_and_is_the_same_in_any_item_order(k):
+    """K3 by its walk's arithmetic (``_k3_walk``) against its plain version
+    within 2e-4 of each output's sum of absolute terms, with empty rows,
+    padding slots and three hubs split into items of 37 and 64 edges (one
+    past 32 lanes' slots a hub), at 8 (the kernel's), 16 and 32 lanes an
+    item, the plan's split items first; under
+    two random item finishing orders the outputs are bit-identical (the
+    split rows summed in a fixed order), every row is written and every
+    ticket is back at zero."""
+    from stgraph_tpu_torch.ops.segment_kernels import segment_sum_narrow_plain
+
+    rng = np.random.default_rng(k + 100)
+    n = 48
+    src, dst = rng.integers(0, n - 5, 2000), rng.integers(0, n - 5, 2000)
+    dst[:1300] = 3  # 36 items of 37 edges: past 32 lanes' slots
+    dst[1300:1370] = 9
+    dst[1370:1380] = 11
+    csr = build_csr(src, dst, n, capacity=2005, device="cpu")
+    t = torch.from_numpy(rng.standard_normal((csr.capacity, k)).astype(np.float32))
+    ref = segment_sum_narrow_plain(csr, t).numpy()
+    mass = segment_sum_narrow_plain(csr, t.abs()).numpy()
+    for chunk in (37, 64):
+        for lanes in (8, 16, 32):
+            runs = [_k3_walk(csr, t, chunk, np.random.default_rng(order), lanes) for order in range(2)]
+            (out, tickets), (again, tickets2) = runs
+            assert not np.isnan(out).any() and not out[n - 5:].any()
+            assert np.all(np.abs(out - ref) <= 2e-4 * mass + 1e-6), (chunk, lanes)
+            assert np.array_equal(out.view(np.int32), again.view(np.int32)), (chunk, lanes)
+            assert not tickets.any() and not tickets2.any()
 
 
 def test_k5_work_items_cover_every_edge_once_with_their_split_slots():
