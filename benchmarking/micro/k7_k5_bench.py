@@ -223,9 +223,10 @@ def k7_stores(dev, args):
     last timestep of each DTDG stream, and the dyn-step store."""
     if not _STORES:
         for name in K7_SHAPES[:2]:
-            *_, n, steps, _, _, pair, update = cs.dtdg_pair(dev, name, args.data_dir)
-            for t in range(steps):
-                pair = update(pair, t)
+            _, _, tr = cs.dtdg_trainer(dev, name, args.data_dir)
+            pair = tr.pair0
+            for t in range(tr.steps):
+                pair = tr.update(pair, t)
             _STORES[name] = pair.fwd
         _STORES["dyn-step"] = dyn_store(dev, args.seed)
         torch.cuda.synchronize()

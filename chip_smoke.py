@@ -211,10 +211,45 @@ Phases (any failure exits nonzero and prints no result line):
     beside it. The GCN request and step stay on the loader's order, as the
     JAX package's ``bench_ogbn_step`` does.
 
+43. tgcn-epoch (after 26): ``bench.py``'s ``bench_tgcn_epoch`` through
+    ``drivers.static_temporal_tgcn``: TGCN(8, 16) and a one-unit head on
+    WindmillOutput small at cutoff 100, the MSE over every timestep, one
+    backward an epoch; 2 warm and 10 timed epochs on the dense route (no
+    kernel launches, checked), a profile of the first
+    ``TEMPORAL_PROFILE_STEPS`` timesteps of its own trainer;
+44. static-temporal: ``benchmarking/static-temporal-tgcn/train.py
+    --feat_size 80 --num_hidden 160`` through ``drivers.static_temporal_tgcn`` on WikiMath (the
+    whole sequence, 651 timesteps, the dense route: no kernel; the time of
+    the path's ``csr_to_dense`` calls beside the epoch's; 1 warm and 3 timed
+    epochs) and on WindmillOutput large at ``--cutoff_time 3000
+    --backprop_every 1000 --impl kernel`` (2920 timesteps in 3 windows; 3T
+    K1 and 3T K2 an epoch, f32 streams; 1 warm and 1 timed epoch), the MSE
+    finite and falling, a profile of the first ``TEMPORAL_PROFILE_STEPS``
+    timesteps of the run's own trainer;
+45. static-temporal checks: on WindmillOutput large, the warm epoch's first
+    window (1000 timesteps of BPTT) on the kernel route against the same
+    window on the dense route, and with ``--remat`` (6 K1 and 3 K2 a
+    timestep) against it without (loss and gradients), and K1 and K2 with
+    the arguments the route gives them at a timestep (f32 streams) against
+    their plain versions into poisoned outputs, timed with the library
+    calls and their bounds;
+46. dynamic-temporal: ``benchmarking/dynamic-temporal-tgcn/train.py --type
+    naive|delta|delta-scan`` through ``drivers.dynamic_temporal_tgcn`` on
+    England-COVID at ``--feat_size 32 --num_hidden 64`` (dense route) and on
+    the wiki-talk-shaped stream at 8 -> 32 (3T K1 and 3T K2 an epoch: the
+    lowering weights each edge by its source's norm); 1 warm and 4 timed
+    epochs each, the graph side alone
+    and a profile of an epoch; the three types' loss trajectories agree to
+    ``DYN_TYPES_TOL``; on the stream, K1 and K2 with the arguments the naive
+    type's timestep gives them (F = 32, bf16 streams) against their plain
+    versions into poisoned outputs, timed as in 45. Phase 26's lazy-scan
+    loop runs on ``drivers.dynamic_temporal_tgcn`` too.
+
 Every path of the kernels line (serving, training, gat-serving,
 gat-training, gat-dropout-training, composed-serving, ppi-serving,
 ppi-training, dyn-step, dtdg-training on each dataset, pubmed-rowmask,
-rowmask-ppi and dist-gcn-training) is driven with every launch count set to
+rowmask-ppi, dist-gcn-training, tgcn-epoch, static-temporal on each dataset
+and dynamic-temporal on each dataset and type) is driven with every launch count set to
 0 just before it and read just after; K8's and K9's dropout-mode launches
 count apart (``K8_dropout``, ``K9_dropout``) as well as with all of theirs,
 and K1's shard mode apart from K1 (``K1_traced``).
@@ -303,6 +338,37 @@ DTDG_DATASETS = ("england-covid", "wiki-shape")
 # benchmarking/results/dynamic-temporal/README.md's wiki-talk-shaped stream:
 # dataset_builder.py --sparse -N 20000 -M 10 -A 0.05 -D 0.05 -T 12
 WIKI_SHAPE = dict(num_nodes=20_000, edge_multiplier=10, add_coeff=0.05, delete_coeff=0.05, timestamps=12)
+# The temporal drivers (drivers/static_temporal_tgcn.py,
+# drivers/dynamic_temporal_tgcn.py). bench.py's bench_tgcn_epoch: TGCN(8, 16)
+# on WindmillOutput small at cutoff 100, 2 warm and 10 timed epochs.
+TGCN_EPOCH_CUTOFF, TGCN_EPOCH_ITERS, TGCN_EPOCH_WARMUP = 100, 10, 2
+# benchmarking/static-bench.sh's widest point (--feat_size 80 --num_hidden
+# 160): WikiMath whole sequence on the dense route, and WindmillOutput large
+# at --cutoff_time 3000 --backprop_every 1000 --impl kernel; Adam 1e-2; 1 warm
+# epoch and timed ones (the script runs 10 and averages epochs >= 3): 3 on
+# WikiMath (about 5 s each on the H100's host), 1 on WindmillOutput (about 25
+# s each: the host's Python sets an epoch, PERF.md section 5), whose warm
+# epoch's windows are also the kernel side of the route checks
+STATIC_F, STATIC_H, STATIC_LR = 80, 160, 1e-2
+STATIC_RUNS = (("wikimath", None, 0, "auto", 3), ("windmill_large", 3000, 1000, "kernel", 1))  # dataset, cutoff,
+# bptt, impl, timed epochs
+# The temporal paths' profiles: the first window of this many timesteps of
+# the same run (the idle share of a host-bound loop is the same at every
+# step; the profiler's own cost grows by about 0.1 s a timestep)
+TEMPORAL_PROFILE_STEPS = 32
+# benchmarking/dynamic-bench.sh's widest point on England-COVID (--feat_size 32
+# --num_hidden 64); the wiki-talk-shaped stream at the script's defaults (8,
+# 32: its 12 timestamps leave no window of 32); 1 warm and 4 timed epochs
+DYN_TEMPORAL_WIDTHS = {"england-covid": (32, 64), "wiki-shape": (DTDG_LAGS, DTDG_HIDDEN)}
+DYN_TEMPORAL_TYPES, DYN_TEMPORAL_EPOCHS = ("naive", "delta", "delta-scan"), 4
+# The three dynamic types' loss trajectories (the same negatives): the
+# 1e-4 of tests/test_testpack.py
+DYN_TYPES_TOL = 1e-4
+# The Windmill kernel route (K1, K2: f32 streams, sums in their own order)
+# against the dense route (one f32 GEMM a gate), and --remat against none:
+# each window's loss to 1e-4 of it, each gradient tensor to 1e-3 of its
+# largest element, through up to 1000 timesteps of BPTT
+STATIC_LOSS_TOL, STATIC_GRAD_TOL = 1e-4, 1e-3
 # The composed GAT route at the GAT paper's PPI widths (Velickovic et al.
 # 2018, section 3.3; benchmarking/gat/train.py --num_layers 3 --num_hidden
 # 256 --num_heads 4 --num_out_heads 6) on a graph of PPI's size (the paper's
@@ -916,8 +982,12 @@ def phase_model_vs_plain(dev, args, workdir):
 @timed_phase
 def phase_profile(fn, what):
     """Device time by kernel over one call of ``fn``, and the device's idle
-    share between its first and last kernel."""
+    share between its first and last kernel. The device events are read
+    from the profiler's raw results, the ones ``prof.events()`` keeps,
+    without building its tree of host events (seconds for a few thousand
+    host operations)."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # the profiler's own first-use cost stays out of the window
@@ -927,14 +997,16 @@ def phase_profile(fn, what):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not _filter_name(e.name())
+               and not getattr(e, "is_hidden_event", lambda: False)()]
     check(len(kernels) > 0, "the profiler saw no device activity")
     by_name = {}
-    for e in kernels:
-        ms, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    for name, start, end in kernels:
+        ms, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (end - start) / 1e6, count + 1)
     busy = sum(ms for ms, _ in by_name.values())
-    span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
+    span = (max(end for _, _, end in kernels) - min(start for _, start, _ in kernels)) / 1e6
     rows = sorted(((ms, name, c) for name, (ms, c) in by_name.items()), reverse=True)
     print(f"profile: {what} {wall_ms:.1f} ms wall (profiled); kernels busy {busy:.2f} ms of a "
           f"{span:.2f} ms device span (idle share {1 - busy / span:.3f})")
@@ -3500,16 +3572,16 @@ def wiki_shape_edges(num_nodes, edge_multiplier, add_coeff, delete_coeff, timest
     return lists
 
 
-def dtdg_dataset(name, workdir):
+def dtdg_dataset(name, workdir, lags=DTDG_LAGS):
     """(edge lists, weight lists or None, per-step (N, lags) features) of the
-    lazy-scan script's two datasets: England-COVID (weighted) and the
+    dynamic drivers' two datasets here: England-COVID (weighted) and the
     wiki-talk-shaped stream with ``_SyntheticDTDG``'s out-degree features
-    (unweighted, so the store takes the anti-log path)."""
+    (unweighted, so the lazy store takes the anti-log path)."""
     from stgraph_tpu_torch.dataset import EnglandCovidDataLoader, STGraphDataset
 
     if name == "england-covid":
         STGraphDataset._offline = True  # no network here: the synthetic England-COVID
-        d = EnglandCovidDataLoader(lags=DTDG_LAGS, cache_dir=os.path.join(workdir, "datasets"))
+        d = EnglandCovidDataLoader(lags=lags, cache_dir=os.path.join(workdir, "datasets"))
         return d.get_edges(), d.get_edge_weights(), d.get_all_features()
     lists = wiki_shape_edges(**WIKI_SHAPE)
     n = 1 + max(int(e.max()) for e in lists)
@@ -3517,101 +3589,48 @@ def dtdg_dataset(name, workdir):
     for t, e in enumerate(lists):
         np.add.at(deg[t], e[:, 0], 1.0)
     deg /= max(deg.max(), 1.0)
-    return lists, None, [deg[t:t + DTDG_LAGS].T for t in range(len(lists) - DTDG_LAGS)]
+    return lists, None, [deg[t:t + lags].T for t in range(len(lists) - lags)]
 
 
-def link_loss(h, store, gen):
-    """The lazy-scan script's loss: BCE of dot-product scores on the fwd
-    store's main and tail slots (live ones counted) against as many uniform
-    negatives."""
-    n = h.shape[0]
-    rows = torch.cat([store.rows, store.tail_rows]).long().clamp(max=n - 1)
-    cols = torch.cat([store.cols, store.tail_cols]).long().clamp(max=n - 1)
-    mask = torch.cat([store.w, store.tail_w]) > 0
-    neg_s, neg_d = (torch.randint(0, n, rows.shape, device=h.device, generator=gen) for _ in range(2))
-    # index_select, whose backward is an index_add: indexing's backward
-    # (a sort-based accumulate) took most of an epoch on the H100 (PERF.md)
-    pos = (h.index_select(0, cols) * h.index_select(0, rows)).sum(-1)
-    neg = (h.index_select(0, neg_s) * h.index_select(0, neg_d)).sum(-1)
-    bce = torch.nn.functional.binary_cross_entropy_with_logits
-    loss = bce(pos, torch.ones_like(pos), reduction="none") + bce(neg, torch.zeros_like(neg), reduction="none")
-    return torch.where(mask, loss, 0.0).sum() / mask.sum().clamp(min=1)
+def dtdg_trainer(dev, name, workdir, graph_type="lazy-scan", lags=DTDG_LAGS, hidden=DTDG_HIDDEN, seed=0):
+    """``drivers.dynamic_temporal_tgcn``'s trainer of ``graph_type`` on
+    ``dtdg_dataset(name)``: TGCN(lags -> hidden), Adam(``DTDG_LR``), the
+    parameters from ``seed``, the negatives from a generator seeded with
+    ``seed + 7``. Returns (edge lists, weight lists, trainer)."""
+    from stgraph_tpu_torch.drivers.dynamic_temporal_tgcn import DynamicTemporalTrainer
 
-
-def dtdg_pair(dev, name, workdir):
-    """The lazy-scan script's dynamic input on the port: the dataset
-    (``dtdg_dataset``), the pair seeded from ``DeltaGraph.snapshot_store(lags
-    - 1)``, the staged deltas trimmed to the window's largest batch and tail
-    logs 8 batches wide. Returns ``(edge_lists, weight_lists, feats, n,
-    steps, width, tail capacity, pair0, update)``, ``update(pair, t)`` the
-    pair after timestep ``t``'s deltas."""
-    from stgraph_tpu_torch.graph import DeltaGraph
-    from stgraph_tpu_torch.ops.dyn_spmm import apply_delta_lazy_pair, lazy_pair_from_edges
-
-    lags = DTDG_LAGS
-    edge_lists, weight_lists, feats = dtdg_dataset(name, workdir)
-    g = DeltaGraph(edge_lists, weight_lists, device=dev)
-    n, steps = g.get_num_nodes(), len(feats)
-    add, dele = (x[lags:lags + steps] for x in g.staged_deltas())
-    add_w = g.staged_add_weights()
-    add_w = None if add_w is None else add_w[lags:lags + steps]
-    # one read at set-up, as train.py does: the window's largest real batch
-    width = int(max((add[:, :, 0] < n).sum(1).max(), (dele[:, :, 0] < n).sum(1).max()))
-    width = min(max(width, 16), add.shape[1])
-    add, dele = add[:, :width], dele[:, :width]
-    add_w = None if add_w is None else add_w[:, :width]
-    tcap = max(8 * width, 128)
-    init = g.snapshot_store(lags - 1)
-    live = init.rows < n
-    pair0 = lazy_pair_from_edges(init.cols[live], init.rows[live], n, capacity=g._capacity + tcap,
-                                 tail_capacity=tcap, weights=None if init.weights is None else init.weights[live],
-                                 device=dev)
-
-    def update(pair, t):
-        return apply_delta_lazy_pair(pair, add[t, :, 0], add[t, :, 1], dele[t, :, 0], dele[t, :, 1],
-                                     add_weights=None if add_w is None else add_w[t])
-
-    return edge_lists, weight_lists, feats, n, steps, width, tcap, pair0, update
+    edge_lists, weight_lists, feats = dtdg_dataset(name, workdir, lags)
+    return edge_lists, weight_lists, DynamicTemporalTrainer(edge_lists, weight_lists, feats, graph_type, lags, hidden,
+                                                            DTDG_LR, dev, seed)
 
 
 @timed_phase
 def phase_dtdg_training(dev, args, workdir, name):
     """``benchmarking/dynamic-temporal-tgcn/train.py --type lazy-scan`` on the
-    port: the pair seeded from ``DeltaGraph.snapshot_store(lags - 1)``, the
-    staged deltas trimmed to the window's largest batch, tail logs 8 batches
-    wide; TGCN(8 -> 32), the link loss, Adam(1e-2), the whole epoch's
-    backward through every timestep. 1 warm and 4 timed epochs, each
-    launching 6T K6 and 3T K7; then K6 on pair.fwd and pair.bwd and K7 at
-    the path's shapes against their plain versions, and the hidden states,
-    loss and parameter gradients of one epoch against the same TGCN over
-    ``NaiveGraph`` snapshot CSRs (K1)."""
+    port (``drivers.dynamic_temporal_tgcn``): the pair seeded from
+    ``DeltaGraph.snapshot_store(lags - 1)``, the staged deltas trimmed to the
+    window's largest batch, tail logs 8 batches wide; TGCN(8 -> 32), the
+    link loss, Adam(1e-2), the whole epoch's backward through every
+    timestep. 1 warm and 4 timed epochs, each launching 6T K6 and 3T K7;
+    then K6 on pair.fwd and pair.bwd and K7 at the path's shapes against
+    their plain versions, and the hidden states, loss and parameter
+    gradients of one epoch against the same TGCN over ``NaiveGraph``
+    snapshot CSRs (K1)."""
+    from stgraph_tpu_torch.drivers.dynamic_temporal_tgcn import link_loss
     from stgraph_tpu_torch.graph import NaiveGraph
-    from stgraph_tpu_torch.nn import TGCN
     from stgraph_tpu_torch.ops import spmm_cuda
     from stgraph_tpu_torch.ops.rowid_kernels import spmm_rowid, spmm_rowid_plain
 
     lags, hidden = DTDG_LAGS, DTDG_HIDDEN
     t0 = time.perf_counter()
-    edge_lists, weight_lists, feats, n, steps, width, tcap, pair0, update = dtdg_pair(dev, name, workdir)
+    edge_lists, weight_lists, tr = dtdg_trainer(dev, name, workdir, seed=args.seed)
+    n, steps, width, tcap, pair0, model = tr.num_nodes, tr.steps, tr.width, tr.tail_capacity, tr.pair0, tr.model
     capacity = pair0.fwd.capacity
-    xs = [torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in feats]
-    gen_init = torch.Generator().manual_seed(args.seed)
-    model = TGCN(lags, hidden, impl="kernel", device="cpu", generator=gen_init).to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=DTDG_LR)
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
     def step():
-        opt.zero_grad(set_to_none=True)
-        pair, h, losses = pair0, torch.zeros(n, hidden, device=dev), []
-        for t in range(steps):
-            pair = update(pair, t)
-            h = model(pair, xs[t], hidden=h)
-            losses.append(link_loss(h, pair.fwd, gen))
-        loss = torch.stack(losses).mean()
-        loss.backward()
-        opt.step()
+        loss = tr.epoch()
         torch.cuda.synchronize()
         return loss.item()
 
@@ -3629,9 +3648,7 @@ def phase_dtdg_training(dev, args, workdir, name):
     counts = read_counts()
 
     def updates_only():
-        pair = pair0
-        for t in range(steps):
-            pair = update(pair, t)
+        tr.updates_only()
         torch.cuda.synchronize()
 
     updates_only()
@@ -3654,7 +3671,8 @@ def phase_dtdg_training(dev, args, workdir, name):
     # operands), against their plain versions.
     pair = pair0
     for t in range(steps):
-        pair = update(pair, t)
+        pair = tr.update(pair, t)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
     kernel_worst = {"K6": 0.0, "K7": 0.0}
     with torch.no_grad():
         for side, st in (("fwd", pair.fwd), ("bwd", pair.bwd)):
@@ -3671,23 +3689,25 @@ def phase_dtdg_training(dev, args, workdir, name):
         k7 = k7_at_shape(pair.fwd.rows, pair.fwd.w, n, name)  # lazy_norm's call
 
     # The same TGCN over NaiveGraph snapshot CSRs (impl="kernel": K1 and its
-    # backward, an f32 stream like the pair's), the same negatives: the
-    # hidden state at every timestep, the loss and every parameter gradient
-    # of one epoch against the lazy pair's.
+    # backward, an f32 stream like the pair's), the same negatives and the
+    # pair's positive slots: the hidden state at every timestep, the loss
+    # and every parameter gradient of one epoch against the lazy pair's.
     naive = NaiveGraph(edge_lists, weight_lists, device=dev)
+    for conv in (model.conv_z, model.conv_r, model.conv_h):
+        conv.impl = "kernel"
 
     def epoch_grads(route):
         model.zero_grad(set_to_none=True)
         neg_gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
-        pair, h, losses, hs = pair0, torch.zeros(n, hidden, device=dev), [], []
-        for t in range(steps):
-            pair = update(pair, t)
+        h, losses, hs = torch.zeros(n, hidden, device=dev), [], []
+        for t, (pair_t, _, rows, cols, mask) in enumerate(tr.timesteps()):
             if route == "pair":
-                h = model(pair, xs[t], hidden=h)
+                h = model(pair_t, tr.xs[t], hidden=h)
             else:
-                h = model(naive.get_graph(t + lags), xs[t], edge_weight=naive.get_edge_weights(t + lags), hidden=h)
+                h = model(naive.get_graph(t + lags), tr.xs[t], edge_weight=naive.get_edge_weights(t + lags), hidden=h)
             hs.append(h.detach())
-            losses.append(link_loss(h, pair.fwd, neg_gen))
+            neg = [torch.randint(0, n, rows.shape, device=dev, generator=neg_gen) for _ in range(2)]
+            losses.append(link_loss(h, rows, cols, mask, *neg))
         loss = torch.stack(losses).mean()
         forward = read_counts()
         loss.backward()
@@ -3721,6 +3741,378 @@ def phase_dtdg_training(dev, args, workdir, name):
             "update_s": update_s, "launches": counts, "launches_per_epoch": per_epoch,
             "kernel_max_abs_err": kernel_worst, "k7": k7, "hidden_worst_err_over_max": worst,
             "loss_vs_naive": [loss_pair, loss_naive], "grad_err_over_max": grad_rows, "profile": profile}
+
+
+def dense_route(n):
+    """Whether ``impl="auto"`` sends an N-node graph's f32 sums to the dense
+    route (``ops.message._resolve_impl``'s rule)."""
+    from stgraph_tpu_torch.ops import message as M
+
+    return n * n * 4 <= M._DENSE_BUDGET_BYTES
+
+
+def first_timesteps(tr, steps=TEMPORAL_PROFILE_STEPS, step=True):
+    """The first ``steps`` timesteps of ``tr``'s epoch (a
+    ``StaticTemporalTrainer``) as one window from a zero hidden state: the
+    mean of their losses, its backward and, with ``step``, an Adam step."""
+    tr.opt.zero_grad(set_to_none=True)
+    h, losses = tr.zero_hidden(), []
+    for t in range(min(steps, tr.total)):
+        h, loss = tr._timestep(h, tr.feats[t], tr.ys[t])
+        losses.append(loss)
+    torch.stack(losses).mean().backward()
+    if step:
+        tr.opt.step()
+
+
+def window_records(tr, windows=None, step=True):
+    """Windows ``0 .. windows - 1`` (default all) of ``tr``'s epoch from a
+    zero hidden state: each window's loss and gradients (cloned before its
+    Adam step; no step with ``step=False``)."""
+    h, out = tr.zero_hidden(), []
+    for wi in range(tr.num_windows if windows is None else windows):
+        loss, h = tr.window_backward(h, wi)
+        grads = {k: p.grad.clone() for k, p in (*tr.model.named_parameters(), *(
+            (f"head.{k}", p) for k, p in tr.head.named_parameters()))}
+        out.append((loss.item(), grads))
+        if step:
+            tr.opt.step()
+    torch.cuda.synchronize()
+    return out
+
+
+def compare_windows(got, ref):
+    """(worst loss error over |loss|, worst gradient error over the tensor's
+    largest element, by tensor) of two ``window_records``."""
+    loss_err = max(abs(a[0] - b[0]) / max(abs(b[0]), 1e-30) for a, b in zip(got, ref))
+    grad_err = {}
+    for (_, ga), (_, gb) in zip(got, ref):
+        for k, v in gb.items():
+            grad_err[k] = max(grad_err.get(k, 0.0), (ga[k] - v).abs().max().item() / max(v.abs().max().item(), 1e-30))
+    return loss_err, grad_err
+
+
+@timed_phase
+def phase_tgcn_epoch(dev, args, workdir):
+    """``bench.py``'s ``bench_tgcn_epoch`` on the port
+    (``drivers.static_temporal_tgcn.bench_tgcn_epoch``): TGCN(8, 16) and a
+    one-unit head on WindmillOutput small at cutoff 100 (92 timesteps), the
+    MSE over every timestep, one backward an epoch, no optimiser step; 2
+    warm and 10 timed epochs. Eleven nodes take the dense route: no kernel
+    launches, which the counts check. A profile of the first
+    ``TEMPORAL_PROFILE_STEPS`` timesteps of the same trainer."""
+    from stgraph_tpu_torch.dataset import STGraphDataset
+    from stgraph_tpu_torch.drivers.static_temporal_tgcn import bench_tgcn_epoch, tgcn_epoch_trainer
+
+    STGraphDataset._offline = True
+    tr = tgcn_epoch_trainer(TGCN_EPOCH_CUTOFF, dev, os.path.join(workdir, "datasets"), args.seed)
+    reset_counts()
+    r = bench_tgcn_epoch(iters=TGCN_EPOCH_ITERS, warmup=TGCN_EPOCH_WARMUP, trainer=tr)
+    counts = read_counts()
+    check(counts == only(), f"tgcn-epoch launched {counts}: its 11-node graph must take the dense route")
+    check(np.isfinite(r["loss"]), "non-finite tgcn-epoch loss")
+    profile = phase_profile(lambda: first_timesteps(tr, step=False),
+                            f"the first {TEMPORAL_PROFILE_STEPS} timesteps of a tgcn-epoch epoch")
+    print(f"tgcn-epoch: WindmillOutput small, cutoff {TGCN_EPOCH_CUTOFF} ({r['timesteps']} timesteps), TGCN(8, 16) + "
+          f"Dense(1), dense route (no kernel: launches {counts}): {r['tgcn_epoch_s']:.5f} s an epoch over "
+          f"{TGCN_EPOCH_ITERS} after {TGCN_EPOCH_WARMUP} warm, loss {r['loss']:.5f}, idle share "
+          f"{profile['idle_share']:.3f}")
+    return {**r, "launches": counts, "profile": profile, "route": "dense (no kernel)"}
+
+
+@timed_phase
+def phase_static_temporal(dev, args, workdir, name, cutoff, bptt, impl, epochs):
+    """``benchmarking/static-temporal-tgcn/train.py --dataset NAME --feat_size
+    80 --num_hidden 160`` on the port (``drivers.static_temporal_tgcn``): a
+    warm epoch (its windows' losses and gradients kept for the route checks)
+    and ``epochs`` timed ones, each launching 3T K1 and 3T K2 on the kernel
+    route and nothing on the dense one; the MSE finite and falling; a
+    profile of the first ``TEMPORAL_PROFILE_STEPS`` timesteps of the same
+    trainer (``first_timesteps``, after the timed epochs); on the dense
+    route the time of the path's ``csr_to_dense`` calls (3 a timestep) beside
+    the epoch's."""
+    from stgraph_tpu_torch.dataset import STGraphDataset
+    from stgraph_tpu_torch.drivers.static_temporal_tgcn import StaticTemporalTrainer, load_dataset
+    from stgraph_tpu_torch.ops import message as M
+
+    STGraphDataset._offline = True  # no network here: the synthetic data
+    t0 = time.perf_counter()
+    d = load_dataset(name, STATIC_F, cutoff, os.path.join(workdir, "datasets"))
+    load_s = time.perf_counter() - t0
+    tr = StaticTemporalTrainer(d, STATIC_F, STATIC_H, bptt, STATIC_LR, impl, device=dev, seed=args.seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n, e, steps = tr.num_nodes, len(d.get_edges()), tr.total
+
+    def epoch():
+        mse = tr.epoch()
+        torch.cuda.synchronize()
+        return mse
+
+    kernel = impl == "kernel" or not dense_route(tr.num_nodes)
+    expected = only(K1=3 * steps, K2=3 * steps) if kernel else only()
+    reset_counts()
+    t = time.perf_counter()
+    warm_records = window_records(tr)
+    warm_s = time.perf_counter() - t
+    warm = sum(loss * len(tr.window_range(wi)) for wi, (loss, _) in enumerate(warm_records)) / steps
+    check(read_counts() == expected, f"the warm {name} epoch launched {read_counts()}, expected {expected}")
+    mses, times, per_epoch = [], [], []
+    for _ in range(epochs):
+        before = read_counts()
+        t = time.perf_counter()
+        mses.append(epoch())
+        times.append(time.perf_counter() - t)
+        per_epoch.append({k: v - before[k] for k, v in read_counts().items()})
+    counts = read_counts()
+    check(all(c == expected for c in per_epoch), f"a {name} epoch launched {per_epoch}, expected {expected}")
+    check(all(np.isfinite(mses)) and np.isfinite(warm), f"non-finite {name} MSE")
+    check(mses[-1] < warm, f"the {name} MSE did not fall: {warm} then {mses}")
+
+    profile = phase_profile(lambda: first_timesteps(tr), f"the first {TEMPORAL_PROFILE_STEPS} timesteps of a "
+                            f"{name} epoch")
+    dense = None
+    if not kernel:  # the dense route rebuilds the (N, N) adjacency at every GCNConv call
+        csr = tr.graph.fwd_csr
+        w = M.edge_data_to_csr_order(csr, tr.ew[:, None])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3 * steps):
+            M.csr_to_dense(csr, w)
+        torch.cuda.synchronize()
+        calls_s = time.perf_counter() - t
+        dense = {"calls": 3 * steps, "s": calls_s, "share_of_epoch": calls_s / float(np.mean(times)),
+                 "device_ms_a_call": cuda_ms(lambda: M.csr_to_dense(csr, w), iters=50, warmup=5)}
+    print(f"static-temporal {name}: N={n}, E={e}, T={steps} timesteps in {tr.num_windows} window(s) of {tr.window}, "
+          f"F={STATIC_F} H={STATIC_H}, {'kernel' if kernel else 'dense'} route (data {load_s:.2f} s, set-up "
+          f"{setup_s:.2f} s); warm epoch {warm_s:.2f} s (MSE {warm:.5f}); {epochs} timed epoch(s), s "
+          f"{[round(v, 3) for v in times]}, MSE {[round(v, 5) for v in mses]}; launches an epoch {per_epoch[0]}; "
+          f"idle share {profile['idle_share']:.3f}"
+          + ("" if dense is None else f"; csr_to_dense x{dense['calls']} {dense['s']:.3f} s alone "
+             f"({dense['share_of_epoch']:.3f} of an epoch, {dense['device_ms_a_call']:.4f} ms of device a call)"))
+    return {"trainer": tr, "data": d, "warm_records": warm_records, "record": {
+        "dataset": name, "n": n, "e": e, "timesteps": steps, "window": tr.window, "windows": tr.num_windows,
+        "route": "kernel" if kernel else "dense", "load_s": load_s, "setup_s": setup_s, "warm_s": warm_s,
+        "warm_mse": warm, "epoch_s": times, "mse": mses, "launches": counts, "launches_per_epoch": per_epoch,
+        "profile": profile, "profile_timesteps": TEMPORAL_PROFILE_STEPS, "csr_to_dense": dense}}
+
+
+def k1_k2_at_temporal_shape(where, one_timestep, stream):
+    """K1 and K2 with the arguments a temporal kernel route gives them at
+    one timestep (``one_timestep()``, a forward and backward, during which
+    ``ops.spmm_cuda``'s first K1 and K2 calls are recorded: the gate's
+    (N, H) features, the lowering's CSR-order weights, the cotangent and
+    the stream the route chose, which must be ``stream``), each against
+    its plain version on that stream into poisoned outputs, then timed
+    with its plain version, the library calls and its bound."""
+    from stgraph_tpu_torch.ops import spmm_cuda
+    from stgraph_tpu_torch.ops import spmm_kernels as SK
+
+    calls = {}
+
+    def recorder(key, fn):
+        def record(*a, **k):
+            calls.setdefault(key, (a, k))
+            return fn(*a, **k)
+        return record
+
+    saved = spmm_cuda.spmm_rowmask, spmm_cuda.spmm_rowmask_bwd
+    spmm_cuda.spmm_rowmask = recorder("K1", saved[0])
+    spmm_cuda.spmm_rowmask_bwd = recorder("K2", saved[1])
+    try:
+        one_timestep()
+        torch.cuda.synchronize()
+    finally:
+        spmm_cuda.spmm_rowmask, spmm_cuda.spmm_rowmask_bwd = saved
+    (csr, w, x), k1_kw = calls["K1"]
+    (csr_t, w_t, g, fs), k2_kw = calls["K2"]
+    n, f = x.shape
+    e = int(csr.host_arrays()[0][-1])
+    name = {None: "f32", torch.bfloat16: "bf16"}[stream]
+    got = k1_kw.get("stream_dtype"), k2_kw.get("stream_dtype")
+    check(got == (stream, stream), f"the {where} route streamed {got}, expected {name}")
+    out, _ = poisoned_call((n, f), lambda: SK.spmm_rowmask(csr, w, x, stream_dtype=stream))
+    torch.cuda.synchronize()
+    k1_err, k1_ratio, _ = k1_agreement(out, csr, w, x, stream)
+    dh, dw = poisoned_k2_call((n, f), (csr_t.capacity, 1),
+                              lambda: SK.spmm_rowmask_bwd(csr_t, w_t, g, fs, stream_dtype=stream))
+    torch.cuda.synchronize()
+    (dh_err, dh_ratio, _), (dw_err, dw_ratio, _), pad_zero = k2_agreement(dh, dw, csr_t, w_t, g, fs, stream)
+    ok = k1_ratio <= KERNEL_TOL and dh_ratio <= KERNEL_TOL and dw_ratio <= KERNEL_TOL and pad_zero
+    print(f"temporal-k1-k2 {where} (N={n}, E={e}, F={f}, {name} stream): K1 max_abs_err {k1_err:.3e} "
+          f"(err/sum|terms| {k1_ratio:.2e}); K2 dh {dh_err:.3e} ({dh_ratio:.2e}), dw {dw_err:.3e} "
+          f"({dw_ratio:.2e}), padding dw zero {pad_zero}; poisoned outputs (tol {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"K1 or K2 at the {where} route's shape disagrees with its plain version")
+    del out, dh, dw
+    lib_a = torch.sparse_csr_tensor(csr.indptr, csr.cols[:e], w[:e], size=(n, n), check_invariants=False)
+    lib_t = torch.sparse_csr_tensor(csr_t.indptr, csr_t.cols[:e], w_t[:e], size=(n, n), check_invariants=False)
+    per = {}
+    for key, fn, plain, libs, bound in (
+        ("K1", lambda: SK.spmm_rowmask(csr, w, x, stream_dtype=stream),
+         lambda: SK.spmm_rowmask_plain(csr, w, x, stream), (("sparse.mm", lambda: torch.sparse.mm(lib_a, x)),),
+         k1_bound(n, e, f, weighted=True)),
+        ("K2", lambda: SK.spmm_rowmask_bwd(csr_t, w_t, g, fs, stream_dtype=stream),
+         lambda: SK.spmm_rowmask_bwd_plain(csr_t, w_t, g, fs, stream),
+         (("sparse.mm", lambda: torch.sparse.mm(lib_t, g)),
+          ("sampled_addmm", lambda: torch.sparse.sampled_addmm(lib_t, fs, g.t(), beta=0.0))), k2_bound(n, e, f)),
+    ):
+        ms = cuda_ms(fn, iters=50, warmup=5)
+        plain_ms = cuda_ms(plain, iters=5, warmup=1)
+        lib = {}
+        for lname, lfn in libs:
+            try:  # a timed yardstick only; the port never calls it
+                lib[lname] = cuda_ms(lfn, iters=20, warmup=2)
+            except RuntimeError as exc:
+                print(f"library yardstick {lname} unavailable: {exc}")
+                lib[lname] = None
+        lib_ms = None if None in lib.values() else sum(lib.values())
+        bound_ms, bound_by, nbytes, ops = bound
+        per[key] = {"where": where, "F": f, "E": e, "N": n, "stream": name, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms, "library_parts_ms": lib, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+                    "max_abs_err": k1_err if key == "K1" else max(dh_err, dw_err)}
+        print(f"temporal-{key.lower()}-main {where} F={f}: {ms:.4f} ms back to back (plain {plain_ms:.3f} ms, "
+              f"library {lib} ms, bound {bound_ms:.4f} ms by {bound_by})")
+    return per
+
+
+@timed_phase
+def phase_static_temporal_checks(dev, args, run):
+    """The Windmill kernel route against the dense route and against
+    itself, from the same seed's parameters: the first window of the kernel
+    run's warm epoch (1000 timesteps of BPTT) against the same window on the
+    dense route, and against it with ``--remat``, loss and gradients
+    compared; K1 counted 6 x the window's timesteps with remat (the forward
+    recomputed) and K2 3 x; then K1 and K2 at the route's shapes (f32
+    streams) against their plain versions (``k1_k2_at_temporal_shape``)."""
+    from stgraph_tpu_torch.drivers.static_temporal_tgcn import StaticTemporalTrainer
+
+    d, base, kernel = run["data"], run["trainer"], run["warm_records"]
+
+    def fresh(impl, remat=False):
+        return StaticTemporalTrainer(d, STATIC_F, STATIC_H, base.window, STATIC_LR, impl, remat, dev, args.seed)
+
+    t0 = time.perf_counter()
+    w0 = len(base.window_range(0))
+    reset_counts()
+    dense = window_records(fresh("dense"), windows=1, step=False)
+    check(read_counts() == only(), "the dense window launched a kernel")
+    loss_err, grad_err = compare_windows(kernel[:1], dense)
+    ok = loss_err <= STATIC_LOSS_TOL and max(grad_err.values()) <= STATIC_GRAD_TOL
+    print(f"static-temporal-check windmill_large: the warm epoch's first window ({w0} timesteps), kernel route vs "
+          f"dense: loss err/|loss| {loss_err:.2e} (tol {STATIC_LOSS_TOL:g}), worst gradient err/max "
+          f"{max(grad_err.values()):.2e} (tol {STATIC_GRAD_TOL:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"the Windmill kernel route disagrees with the dense route: loss {loss_err}, gradients {grad_err}")
+    remat_tr = fresh("kernel", remat=True)
+    reset_counts()
+    remat = window_records(remat_tr, windows=1, step=False)
+    remat_counts = read_counts()
+    r_loss_err, r_grad_err = compare_windows(remat, kernel[:1])
+    ok = (r_loss_err <= STATIC_LOSS_TOL and max(r_grad_err.values()) <= STATIC_GRAD_TOL
+          and remat_counts == only(K1=6 * w0, K2=3 * w0))
+    print(f"static-temporal-check windmill_large --remat, first window ({w0} timesteps): launches {remat_counts} "
+          f"(expected 6 x {w0} K1, 3 x {w0} K2: an epoch 6T K1 and 3T K2); vs no remat: loss err/|loss| "
+          f"{r_loss_err:.2e}, worst gradient err/max {max(r_grad_err.values()):.2e} {'ok' if ok else 'FAIL'}")
+    check(ok, f"--remat disagrees with no remat: counts {remat_counts}, loss {r_loss_err}, gradients {r_grad_err}")
+
+    def one_timestep():
+        remat_tr.opt.zero_grad(set_to_none=True)
+        _, loss = remat_tr._timestep(remat_tr.zero_hidden(), remat_tr.feats[0], remat_tr.ys[0])
+        loss.backward()
+
+    per = k1_k2_at_temporal_shape("windmill_large", one_timestep, None)
+    return {"kernel_vs_dense": {"window_timesteps": w0, "loss_err": loss_err, "grad_err": grad_err},
+            "remat": {"window_timesteps": w0, "launches": remat_counts, "loss_err": r_loss_err,
+                      "grad_err": r_grad_err},
+            "per_launch": per, "s": time.perf_counter() - t0}
+
+
+@timed_phase
+def phase_dynamic_temporal(dev, args, workdir, name):
+    """``benchmarking/dynamic-temporal-tgcn/train.py --type naive|delta|
+    delta-scan`` on the port (``drivers.dynamic_temporal_tgcn``) on
+    ``name`` at ``DYN_TEMPORAL_WIDTHS``: for each type 1 warm and 4 timed
+    epochs (England-COVID's 129 nodes take the dense route, no kernel; the
+    wiki-talk-shaped stream's 20,000 take K1 3T forward and K2 3T backward:
+    unweighted, the lowering still weights each edge by its source's norm),
+    the graph side alone (``updates_only``:
+    snapshots, or apply_delta and edge_store_to_csr) and a profile of one
+    epoch; the three types' loss trajectories (the same seed, so the same
+    negatives) agree to ``DYN_TYPES_TOL``. On the kernel route, K1 and K2
+    with the arguments of the naive type's first timestep (its stream's
+    rule: bf16 at the wiki-talk-shaped stream's 200,000 edges a snapshot)
+    against their plain versions (``k1_k2_at_temporal_shape``)."""
+    from stgraph_tpu_torch.drivers.dynamic_temporal_tgcn import link_loss
+    from stgraph_tpu_torch.ops import spmm_cuda
+
+    lags, hidden = DYN_TEMPORAL_WIDTHS[name]
+    runs, per_launch = {}, None
+    for kind in DYN_TEMPORAL_TYPES:
+        t0 = time.perf_counter()
+        edge_lists, weight_lists, tr = dtdg_trainer(dev, name, workdir, kind, lags, hidden, args.seed)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        steps = tr.steps
+
+        def epoch():
+            loss = tr.epoch().item()
+            torch.cuda.synchronize()
+            return loss
+
+        t = time.perf_counter()
+        losses = [epoch()]
+        warm_s = time.perf_counter() - t
+        reset_counts()
+        times, per_epoch = [], []
+        for _ in range(DYN_TEMPORAL_EPOCHS):
+            before = read_counts()
+            t = time.perf_counter()
+            losses.append(epoch())
+            times.append(time.perf_counter() - t)
+            per_epoch.append({k: v - before[k] for k, v in read_counts().items()})
+        counts = read_counts()
+        kernel = not dense_route(tr.num_nodes)
+        expected = only(K1=3 * steps, K2=3 * steps) if kernel else only()
+        check(all(c == expected for c in per_epoch), f"a {name} {kind} epoch launched {per_epoch}, expected {expected}")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"the {name} {kind} loss: {losses}")
+
+        def updates():
+            tr.updates_only()
+            torch.cuda.synchronize()
+
+        updates()
+        t = time.perf_counter()
+        updates()
+        update_s = time.perf_counter() - t
+        profile = phase_profile(epoch, f"one {name} {kind} epoch")
+        print(f"dynamic-temporal {name} --type {kind}: N={tr.num_nodes}, T={steps}, F={lags} H={hidden}, "
+              f"{'kernel' if kernel else 'dense'} route, build {tr.build_s:.3f} s (set-up {setup_s:.2f} s, update "
+              f"counters {tr.store.get_fwd_graph_time():.4f} / {tr.store.get_bwd_graph_time():.4f} s); warm "
+              f"{warm_s:.3f} s; {DYN_TEMPORAL_EPOCHS} epochs, s {[round(v, 4) for v in times]}, losses "
+              f"{[round(v, 5) for v in losses]}; graph side alone {update_s:.4f} s an epoch; launches an epoch "
+              f"{per_epoch[0]}; idle share {profile['idle_share']:.3f}")
+        runs[kind] = {"n": tr.num_nodes, "timesteps": steps, "lags": lags, "hidden": hidden,
+                      "route": "kernel" if kernel else "dense", "build_s": tr.build_s, "setup_s": setup_s,
+                      "warm_s": warm_s, "epoch_s": times, "losses": losses, "update_s": update_s,
+                      "launches": counts, "launches_per_epoch": per_epoch, "profile": profile}
+        if kernel and kind == "naive":
+            stream = spmm_cuda._stream_dtype(tr.store.get_graph(lags), torch.float32)
+
+            def one_timestep():
+                tr.opt.zero_grad(set_to_none=True)
+                csr, w, rows, cols, mask = next(tr.timesteps())
+                h = tr.model(csr, tr.xs[0], edge_weight=w, hidden=torch.zeros(tr.num_nodes, hidden, device=dev))
+                link_loss(h, rows, cols, mask, *tr.negatives(0, rows.shape[0])).backward()
+
+            per_launch = k1_k2_at_temporal_shape(name, one_timestep, stream)
+        del tr
+    ref = runs["naive"]["losses"]
+    agree = {kind: max(abs(a - b) for a, b in zip(r["losses"], ref)) for kind, r in runs.items()}
+    ok = max(agree.values()) <= DYN_TYPES_TOL
+    print(f"dynamic-temporal-check {name}: the types' loss trajectories over {DYN_TEMPORAL_EPOCHS + 1} epochs against "
+          f"naive's, worst |diff| {agree} (tol {DYN_TYPES_TOL:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{name}: the dynamic types disagree: {agree}")
+    return {"runs": runs, "types_max_abs_diff": agree, "per_launch": per_launch}
 
 
 @contextlib.contextmanager
@@ -4490,6 +4882,17 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=build_root) as workdir:
             record["dtdg_training"] = {name: phase_dtdg_training(dev, args, workdir, name)
                                        for name in DTDG_DATASETS}
+            # The temporal drivers: bench.py's TGCN epoch, the static-temporal
+            # script on WikiMath (dense) and WindmillOutput large (K1, K2), the
+            # dynamic-temporal script's snapshot and delta types
+            record["tgcn_epoch"] = phase_tgcn_epoch(dev, args, workdir)
+            static = {run[0]: phase_static_temporal(dev, args, workdir, *run) for run in STATIC_RUNS}
+            record["static_temporal"] = {name: r["record"] for name, r in static.items()}
+            record["static_temporal_checks"] = phase_static_temporal_checks(dev, args, static["windmill_large"])
+            del static
+            torch.cuda.empty_cache()
+            record["dynamic_temporal"] = {name: phase_dynamic_temporal(dev, args, workdir, name)
+                                          for name in DTDG_DATASETS}
             record["dist_halo_2rank"] = phase_dist_halo_2rank(dev, args, workdir)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -4503,6 +4906,12 @@ def main() -> int:
                "pubmed-rowmask": record["pubmed_rowmask"]["launches"], "rowmask-ppi": rowmask_ppi["counts"],
                "dist-gcn-training": record["dist_gcn_training"]["launches"]}
     by_path.update({f"dtdg-training:{name}": r["launches"] for name, r in record["dtdg_training"].items()})
+    by_path["tgcn-epoch"] = record["tgcn_epoch"]["launches"]
+    by_path.update({f"static-temporal:{name}": r["launches"] for name, r in record["static_temporal"].items()})
+    by_path.update({f"dynamic-temporal:{name}:{kind}": r["launches"]
+                    for name, rec in record["dynamic_temporal"].items() for kind, r in rec["runs"].items()})
+    temporal = record["static_temporal_checks"]["per_launch"]
+    wiki_temporal = record["dynamic_temporal"]["wiki-shape"]["per_launch"]
     rowmask_paths = ("pubmed-rowmask", "rowmask-ppi")
     dist_paths = ("dist-gcn-training",)
     one_head_paths = tuple(path for path in by_path if path not in rowmask_paths + dist_paths)
@@ -4533,8 +4942,10 @@ def main() -> int:
     kernels = [
         kernel_entry("spmm_rowmask (K1, one head: H=1, F=128, 128, 47, bf16 stream)",
                      "stgraph_tpu_torch/csrc/spmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:761", "K1", by_path,
-                     max(record["k1_checks"]["max_abs_err"], k1_err), [dict(p, H=1) for p in k1_launch],
-                     paths=one_head_paths),
+                     max(record["k1_checks"]["max_abs_err"], k1_err, temporal["K1"]["max_abs_err"],
+                         wiki_temporal["K1"]["max_abs_err"]),
+                     [dict(p, H=1) for p in k1_launch], paths=one_head_paths, temporal_shape=temporal["K1"],
+                     temporal_wiki_shape=wiki_temporal["K1"]),
         kernel_entry(f"spmm_rowmask (K1, heads and denominator: H={h}, F={f}, bf16 stream at PPI size, f32 on "
                      "Pubmed)", "stgraph_tpu_torch/csrc/spmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:761",
                      "K1", by_path, max(rowmask_checks["K1"], rowmask_ppi["max_abs_err"]["K1"]), rowmask_main["K1"],
@@ -4542,10 +4953,12 @@ def main() -> int:
         kernel_entry("spmm_sddmm_rowmask (K2, one head: H=1, F=128, 128, 47, bf16 stream)",
                      "stgraph_tpu_torch/csrc/spmm_sddmm_rowmask.cu",
                      "stgraph_tpu/ops/segment_pallas.py:1248", "K2", by_path,
-                     max(record["k2_checks"]["max_abs_err"], k2_err, record["dist_k1_traced_checks"]["max_abs_err"]["K2"]),
+                     max(record["k2_checks"]["max_abs_err"], k2_err, record["dist_k1_traced_checks"]["max_abs_err"]["K2"],
+                         temporal["K2"]["max_abs_err"], wiki_temporal["K2"]["max_abs_err"]),
                      # a training step's three launches: F = 128, 128, 47
                      [dict(p, H=1) for f_ in (128, 128, 47) for p in k2_launch if p["F"] == f_],
-                     paths=one_head_paths, designs=k2_designs),
+                     paths=one_head_paths, designs=k2_designs, temporal_shape=temporal["K2"],
+                     temporal_wiki_shape=wiki_temporal["K2"]),
         kernel_entry(f"spmm_sddmm_rowmask (K2, heads: H={h}, F={f}, bf16 stream at PPI size, f32 on Pubmed)",
                      "stgraph_tpu_torch/csrc/spmm_sddmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:1248", "K2",
                      by_path, max(rowmask_checks["K2"], rowmask_ppi["max_abs_err"]["K2"]), rowmask_main["K2"],

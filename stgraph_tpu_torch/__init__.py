@@ -8,20 +8,23 @@ Pallas TPU kernel on its path with a kernel written by hand for Hopper
 (``csrc/``), built at first use. Entry points take ``device=`` and run on
 CUDA unless the caller asks for the CPU.
 
-Ported so far: the serving slice (the CSR and static graph, the segment
-and message ops, the vertex compiler, ``GCNConv``, ``Predictor``, the OGB
-loader, and K1, the row-wise SpMM, as a CUDA kernel) and the training
-slice (the SpMM backward through K1 on the transpose CSR and K2, the fused
-SpMM backward, as a CUDA kernel; ``TGCN``; checkpoints and
-``Predictor.from_checkpoint``; the training helpers; Cora) and GAT
-(``GATConv`` and flash-GAT's attention, with K4, the narrow segment max,
-K8, the fused attention forward, and K9, its backward, as CUDA kernels;
-Pubmed).
+Ported: the graph core (CSR, ``StaticGraph``, the blocked layouts, the
+locality reorder) and the naive, delta and lazy dynamic stores; the segment,
+message, attention and dynamic SpMM ops with every Pallas kernel of the JAX
+package as a CUDA kernel (K1-K10, K1's shard mode); the vertex compiler;
+``GCNConv``, ``GATConv`` (flash, rowmask and blocked routes, attention
+dropout) and ``TGCN``; ``Predictor``, checkpoints and the training helpers;
+the datasets (Cora, Pubmed, OGB, England-COVID and the six static-temporal
+loaders); ``DataTable``; the distribution layer (``parallel``: partition,
+halo exchange, mesh, layers, launch); and the temporal drivers
+(``drivers.static_temporal_tgcn``, ``drivers.dynamic_temporal_tgcn``).
 """
 
-from stgraph_tpu_torch import compiler, convert, dataset, graph, nn, ops, serve, utils
+from stgraph_tpu_torch import compiler, convert, dataset, graph, nn, ops, parallel, serve, utils
 from stgraph_tpu_torch.compiler.stgraph import STGraph
 from stgraph_tpu_torch.graph import CSR, StaticGraph
+
+__version__ = "0.1.0"  # the JAX package's
 
 __all__ = [
     "CSR",
@@ -33,6 +36,7 @@ __all__ = [
     "graph",
     "nn",
     "ops",
+    "parallel",
     "serve",
     "utils",
 ]

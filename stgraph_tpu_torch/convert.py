@@ -26,6 +26,10 @@ vectors carry over as they are.
 kernel is (in, out) and an ``nn.Linear`` weight (out, in): it is
 transposed.
 
+``linear_params_from_jax`` does the same for a flax ``Dense`` tree
+(``kernel``, ``bias``), loadable into an ``nn.Linear`` (the drivers'
+regression head): the (in, out) kernel becomes the (out, in) weight.
+
 ``dist_gcn_params_from_jax``, ``dist_gat_params_from_jax`` and
 ``dist_tgcn_params_from_jax`` carry the functional parameter dicts of the
 JAX distribution layer (``stgraph_tpu.parallel.layers``' ``dist_*_params``,
@@ -59,6 +63,7 @@ __all__ = [
     "gat_params_from_jax",
     "gcn_params_from_jax",
     "lazy_pair_from_jax",
+    "linear_params_from_jax",
     "tgcn_params_from_jax",
 ]
 
@@ -130,6 +135,13 @@ def tgcn_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out[f"linear_{gate}.weight"] = _tensor(dense["kernel"]).T.contiguous()
         out[f"linear_{gate}.bias"] = _tensor(dense["bias"])
     return out
+
+
+def linear_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``Dense`` parameter tree (numpy leaves) as an ``nn.Linear``
+    ``state_dict``."""
+    tree = params.get("params", params)
+    return {"weight": _tensor(tree["kernel"]).T.contiguous(), "bias": _tensor(tree["bias"])}
 
 
 def _dist_tree(params: Mapping[str, Any], keys, kind: str, device) -> Dict[str, Any]:

@@ -409,6 +409,7 @@ def test_synthetic_pubmed_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setenv("HOME", str(tmp_path))
     # no download attempt in either package: straight to the synthetic data
     monkeypatch.setattr(JaxDataset, "_offline", True)
+    monkeypatch.setattr(JaxDataset, "_save_dataset", lambda self: None)  # the port's cache is the one checked
     monkeypatch.setattr(STGraphDataset, "_offline", True)
     port, ref = PubmedDataLoader(), JaxPubmed()
     assert port.synthetic and ref.synthetic and port.gdata == ref.gdata

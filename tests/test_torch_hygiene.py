@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from stgraph_tpu_torch.drivers import dynamic_temporal_tgcn, static_temporal_tgcn
 from stgraph_tpu_torch.graph.blocked import blocked_layout
 from stgraph_tpu_torch.graph.csr import build_csr
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
@@ -58,6 +59,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     scanned = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ("halo", "launch", "layers", "mesh", "partition"):
         assert f"stgraph_tpu_torch/parallel/{module}.py" in scanned
+    for module in ("drivers/static_temporal_tgcn", "drivers/dynamic_temporal_tgcn", "utils/data_table",
+                   "dataset/windmilloutput_dataloader", "dataset/metrla_dataloader"):
+        assert f"stgraph_tpu_torch/{module}.py" in scanned
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -90,6 +94,30 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda):
         GATConv(4, 4, 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Predictor.build(lambda p, x: x, {}, (torch.ones(1),))
+    for entry in (static_temporal_tgcn.run, static_temporal_tgcn.bench_tgcn_epoch, dynamic_temporal_tgcn.run):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dynamic_temporal_tgcn.DynamicTemporalTrainer([[(0, 1)], [(1, 2)]], None, [np.zeros((3, 1))], lags=1)
+
+
+def test_the_package_binds_parallel_and_its_version_and_loads_no_jax():
+    """``import stgraph_tpu_torch`` binds every subpackage, ``parallel``
+    among them, and the JAX package's version string; the modules it loads
+    import nothing of JAX (the AST scan's test, over what the import
+    actually loaded)."""
+    import sys
+
+    import stgraph_tpu_torch
+
+    assert stgraph_tpu_torch.parallel is sys.modules["stgraph_tpu_torch.parallel"]
+    assert "parallel" in stgraph_tpu_torch.__all__
+    assert stgraph_tpu_torch.__version__ == "0.1.0"
+    loaded = [m for name, m in sys.modules.items() if name.split(".")[0] == "stgraph_tpu_torch"]
+    assert len(loaded) > 40
+    bad = [f"{m.__name__}: {mod}" for m in loaded if getattr(m, "__file__", None)
+           for mod in _imported_modules(pathlib.Path(m.__file__)) if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("layer, args", [("gcn", (4, 3)), ("gat", (4, 3, 2)), ("tgcn", (4, 3))])

@@ -5,7 +5,7 @@ the JAX package's (``stgraph_tpu.parallel``).
 rectangular CSR that its shard CSRs need against numpy; ``launch`` on its
 own. Then the port runs in P spawned gloo processes on the CPU
 (``tests/scripts/torch_dist_worker.py``, one spawn for P = 2 and one for
-P = 4) and every result is held against the JAX package on a P-device CPU
+P = 4, which starts when the P = 2 ranks are done) and every result is held against the JAX package on a P-device CPU
 mesh (conftest's virtual devices), within 1e-4 as ``tests/test_parallel.py``
 holds its own: ``dist_spmm`` on both routes (overlap on and off, one head
 weighted, two heads weighted), ``dist_gat_attention``, the three layers with
@@ -224,7 +224,8 @@ def test_dist_params_match_jax_shapes_and_scales(layer, args):
     ``dist_*_params``, zero biases, and the same uniform scale: each weight's
     largest magnitude within 3 % of JAX's (over 10^3 draws or more, both lie
     within 3 % of the bound)."""
-    want = getattr(jax_layers, f"dist_{layer}_params")(jax.random.PRNGKey(0), *args)
+    # one compiled program: drawn op by op, each random op compiles apart
+    want = jax.jit(lambda key: getattr(jax_layers, f"dist_{layer}_params")(key, *args))(jax.random.PRNGKey(0))
     got = getattr(parallel, f"dist_{layer}_params")(torch.Generator().manual_seed(0), *args, device="cpu")
     flat_want = dict(jax.tree_util.tree_flatten_with_path(want)[0])
     flat_got = dict(jax.tree_util.tree_flatten_with_path(got)[0])
@@ -306,18 +307,45 @@ def inputs():
     return _inputs()
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["P2", "P4"])
-def world(request, inputs, tmp_path_factory):
-    """The port's results from ``p`` spawned gloo ranks, and the JAX mesh."""
-    p = request.param
-    tmp = tmp_path_factory.mktemp(f"dist{p}")
-    path = str(tmp / "inputs.npz")
-    np.savez(path, **inputs)
+WORLDS = (2, 4)
+
+
+@pytest.fixture(scope="module")
+def spawned(inputs, tmp_path_factory):
+    """``start(p)`` starts the ``p`` gloo ranks of a world, once, and
+    returns (folder, processes). Every rank still running at the module's
+    end is killed."""
     env = dict(os.environ, OMP_NUM_THREADS="2")
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(p), port, path, str(tmp)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-             for r in range(p)]
+    worlds = {}
+
+    def start(p):
+        if p not in worlds:
+            tmp = tmp_path_factory.mktemp(f"dist{p}")
+            path = str(tmp / "inputs.npz")
+            np.savez(path, **inputs)
+            port = str(_free_port())
+            worlds[p] = (tmp, [subprocess.Popen([sys.executable, WORKER, str(r), str(p), port, path, str(tmp)],
+                                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+                               for r in range(p)])
+        return worlds[p]
+
+    try:
+        yield start
+    finally:
+        for _, procs in worlds.values():
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+
+@pytest.fixture(scope="module", params=WORLDS, ids=["P2", "P4"])
+def world(request, inputs, spawned):
+    """The port's results from ``p`` spawned gloo ranks, and the JAX mesh.
+    Once a world's ranks are done, the next world's start, so that they run
+    while this world's cases are checked."""
+    p = request.param
+    tmp, procs = spawned(p)
     outs = []
     try:
         for proc in procs:
@@ -327,6 +355,10 @@ def world(request, inputs, tmp_path_factory):
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
+    for q in WORLDS:
+        if q > p:
+            spawned(q)
+            break
     for r, (proc, out) in enumerate(zip(procs, outs)):
         assert proc.returncode == 0 and f"[rank {r}] TORCH DIST OK" in out, f"rank {r}:\n{out}"
     ranks = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(p)]
@@ -478,9 +510,14 @@ def test_dist_training_step_matches_jax(world, inputs):
             return optax.softmax_cross_entropy_with_integer_labels(h, jnp.asarray(y)).mean()
 
         opt = optax.adam(1e-2)
-        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
-        updates, _ = opt.update(grads, opt.init(params))
-        return loss, grads, optax.apply_updates(params, updates)
+
+        @jax.jit  # the loss, its gradients and the Adam step as one program
+        def step(params):
+            loss, grads = jax.value_and_grad(loss_fn)(params)
+            updates, _ = opt.update(grads, opt.init(params))
+            return loss, grads, optax.apply_updates(params, updates)
+
+        return step(params)
 
     loss, grads, after = _ref(world, "train", make)
     for impl in ("torch", "kernel"):

@@ -59,6 +59,19 @@ def _np(x):
     return x.detach().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
+def _value_and_vjp(fn, g, *args):
+    """``fn(*args)`` and the gradients of ``sum(fn(*args) * g)`` by every
+    argument, from one compiled program (a forward and a gradient compiled
+    apart would trace and compile the forward twice)."""
+
+    @jax.jit
+    def both(*a):
+        out, vjp = jax.vjp(fn, *a)
+        return out, vjp(jnp.asarray(g, out.dtype))
+
+    return both(*args)
+
+
 def _t(x):
     return torch.from_numpy(np.asarray(x))
 
@@ -224,11 +237,8 @@ def test_multihead_spmm_gradients_match_jax(rng):
     w = rng.random((csr.capacity, h)).astype(np.float32)
     g = rng.standard_normal((n, h, f)).astype(np.float32)
 
-    def loss(a, b):
-        return jnp.sum(spmm_pallas.spmm(jcsr, a, b, interpret=True) * g)
-
-    ref = jax.jit(lambda a, b: spmm_pallas.spmm(jcsr, a, b, interpret=True))(jnp.asarray(x), jnp.asarray(w))
-    rx, rw = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(x), jnp.asarray(w))
+    ref, (rx, rw) = _value_and_vjp(lambda a, b: spmm_pallas.spmm(jcsr, a, b, interpret=True), g,
+                                   jnp.asarray(x), jnp.asarray(w))
     xt, wt = _t(x).requires_grad_(), _t(w).requires_grad_()
     out = spmm_cuda.spmm(csr, xt, wt)
     (out * _t(g)).sum().backward()
@@ -256,8 +266,7 @@ def test_rowmask_gat_and_its_gradients_match_jax(rng, monkeypatch, h, f):
     def jax_attn(a, b, c):
         return JA.sparse_gat_attention(jcsr, a[..., None], b[..., None], c, interpret=True)
 
-    ref = jax.jit(jax_attn)(el, er, fs)
-    refs = jax.jit(jax.grad(lambda a, b, c: jnp.sum(jax_attn(a, b, c) * g), argnums=(0, 1, 2)))(el, er, fs)
+    ref, refs = _value_and_vjp(jax_attn, g, el, er, fs)
     ts = [_t(v).requires_grad_() for v in (el, er, fs)]
     out = A.sparse_gat_attention(csr, ts[0][..., None], ts[1][..., None], ts[2])
     (out * _t(g)).sum().backward()
@@ -285,8 +294,7 @@ def test_composed_route_past_16_heads_takes_the_wide_kernels(rng, monkeypatch):
     def jax_attn(a, b, c):
         return JA.sparse_gat_attention(jcsr, a[..., None], b[..., None], c, interpret=True)
 
-    ref = jax.jit(jax_attn)(el, er, fs)
-    refs = jax.jit(jax.grad(lambda a, b, c: jnp.sum(jax_attn(a, b, c) * g), argnums=(0, 1, 2)))(el, er, fs)
+    ref, refs = _value_and_vjp(jax_attn, g, el, er, fs)
     ts = [_t(v).requires_grad_() for v in (el, er, fs)]
     out = A.sparse_gat_attention(csr, ts[0][..., None], ts[1][..., None], ts[2])
     (out * _t(g)).sum().backward()

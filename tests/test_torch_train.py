@@ -121,7 +121,7 @@ def test_spmm_grads_match_jax_custom_vjp(rng, request, weighted, stream):
         out = spmm_pallas.spmm(jcsr, a, b if weighted else None, interpret=True)
         return jnp.sum(out * gref)
 
-    jh, jw = jax.grad(loss_jax, argnums=(0, 1))(jnp.asarray(h), jnp.asarray(w))
+    jh, jw = jax.jit(jax.grad(loss_jax, argnums=(0, 1)))(jnp.asarray(h), jnp.asarray(w))
     ht = torch.from_numpy(h).requires_grad_()
     wt = torch.from_numpy(w).requires_grad_() if weighted else None
     (spmm_cuda.spmm(csr, ht, wt) * torch.from_numpy(gref)).sum().backward()
@@ -306,6 +306,7 @@ def test_synthetic_cora_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setenv("HOME", str(tmp_path))
     # no download attempt in either package: straight to the synthetic data
     monkeypatch.setattr(JaxDataset, "_offline", True)
+    monkeypatch.setattr(JaxDataset, "_save_dataset", lambda self: None)  # the port's cache is the one checked
     monkeypatch.setattr(STGraphDataset, "_offline", True)
     port, ref = CoraDataLoader(), JaxCora()
     assert port.synthetic and ref.synthetic and port.gdata == ref.gdata
