@@ -243,13 +243,32 @@ Phases (any failure exits nonzero and prints no result line):
     ``DYN_TYPES_TOL``; on the stream, K1 and K2 with the arguments the naive
     type's timestep gives them (F = 32, bf16 streams) against their plain
     versions into poisoned outputs, timed as in 45. Phase 26's lazy-scan
-    loop runs on ``drivers.dynamic_temporal_tgcn`` too.
+    loop runs on ``drivers.dynamic_temporal_tgcn`` too;
+47. pma-scan: ``train.py --type pma-scan`` (the PMA store pair, chunks of
+    256 slots, one ``apply_delta_pair`` a timestep) on both datasets of 46
+    at their widths: 1 warm and 4 timed epochs of 6T K6 and 3T K7, the graph
+    side alone, the rebuilds an epoch, a profile (idle share); the hidden
+    state at every timestep against delta-scan's from the same parameters
+    (``PMA_HIDDEN_TOL``); K6 on pair.fwd and pair.bwd and K7 at the path's
+    shapes against their plain versions into poisoned outputs, timed;
+48. dist-dyn: ``parallel.dyn`` at the dyn-step shape of 27 (world size 1 on
+    NCCL): 64 steps of a replay, ``dist_dyn_spmm`` forward and backward and
+    ``dist_dyn_degree`` (one K6 and one K7 a step); the live set against
+    the generator's, the output and one more gradient against K6's plain
+    version over the whole store;
+49. batched-tgcn: ``parallel.batch``'s loss over 4 windows of 8 timesteps
+    of WindmillOutput large at 80 -> 160 on a 1 x 1 mesh (NCCL; 3
+    K1_traced and 3 K1 a timestep) against the windows run one by one
+    through ``dist_tgcn_cell``. The rank phase (41) also runs
+    ``parallel.dyn`` at its graph size and the batched loss on (ranks x 1)
+    and (1 x ranks) meshes, against world size 1.
 
 Every path of the kernels line (serving, training, gat-serving,
 gat-training, gat-dropout-training, composed-serving, ppi-serving,
 ppi-training, dyn-step, dtdg-training on each dataset, pubmed-rowmask,
-rowmask-ppi, dist-gcn-training, tgcn-epoch, static-temporal on each dataset
-and dynamic-temporal on each dataset and type) is driven with every launch count set to
+rowmask-ppi, dist-gcn-training, tgcn-epoch, static-temporal on each dataset,
+dynamic-temporal on each dataset and type, pma-scan on each dataset,
+dist-dyn and batched-tgcn) is driven with every launch count set to
 0 just before it and read just after; K8's and K9's dropout-mode launches
 count apart (``K8_dropout``, ``K9_dropout``) as well as with all of theirs,
 and K1's shard mode apart from K1 (``K1_traced``).
@@ -426,6 +445,13 @@ HIDDEN_TOL = 1e-3
 DTDG_GRAD_TOL = 1e-3
 
 
+# The PMA store (train.py --type pma-scan) at the dynamic-temporal phase's
+# widths: its hidden states against delta-scan's at every timestep, the
+# same parameters and graph sequence, f32 on both routes (K6 and the dense
+# route or K1 sum in their own orders)
+PMA_HIDDEN_TOL = 1e-5
+
+
 # The distribution layer (benchmarking/dist/train.py --dataset ogbn-products:
 # 100 -> 64 -> 64 -> 47, --layers 3, Adam 1e-2), at world size 1 on NCCL
 DIST_DIMS, DIST_LR = (100, 64, 64, 47), 1e-2
@@ -445,6 +471,14 @@ DIST_LOSS_TOL = 1e-5
 # throughout, only the order of the f32 sums differs; each tensor to 1e-4 of
 # its largest element
 DIST_TOL = 1e-4
+# parallel.dyn: bench.py's bench_dyn at the dyn-step shape (DYN_*, world
+# size 1 on NCCL), and at the dist-halo-2rank phase's graph size (two ranks
+# against one)
+DIST_DYN_SMALL = dict(nodes=100_000, edges=1_000_000, slide=10_000, steps=8, feat=64)
+# parallel.batch: WindmillOutput large at the static-temporal phase's widest
+# point (STATIC_F -> STATIC_H), BATCH_WINDOWS windows of BATCH_STEPS
+# timesteps; the 2-D meshes of the rank phase are (ranks x 1) and (1 x ranks)
+BATCH_WINDOWS, BATCH_STEPS = 4, 8
 
 
 class SmokeFailure(Exception):
@@ -3143,6 +3177,15 @@ def phase_rowmask_ppi(dev, ppi):
 # -- dynamic graphs: the lazy store pair, K6 and K7 --------------------------
 
 
+def dyn_stream(rng, nodes, e0, steps, slide):
+    """``bench_dyn``'s workload: ``e0`` initial edges as (row = dst, col =
+    src) sorted by (row, col), and ``gen_delta_stream``'s additions,
+    deletions and final live set from them."""
+    keys = np.unique(rng.integers(0, nodes, e0 * 2).astype(np.int64) * nodes + rng.integers(0, nodes, e0 * 2))[:e0]
+    rows0, cols0 = (keys // nodes).astype(np.int32), (keys % nodes).astype(np.int32)
+    return (rows0, cols0) + gen_delta_stream(rng, cols0.astype(np.int64) * nodes + rows0, nodes, steps, slide)
+
+
 def gen_delta_stream(rng, keys0, nodes, steps, slide):
     """``benchmarking/micro/_workload.py``'s delta stream (a copy): every
     delete names a live edge, every add is absent, the live set is kept on
@@ -3178,18 +3221,33 @@ def gen_delta_stream(rng, keys0, nodes, steps, slide):
     return adds, dels, live
 
 
-def rowid_bounds(cap: int, n: int, f: int, live: int):
-    """Least times for one K6 call (rows, cols and w read once, the f32
-    table read once, the f32 output written once; or 2 f32 operations per
-    live slot and column) and one K7 call (rows and w read, den written; or
-    one add per slot)."""
-    k6_bytes, k6_ops = cap * 12 + 2 * n * f * 4, 2 * live * f
-    k7_bytes, k7_ops = cap * 8 + n * 4, cap
+def rowid_bounds(cap: int, n: int, f: int, live: int, weighted: bool = True):
+    """Least times for one K6 call (rows, cols and, when ``weighted``, w
+    read once, the f32 table read once, the f32 output written once; or a
+    product and an add per live slot and column, an add alone unweighted)
+    and one K7 call (rows read, and w when ``weighted``: its indicator and
+    sum modes, not its count mode; den written; or one add per slot)."""
+    w_bytes = 4 if weighted else 0
+    k6_bytes, k6_ops = cap * (8 + w_bytes) + 2 * n * f * 4, (2 if weighted else 1) * live * f
+    k7_bytes, k7_ops = cap * (4 + w_bytes) + n * 4, cap
     out = []
     for nbytes, ops in ((k6_bytes, k6_ops), (k7_bytes, k7_ops)):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
         out.append((max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, ops))
     return out
+
+
+def rowid_csr(rows, cols, w, n: int):
+    """A flat store's slots that count as an (n, n) CSR, for the library
+    yardstick ``torch.sparse.mm`` (timed only; the port never calls it):
+    sentinels (row id n) dropped, and tombstones (w = 0) when weighted; the
+    weights, or ones, as its values. A live-sorted store's row ids are
+    already in order."""
+    sel = rows < n if w is None else (rows < n) & (w > 0)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=rows.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows[sel].long(), minlength=n), 0)
+    vals = torch.ones(int(sel.sum()), device=rows.device) if w is None else w[sel]
+    return torch.sparse_csr_tensor(crow, cols[sel].long(), vals, size=(n, n), check_invariants=False)
 
 
 def device_launches(fn, counter, calls: int = 5) -> dict:
@@ -3417,9 +3475,7 @@ def phase_dyn_step(dev, seed):
     nodes, cap, slide, steps, f, tcap = DYN_NODES, DYN_CAP, DYN_SLIDE, DYN_STEPS, DYN_F, DYN_TCAP
     t0 = time.perf_counter()
     e0 = cap - tcap - 40_000
-    keys = np.unique(rng.integers(0, nodes, e0 * 2).astype(np.int64) * nodes + rng.integers(0, nodes, e0 * 2))[:e0]
-    rows0, cols0 = (keys // nodes).astype(np.int32), (keys % nodes).astype(np.int32)
-    adds, dels, live = gen_delta_stream(rng, cols0.astype(np.int64) * nodes + rows0, nodes, steps, slide)
+    rows0, cols0, adds, dels, live = dyn_stream(rng, nodes, e0, steps, slide)
     t1 = time.perf_counter()
     pair0 = lazy_pair_from_edges(cols0, rows0, nodes, capacity=cap, tail_capacity=tcap, device=dev)
     feats = torch.from_numpy(rng.standard_normal((nodes, f)).astype(np.float32)).to(dev)
@@ -3482,7 +3538,7 @@ def phase_dyn_step(dev, seed):
     print(f"dyn-step live set after {steps} steps: fwd {len(fwd)}, bwd {len(bwd)}, generator {len(want)} "
           f"edges, equal {ok}")
     check(ok, "the lazy pair's live set differs from the generator's after the dyn-step run")
-    return {"pair": pair, "feats": feats,
+    return {"pair": pair, "feats": feats, "stream": (rows0, cols0, adds, dels, want),
             "record": {"nodes": nodes, "capacity": cap, "tail_capacity": tcap, "initial_edges": int(e0),
                        "steps": steps, "slide": slide, "F": f, "compactions_per_store": int(compactions),
                        "stream_s": t1 - t0, "build_s": t2 - t1, "step_s": step_s, "update_s": update_s,
@@ -3524,10 +3580,7 @@ def phase_rowid_at_main_shapes(dyn):
         ms = cuda_ms(lambda: spmm_rowid(rows, cols, w, feats, n), iters=10, warmup=2)
         plain_ms = cuda_ms(lambda: spmm_rowid_plain(rows, cols, w, feats, n, ROWID_PLAIN_EDGE_BLOCK), iters=1)
         t = time.perf_counter()
-        sel = (rows < n) & (w > 0)
-        crow = torch.zeros(n + 1, dtype=torch.int64, device=feats.device)
-        crow[1:] = torch.cumsum(torch.bincount(rows[sel].long(), minlength=n), 0)
-        lib_a = torch.sparse_csr_tensor(crow, cols[sel].long(), w[sel], size=(n, n), check_invariants=False)
+        lib_a = rowid_csr(rows, cols, w, n)
         torch.cuda.synchronize()
         lib_build_s = time.perf_counter() - t
         try:  # a timed yardstick only; the port never calls it
@@ -4115,6 +4168,165 @@ def phase_dynamic_temporal(dev, args, workdir, name):
     return {"runs": runs, "types_max_abs_diff": agree, "per_launch": per_launch}
 
 
+def update_syncs(fn) -> dict:
+    """The host's waits at the values it reads from the device over one
+    call of ``fn`` (a pma-scan epoch's updates: the rebuild flags), from
+    the profiler's host events of ``aten::_local_scalar_dense``: each one
+    spans the copy and the wait for the device work queued before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    waits = [(e.end_ns() - e.start_ns()) / 1e3 for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CPU and e.name() == "aten::_local_scalar_dense"]
+    return {"reads": len(waits), "wait_ms": sum(waits) / 1e3,
+            "wait_us_per_read": sum(waits) / max(len(waits), 1), "wait_us_max": max(waits, default=0.0)}
+
+
+@timed_phase
+def phase_pma_scan(dev, args, workdir, name):
+    """``benchmarking/dynamic-temporal-tgcn/train.py --type pma-scan`` on the
+    port (``drivers.dynamic_temporal_tgcn``) on ``name`` at
+    ``DYN_TEMPORAL_WIDTHS``: the PMA pair (chunks of 256 slots) built from
+    ``snapshot_store(lags - 1)``'s live slots, one ``apply_delta_pair`` a
+    timestep (one host read of a flag a store), TGCN over the pair. 1 warm
+    and 4 timed epochs, each launching 6T K6 and 3T K7; the epoch time, the
+    graph side alone, the rebuilds an epoch and a profile (idle share).
+    Then the hidden state at every timestep of an epoch against delta-scan's
+    (the same parameters and graph sequence, an f32 stream on both) within
+    ``PMA_HIDDEN_TOL``, and K6 on pair.fwd and pair.bwd and K7 on pair.fwd
+    at this path's shapes against their plain versions into NaN-poisoned
+    outputs, timed beside them and their bounds."""
+    from stgraph_tpu_torch.graph.pma_store import apply_delta_pma
+    from stgraph_tpu_torch.ops import spmm_cuda
+    from stgraph_tpu_torch.ops.rowid_kernels import dyn_degree, dyn_degree_plain, spmm_rowid, spmm_rowid_plain
+
+    lags, hidden = DYN_TEMPORAL_WIDTHS[name]
+    t0 = time.perf_counter()
+    _, _, tr = dtdg_trainer(dev, name, workdir, "pma-scan", lags, hidden, args.seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n, steps, slots = tr.num_nodes, tr.steps, tr.pair0.fwd.capacity
+    chunks, chunk = tr.pair0.fwd.rows.shape
+
+    def epoch():
+        loss = tr.epoch().item()
+        torch.cuda.synchronize()
+        return loss
+
+    t = time.perf_counter()
+    losses = [epoch()]
+    warm_s = time.perf_counter() - t
+    reset_counts()
+    times, per_epoch, rebuilds = [], [], []
+    for _ in range(DYN_TEMPORAL_EPOCHS):
+        before, rb = read_counts(), apply_delta_pma.rebuilds
+        t = time.perf_counter()
+        losses.append(epoch())
+        times.append(time.perf_counter() - t)
+        per_epoch.append({k: v - before[k] for k, v in read_counts().items()})
+        rebuilds.append(apply_delta_pma.rebuilds - rb)
+    counts = read_counts()
+    expected = only(K6=6 * steps, K7=3 * steps)
+    check(all(c == expected for c in per_epoch), f"a {name} pma-scan epoch launched {per_epoch}, expected {expected}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"the {name} pma-scan loss: {losses}")
+
+    def updates():
+        tr.updates_only()
+        torch.cuda.synchronize()
+
+    updates()
+    t = time.perf_counter()
+    updates()
+    update_s = time.perf_counter() - t
+    sync = update_syncs(updates)
+    check(sync["reads"] == 2 * steps, f"{name}: an epoch's updates read {sync['reads']} values on the host, "
+          f"expected one rebuild flag a store a timestep ({2 * steps})")
+    profile = phase_profile(epoch, f"one {name} pma-scan epoch")
+
+    # the hidden states against delta-scan's, from the same parameters
+    ref = dtdg_trainer(dev, name, workdir, "delta-scan", lags, hidden, args.seed)[2]
+    ref.model.load_state_dict(tr.model.state_dict())
+    limit = spmm_cuda._BF16_STREAM_MIN_EDGES
+    spmm_cuda._BF16_STREAM_MIN_EDGES = 1 << 62
+    try:
+        hs, hs_ref = [], []
+        with torch.no_grad():
+            tr.epoch_loss(hs)
+            ref.epoch_loss(hs_ref)
+    finally:
+        spmm_cuda._BF16_STREAM_MIN_EDGES = limit
+    hidden_err = max((a - b).abs().max().item() for a, b in zip(hs, hs_ref))
+    check(len(hs) == len(hs_ref) == steps and hidden_err <= PMA_HIDDEN_TOL,
+          f"{name}: pma-scan's hidden states differ from delta-scan's by {hidden_err}")
+    del ref, hs, hs_ref
+
+    # K6 and K7 at this path's shapes: the stores after the last timestep
+    pair = tr.pair0
+    for t in range(steps):
+        pair = tr.update(pair, t)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
+    kernels = {}
+    with torch.no_grad():
+        for side, st in (("fwd", pair.fwd), ("bwd", pair.bwd)):
+            rows, cols, w = st.flatten()
+            x = torch.randn(n, hidden, device=dev, generator=gen)
+            out = poisoned_call((n, hidden), lambda: spmm_rowid(rows, cols, w, x, n))
+            ref_out = spmm_rowid_plain(rows, cols, w, x, n)
+            err = (out - ref_out).abs()
+            ratio = _err_over_mass(err, spmm_rowid_plain(rows, cols, None if w is None else w.abs(), x.abs(), n))
+            check(ratio <= KERNEL_TOL, f"{name}: K6 on the PMA pair.{side} disagrees: err/sum|terms| {ratio}")
+            live = int((rows < n).sum())
+            bound_ms, bound_by, _, _ = rowid_bounds(slots, n, hidden, live, weighted=w is not None)[0]
+            lib_a = rowid_csr(rows, cols, w, n)
+            try:  # a timed yardstick only; the port never calls it
+                lib_err = (torch.sparse.mm(lib_a, x) - ref_out).abs().max().item()
+                lib_ms = cuda_ms(lambda: torch.sparse.mm(lib_a, x), iters=20, warmup=2)
+            except RuntimeError as exc:
+                print(f"library yardstick sparse.mm unavailable: {exc}")
+                lib_err, lib_ms = None, None
+            kernels[f"K6_{side}"] = {"N": n, "slots": slots, "live": live, "F": hidden, "weighted": w is not None,
+                                     "max_abs_err": err.max().item(), "err_over_mass": ratio,
+                                     "ms": cuda_ms(lambda: spmm_rowid(rows, cols, w, x, n), iters=50, warmup=3),
+                                     "plain_ms": cuda_ms(lambda: spmm_rowid_plain(rows, cols, w, x, n), iters=3),
+                                     "library_ms": lib_ms, "library_max_abs_err": lib_err,
+                                     "bound_ms": bound_ms, "bound_by": bound_by}
+            del lib_a
+        rows = pair.fwd.flatten()[0]
+        den = poisoned_call((n,), lambda: dyn_degree(rows, None, n))
+        check(torch.equal(den, dyn_degree_plain(rows, None, n)), f"{name}: K7 on the PMA pair.fwd is not bit-equal")
+        bound_ms, bound_by, _, _ = rowid_bounds(slots, n, 1, slots, weighted=False)[1]  # count mode: no w read
+        try:  # a timed yardstick only; the port never calls it
+            lib_equal = torch.equal(torch.bincount(rows, minlength=n + 1)[:n].float(), den)
+            lib_ms = cuda_ms(lambda: torch.bincount(rows, minlength=n + 1), iters=50, warmup=3)
+        except RuntimeError as exc:
+            print(f"library yardstick bincount unavailable: {exc}")
+            lib_ms, lib_equal = None, None
+        kernels["K7"] = {"N": n, "slots": slots, "max_abs_err": 0.0, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "ms": cuda_ms(lambda: dyn_degree(rows, None, n), iters=100, warmup=3),
+                         "plain_ms": cuda_ms(lambda: dyn_degree_plain(rows, None, n), iters=3),
+                         "library_ms": lib_ms, "library_equal": lib_equal}
+    print(f"pma-scan {name}: N={n}, T={steps}, F={lags} H={hidden}, {chunks} chunks of {chunk} slots (set-up "
+          f"{setup_s:.2f} s); warm {warm_s:.3f} s; {DYN_TEMPORAL_EPOCHS} epochs, s {[round(v, 4) for v in times]}, "
+          f"losses {[round(v, 5) for v in losses]}; rebuilds an epoch {rebuilds} of {2 * steps} store updates; "
+          f"graph side alone {update_s:.4f} s an epoch, of which the host waits {sync['wait_ms']:.2f} ms at its "
+          f"{sync['reads']} flag reads (mean {sync['wait_us_per_read']:.1f} us, the device work queued before each "
+          f"included); "
+          f"launches an epoch {per_epoch[0]}; idle share "
+          f"{profile['idle_share']:.3f}; hidden states vs delta-scan max |diff| {hidden_err:.2e} (tol "
+          f"{PMA_HIDDEN_TOL:g}); K6 fwd {kernels['K6_fwd']['ms'] * 1e3:.1f} us (plain "
+          f"{kernels['K6_fwd']['plain_ms'] * 1e3:.1f} us, sparse.mm {kernels['K6_fwd']['library_ms']} ms, bound "
+          f"{kernels['K6_fwd']['bound_ms'] * 1e3:.2f} us), K7 {kernels['K7']['ms'] * 1e3:.1f} us (plain "
+          f"{kernels['K7']['plain_ms'] * 1e3:.1f} us, bincount {kernels['K7']['library_ms']} ms, bound "
+          f"{kernels['K7']['bound_ms'] * 1e3:.2f} us), no NaN")
+    return {"n": n, "timesteps": steps, "lags": lags, "hidden": hidden, "chunks": chunks, "chunk_size": chunk,
+            "setup_s": setup_s, "warm_s": warm_s, "epoch_s": times, "losses": losses, "update_s": update_s,
+            "host_syncs_per_timestep": 2, "update_sync": sync, "rebuilds_per_epoch": rebuilds, "store_updates_per_epoch": 2 * steps,
+            "launches": counts, "launches_per_epoch": per_epoch, "profile": profile,
+            "hidden_max_abs_diff_vs_delta_scan": hidden_err, "kernels": kernels}
+
+
 @contextlib.contextmanager
 def world_of_one(backend):
     """A one-process group on ``backend`` for the phase inside, destroyed
@@ -4577,6 +4789,289 @@ def phase_dist_vs_plain(dev, args, workdir):
     return {"n": n, "e": len(edges), "err_over_max": worst}
 
 
+def flat_store(rows0, cols0, nodes, capacity):
+    """The (row, col)-sorted initial edges as a flat ``EdgeStore`` of
+    ``capacity`` slots."""
+    from stgraph_tpu_torch.graph.delta_graph import EdgeStore
+
+    rows, cols = np.full(capacity, nodes, np.int32), np.full(capacity, nodes, np.int32)
+    rows[:len(rows0)], cols[:len(cols0)] = rows0, cols0
+    return EdgeStore(rows, cols, np.int32(len(rows0)), nodes)
+
+
+def dist_dyn_small(seed):
+    """The rank phase's dynamic graph (``DIST_DYN_SMALL``): the store, the
+    stream, the features and the cotangent, the same in every process."""
+    c = DIST_DYN_SMALL
+    rng = np.random.default_rng(seed + 19)
+    rows0, cols0, adds, dels, _ = dyn_stream(rng, c["nodes"], c["edges"], c["steps"], c["slide"])
+    store = flat_store(rows0, cols0, c["nodes"], c["edges"] + 4 * c["slide"])
+    feats = rng.standard_normal((c["nodes"], c["feat"]), dtype=np.float32)
+    cot = rng.standard_normal((c["nodes"], c["feat"]), dtype=np.float32)
+    return store, adds, dels, feats, cot
+
+
+def dist_dyn_run(mesh, store, adds, dels, feats, cot, capacity=None, warm=False):
+    """``parallel.dyn``'s replay on this rank's shard: per step the delta,
+    ``dist_dyn_spmm`` forward and backward (cotangent ``cot``), then
+    ``dist_dyn_degree``. Returns the last step's output and degrees, the
+    features' gradient summed over the steps, the final store, the launches
+    (counts set to 0 just before, read just after) and the step time; with
+    ``warm``, the loop runs once untimed first."""
+    from stgraph_tpu_torch.parallel import (
+        dist_dyn_apply_delta,
+        dist_dyn_degree,
+        dist_dyn_spmm,
+        partition_dynamic,
+        shard_dyn_arrays,
+        shard_node_array,
+    )
+
+    world = torch.distributed.get_world_size(mesh.get_group("graph"))
+    t = time.perf_counter()
+    ddg = partition_dynamic(store, adds, dels, None, world, capacity=capacity)
+    partition_s = time.perf_counter() - t
+    carry0, (a, d, _) = shard_dyn_arrays(mesh, ddg)
+    g = shard_node_array(mesh, torch.from_numpy(cot), ddg)
+    x = shard_node_array(mesh, torch.from_numpy(feats), ddg)
+
+    def loop():
+        rows, cols, w, ne = carry0
+        h = x.clone().requires_grad_(True)
+        for s in range(a.shape[0]):
+            rows, cols, w, ne = dist_dyn_apply_delta(mesh, ddg, rows, cols, w, ne, a[s], d[s], None)
+            out = dist_dyn_spmm(mesh, ddg, rows, cols, w, h)
+            out.backward(g)
+            deg = dist_dyn_degree(mesh, ddg, rows)
+        return rows, cols, ne, out.detach(), deg, h.grad
+
+    if warm:
+        loop()
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    rows, cols, ne, out, deg, grad = loop()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / a.shape[0]
+    counts = read_counts()
+
+    def replay():
+        rows_, cols_, w_, ne_ = carry0
+        for s in range(a.shape[0]):
+            rows_, cols_, w_, ne_ = dist_dyn_apply_delta(mesh, ddg, rows_, cols_, w_, ne_, a[s], d[s], None)
+        torch.cuda.synchronize()
+
+    replay()
+    t = time.perf_counter()
+    replay()
+    update_s = (time.perf_counter() - t) / a.shape[0]
+    return {"ddg": ddg, "x": x, "g": g, "rows": rows, "cols": cols, "ne": int(ne), "out": out, "deg": deg,
+            "grad": grad, "counts": counts, "step_s": step_s, "update_s": update_s, "partition_s": partition_s}
+
+
+@timed_phase
+def phase_dist_dyn(dev, args, stream=None):
+    """``parallel.dyn`` at ``bench.py``'s ``bench_dyn`` dyn-step shape (1.1M
+    nodes, 2.2M slots, F = 128, 64 steps of 10k adds and 10k deletes: the
+    dyn-step phase's ``stream``, or the same made anew), world size 1 on
+    NCCL: a warm pass, then each step a replay
+    (``dist_dyn_apply_delta``), ``dist_dyn_spmm`` forward and backward and
+    ``dist_dyn_degree``; exactly one K6 and one K7 a step. After the 64 steps
+    the store's live set is the generator's, the last output is within
+    ``KERNEL_TOL`` of the sum of |terms| of K6's plain version over the whole
+    store, and one more call's gradient within it of the plain transpose."""
+    from stgraph_tpu_torch.ops.rowid_kernels import spmm_rowid_plain
+    from stgraph_tpu_torch.parallel import dist_dyn_spmm, make_mesh
+
+    rng = np.random.default_rng(args.seed + 17)
+    nodes, cap, steps, f = DYN_NODES, DYN_CAP, DYN_STEPS, DYN_F
+    e0 = cap - DYN_TCAP - 40_000
+    t = time.perf_counter()
+    if stream is None:
+        rows0, cols0, adds, dels, live = dyn_stream(np.random.default_rng(args.seed), nodes, e0, steps, DYN_SLIDE)
+        want = np.array(sorted(live), np.int64)
+    else:
+        rows0, cols0, adds, dels, want = stream
+    store = flat_store(rows0, cols0, nodes, cap)
+    feats = rng.standard_normal((nodes, f), dtype=np.float32)
+    cot = rng.standard_normal((nodes, f), dtype=np.float32)
+    stream_s = time.perf_counter() - t
+    with world_of_one("nccl"):
+        mesh = make_mesh()
+        r = dist_dyn_run(mesh, store, adds, dels, feats, cot, capacity=cap, warm=True)
+        check(r["counts"] == only(K6=steps, K7=steps), f"the dist-dyn run launched {r['counts']}, expected one K6 "
+              "and one K7 a step")
+        rows, cols = r["rows"], r["cols"]
+        live_rows = rows < nodes
+        got = np.sort(cols[live_rows].cpu().numpy().astype(np.int64) * nodes + rows[live_rows].cpu().numpy())
+        check(np.array_equal(got, want) and r["ne"] == len(want),
+              f"the dist-dyn store's live set differs from the generator's ({len(got)} vs {len(want)} edges)")
+        with torch.no_grad():
+            ref = spmm_rowid_plain(rows, cols, None, r["x"], nodes, ROWID_PLAIN_EDGE_BLOCK)
+            mass = spmm_rowid_plain(rows, cols, None, r["x"].abs(), nodes, ROWID_PLAIN_EDGE_BLOCK)
+            out_err = (r["out"] - ref).abs()
+            out_ratio = _err_over_mass(out_err, mass)
+            del ref, mass
+        h = r["x"].clone().requires_grad_(True)
+        dist_dyn_spmm(mesh, r["ddg"], rows, cols, None, h).backward(r["g"])
+        with torch.no_grad():
+            ref = spmm_rowid_plain(cols, rows, None, r["g"], nodes, ROWID_PLAIN_EDGE_BLOCK)  # the transpose
+            mass = spmm_rowid_plain(cols, rows, None, r["g"].abs(), nodes, ROWID_PLAIN_EDGE_BLOCK)
+            grad_ratio = _err_over_mass((h.grad - ref).abs(), mass)
+            del ref, mass
+        check(out_ratio <= KERNEL_TOL and grad_ratio <= KERNEL_TOL,
+              f"dist-dyn: output err/sum|terms| {out_ratio}, gradient {grad_ratio} (tol {KERNEL_TOL})")
+        deg_ok = bool(torch.equal(r["deg"][:, 0], torch.bincount(rows[live_rows].long(), minlength=nodes).float()))
+        check(deg_ok, "dist-dyn: dist_dyn_degree differs from the store's in-degrees")
+    print(f"dist-dyn: {e0} initial edges on {nodes} nodes, capacity {cap}, {steps} steps of {DYN_SLIDE} adds + "
+          f"{DYN_SLIDE} deletes, F={f}, world size 1 (NCCL); stream {stream_s:.2f} s, partition "
+          f"{r['partition_s']:.2f} s; a step (replay, dist_dyn_spmm forward and backward, degree) "
+          f"{r['step_s'] * 1e3:.3f} ms, the replay alone {r['update_s'] * 1e3:.3f} ms; launches {r['counts']}; "
+          f"live set equal ({len(want)} edges); output err/sum|terms| {out_ratio:.2e}, gradient {grad_ratio:.2e}, "
+          f"degrees exact")
+    return {"nodes": nodes, "capacity": cap, "initial_edges": int(e0), "steps": steps, "slide": DYN_SLIDE, "F": f,
+            "stream_s": stream_s, "partition_s": r["partition_s"], "step_s": r["step_s"], "update_s": r["update_s"],
+            "launches": r["counts"], "live_edges": len(want), "out_max_abs_err": out_err.max().item(),
+            "out_err_over_mass": out_ratio, "grad_err_over_mass": grad_ratio}
+
+
+def batched_tgcn_data(workdir):
+    """``parallel.batch``'s windows on WindmillOutput large: (B, T, N, F)
+    features, each timestep's ``STATIC_F`` past targets (the static-temporal
+    script's features), and (B, T, N, H) targets, the next target in every
+    column; the graph's (src, dst) and its ``deg^-1/2`` norm (in-degrees)."""
+    from stgraph_tpu_torch.dataset import STGraphDataset
+    from stgraph_tpu_torch.drivers.static_temporal_tgcn import load_dataset
+
+    STGraphDataset._offline = True  # no network here: the synthetic data
+    b_n, t_n, f = BATCH_WINDOWS, BATCH_STEPS, STATIC_F
+    d = load_dataset("windmill_large", f, f + b_n * t_n + 1, os.path.join(workdir, "datasets"))
+    targets = np.stack(d.get_all_targets()).astype(np.float32)
+    edges = np.asarray(d.get_edges(), np.int64)
+    n = targets.shape[1]
+    xs = np.stack([[targets[b * t_n + t:b * t_n + t + f].T for t in range(t_n)] for b in range(b_n)])
+    ys = np.stack([[np.repeat(targets[b * t_n + t + f][:, None], STATIC_H, 1) for t in range(t_n)]
+                   for b in range(b_n)])
+    deg = np.bincount(edges[:, 1], minlength=n).astype(np.float32)
+    norm = np.where(deg > 0, np.maximum(deg, 1) ** -0.5, 1.0).astype(np.float32)[:, None]
+    return {"src": edges[:, 0], "dst": edges[:, 1], "n": n, "xs": np.ascontiguousarray(xs, np.float32),
+            "ys": np.ascontiguousarray(ys, np.float32), "norm": norm}
+
+
+def batched_tgcn_run(mesh, data, seed, sequential=False):
+    """``dist_tgcn_batched_loss`` (or, with ``sequential``, the same windows
+    one by one through ``dist_tgcn_cell`` from zero hidden states, the masked
+    MSE over the real rows, ``reduce_replicated_grads`` after the backward)
+    on this rank's mesh, K1's shard mode; TGCN(STATIC_F -> STATIC_H) drawn
+    from ``seed``. Returns the loss, the gradients, the launches (counts set
+    to 0 just before, read just after), the launches expected (3 K1_traced
+    and 3 K1 a cell and non-empty split of the shard) and the seconds of the
+    forward and backward (the sequential run's include an upload of each
+    timestep's rows)."""
+    from stgraph_tpu_torch.parallel import (
+        dist_tgcn_batched_loss,
+        dist_tgcn_cell,
+        dist_tgcn_params,
+        partition_edges,
+        reduce_replicated_grads,
+        shard_node_array,
+        shard_window_batch,
+    )
+    from stgraph_tpu_torch.parallel.layers import _leaves
+    from stgraph_tpu_torch.parallel.mesh import mesh_device, staged_collective
+
+    dev = mesh_device(mesh)
+    graph = torch.distributed.get_world_size(mesh.get_group("graph"))
+    dg = partition_edges(data["src"], data["dst"], data["n"], graph)
+    params = dist_tgcn_params(torch.Generator().manual_seed(seed), STATIC_F, STATIC_H, device=dev)
+    for leaf in _leaves(params):
+        leaf.requires_grad_(True)
+    norm = shard_node_array(mesh, torch.from_numpy(data["norm"]), dg)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    if sequential:
+        ns, n = dg.nodes_per_shard, data["n"]
+        r = mesh.get_local_rank("graph")
+        mask = (r * ns + torch.arange(ns, device=dev) < n)[:, None]
+        total = 0.0
+        for b in range(data["xs"].shape[0]):
+            hidden, steps = torch.zeros(ns, STATIC_H, device=dev), []
+            for s in range(data["xs"].shape[1]):
+                x = shard_node_array(mesh, torch.from_numpy(data["xs"][b, s]), dg)
+                y = shard_node_array(mesh, torch.from_numpy(data["ys"][b, s]), dg)
+                hidden = dist_tgcn_cell(mesh, dg, params, x, norm, hidden, impl="kernel")
+                steps.append(torch.where(mask, (hidden - y) ** 2, 0.0).sum() / (n * STATIC_H))
+            total = total + torch.stack(steps).mean()
+        loss = total / data["xs"].shape[0]
+        loss.backward()
+        reduce_replicated_grads(mesh, params)
+        loss = staged_collective(torch.distributed.all_reduce, loss.detach().clone(), mesh.get_group("graph"))
+    else:
+        xs = shard_window_batch(mesh, data["xs"], dg)
+        ys = shard_window_batch(mesh, data["ys"], dg)
+        loss = dist_tgcn_batched_loss(mesh, dg, params, norm, xs, ys)
+        loss.backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = read_counts()
+    shard = dg.shard(mesh.get_local_rank("graph"), dev)
+    cells = (data["xs"].shape[0] if sequential else xs.shape[0]) * data["xs"].shape[1]
+    splits = (shard.interior_csr.num_edges > 0) + (shard.frontier_csr.num_edges > 0)
+    grads = {"/".join(k): v.grad.detach().cpu().numpy() for k, v in _named_leaves(params)}
+    return {"loss": loss.item(), "grads": grads, "counts": counts, "seconds": seconds,
+            "expected": only(K1_traced=3 * splits * cells, K1=3 * splits * cells)}
+
+
+def _named_leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _grads_err(got, ref):
+    """Each gradient's largest error over its largest element."""
+    return {k: float(np.abs(got[k] - v).max() / max(np.abs(v).max(), 1e-30)) for k, v in ref.items()}
+
+
+@timed_phase
+def phase_batched_tgcn(dev, args, workdir):
+    """``parallel.batch`` on a 1 x 1 mesh (NCCL): ``dist_tgcn_batched_loss``
+    over ``BATCH_WINDOWS`` windows of ``BATCH_STEPS`` timesteps of
+    WindmillOutput large at ``STATIC_F -> STATIC_H``, K1's shard mode
+    (exactly 3 K1_traced and 3 K1 a timestep of a window), its loss and
+    gradients against the same windows run one by one through
+    ``dist_tgcn_cell`` to ``DIST_TOL``."""
+    from stgraph_tpu_torch.parallel import make_mesh
+
+    data = batched_tgcn_data(workdir)
+    with world_of_one("nccl"):
+        mesh = make_mesh()
+        batched_tgcn_run(mesh, data, args.seed)  # warm
+        run = batched_tgcn_run(mesh, data, args.seed)
+        ref = batched_tgcn_run(mesh, data, args.seed, sequential=True)
+    loss, counts, seconds, ref_loss, ref_seconds = run["loss"], run["counts"], run["seconds"], ref["loss"], \
+        ref["seconds"]
+    check(counts == run["expected"] == only(K1_traced=3 * BATCH_WINDOWS * BATCH_STEPS,
+                                           K1=3 * BATCH_WINDOWS * BATCH_STEPS),
+          f"the batched TGCN launched {counts}, expected 3 K1_traced and 3 K1 a timestep")
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    grad_err = _grads_err(run["grads"], ref["grads"])
+    print(f"batched-tgcn: WindmillOutput large N={data['n']}, E={len(data['src'])}, {BATCH_WINDOWS} windows of "
+          f"{BATCH_STEPS} timesteps, F={STATIC_F} H={STATIC_H}, 1 x 1 mesh (NCCL): loss {loss:.6f} against the "
+          f"sequential windows' {ref_loss:.6f} (relative {loss_err:.2e}), gradients err/max worst "
+          f"{max(grad_err.values()):.2e} (tol {DIST_TOL:g}); forward and backward {seconds:.3f} s (sequential "
+          f"{ref_seconds:.3f} s); launches {counts}")
+    check(loss_err <= DIST_TOL and max(grad_err.values()) <= DIST_TOL,
+          f"the batched TGCN loss or gradients differ from the sequential windows': {loss_err}, {grad_err}")
+    return {"n": data["n"], "e": len(data["src"]), "windows": BATCH_WINDOWS, "timesteps": BATCH_STEPS,
+            "F": STATIC_F, "H": STATIC_H, "loss": loss, "loss_sequential": ref_loss, "loss_rel_diff": loss_err,
+            "grad_err_over_max": grad_err, "seconds": seconds, "sequential_seconds": ref_seconds,
+            "launches": counts}
+
+
 def dist_worker(rank, world, port, out_path, seed, backend):
     """One of ``phase_dist_halo_2rank``'s ranks on ``backend`` (gloo on the
     one card, or NCCL on a card each), ``train.py``'s
@@ -4630,10 +5125,23 @@ def dist_worker(rank, world, port, out_path, seed, backend):
             gat[impl] = [out.detach(), a.grad, b.grad, c.grad]
         gat_err = [(k - p).abs().max().item() for k, p in zip(gat["kernel"], gat["torch"])]
         gat_max = [p.abs().max().item() for p in gat["torch"]]
+        # parallel.dyn at DIST_DYN_SMALL, and parallel.batch on the
+        # (world x 1) and (1 x world) meshes
+        dyn = dist_dyn_run(mesh, *dist_dyn_small(seed), warm=True)
+        extra = {"dyn_out": dyn["out"].cpu().numpy(), "dyn_deg": dyn["deg"].cpu().numpy(),
+                 "dyn_grad": dyn["grad"].cpu().numpy(), "dyn_ne": dyn["ne"], "dyn_step_s": dyn["step_s"],
+                 "dyn_update_s": dyn["update_s"], "dyn_counts": json.dumps(dyn["counts"])}
+        bdata = batched_tgcn_data(os.path.dirname(out_path))
+        for data_n, graph_n in ((world, 1), (1, world)):
+            run = batched_tgcn_run(make_mesh(graph=graph_n, data=data_n), bdata, seed)
+            m = f"batch_{data_n}x{graph_n}"
+            extra.update({f"{m}_loss": run["loss"], f"{m}_s": run["seconds"], f"{m}_counts": json.dumps(run["counts"]),
+                          f"{m}_expected": json.dumps(run["expected"]),
+                          **{f"{m}_grad_{k}": v for k, v in run["grads"].items()}})
         np.savez(out_path, loss=loss, partition_s=partition_s, step_s=step_s, gat_err=gat_err, gat_max=gat_max,
                  interior_edges=shard.interior_csr.num_edges, frontier_edges=shard.frontier_csr.num_edges,
                  halo_total=dg.halo_total, rows_sent=step_rows, bytes_sent=step_bytes,
-                 counts=json.dumps(step_counts), **{f"grad_{k}": v.cpu().numpy() for k, v in grads.items()})
+                 counts=json.dumps(step_counts), **{f"grad_{k}": v.cpu().numpy() for k, v in grads.items()}, **extra)
     finally:
         launch.shutdown()
 
@@ -4653,12 +5161,17 @@ def phase_dist_halo_2rank(dev, args, workdir, n_ranks=DIST_RANKS):
 
     backend = "nccl" if torch.cuda.device_count() >= n_ranks else "gloo"
     data = dist_train_data(args.seed, **DIST_SMALL)
+    bdata = batched_tgcn_data(workdir)  # the ranks load the same cache
     with world_of_one("nccl"):
         mesh = make_mesh()
         dg1 = partition_edges(data[0], data[1], DIST_SMALL["nodes"], 1)
         ref_loss, ref_grads = dist_step_grads(mesh, dg1, dist_batch(mesh, dg1, data), dist_params(data[6], data[5], dev),
                                               "kernel")
         del dg1
+        dyn_ref = dist_dyn_run(mesh, *dist_dyn_small(args.seed), warm=True)
+        dyn_ref = {k: dyn_ref[k].cpu().numpy() if torch.is_tensor(dyn_ref[k]) else dyn_ref[k]
+                   for k in ("out", "deg", "grad", "ne", "step_s")}
+        batch_ref = batched_tgcn_run(mesh, bdata, args.seed, sequential=True)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -4709,6 +5222,7 @@ def phase_dist_halo_2rank(dev, args, workdir, n_ranks=DIST_RANKS):
     losses_agree = all(abs(float(rk["loss"]) - loss) <= 1e-7 * abs(loss) for rk in ranks)
     ok = rel <= DIST_LOSS_TOL and losses_agree and max(grad_err.values()) <= DIST_TOL and max(gat_err) <= DIST_TOL
     check(ok, "the two-rank step or GAT attention disagrees with its reference")
+    dyn, batch = dist_dyn_batch_vs_world_of_one(ranks, dyn_ref, batch_ref, n_ranks)
     for r, pr in enumerate(per_rank):
         splits = (pr["interior_edges"] > 0) + (pr["frontier_edges"] > 0)
         want = only(K1_traced=3 * splits, K1=3 * splits)  # each non-empty split forward and on its transpose
@@ -4717,7 +5231,58 @@ def phase_dist_halo_2rank(dev, args, workdir, n_ranks=DIST_RANKS):
               f"rank {r} sent {pr['rows_sent']} halo rows in a step, expected 6 x {int(ranks[r]['halo_total'])}")
     return {"n_ranks": n_ranks, "backend": backend, "wall_s": wall_s, "loss": loss, "loss_world_of_one": ref_loss,
             "loss_rel_diff": rel,
-            "grad_err_over_max": grad_err, "gat_err_over_max": gat_err, "ranks": per_rank}
+            "grad_err_over_max": grad_err, "gat_err_over_max": gat_err, "ranks": per_rank, "dist_dyn": dyn,
+            "batched_tgcn": batch}
+
+
+def dist_dyn_batch_vs_world_of_one(ranks, dyn_ref, batch_ref, n_ranks):
+    """The rank phase's ``parallel.dyn`` run (``DIST_DYN_SMALL``) against the
+    same run at world size 1 (the ranks' outputs and gradients stacked, to
+    ``DIST_TOL`` of each tensor's largest element; degrees and live counts
+    exact; one K6 and one K7 a step on each rank), and its ``parallel.batch``
+    runs on the (ranks x 1) and (1 x ranks) meshes against the sequential
+    windows at world size 1 (loss and gradients to ``DIST_TOL``, the same on
+    every rank; 3 K1_traced and 3 K1 a timestep of a window and split)."""
+    nodes, steps = DIST_DYN_SMALL["nodes"], DIST_DYN_SMALL["steps"]
+    out = np.concatenate([rk["dyn_out"] for rk in ranks])[:nodes]
+    grad = np.concatenate([rk["dyn_grad"] for rk in ranks])[:nodes]
+    deg = np.concatenate([rk["dyn_deg"] for rk in ranks])[:nodes]
+    out_err = float(np.abs(out - dyn_ref["out"]).max() / max(np.abs(dyn_ref["out"]).max(), 1e-30))
+    grad_err = float(np.abs(grad - dyn_ref["grad"]).max() / max(np.abs(dyn_ref["grad"]).max(), 1e-30))
+    ne = sum(int(rk["dyn_ne"]) for rk in ranks)
+    dyn_counts = [json.loads(str(rk["dyn_counts"])) for rk in ranks]
+    print(f"  dist-dyn at {nodes} nodes, {steps} steps: {n_ranks} ranks against world size 1: output err/max "
+          f"{out_err:.2e}, gradient err/max {grad_err:.2e} (tol {DIST_TOL:g}), degrees equal "
+          f"{np.array_equal(deg, dyn_ref['deg'])}, live edges {ne} vs {dyn_ref['ne']}; a step "
+          f"{[round(float(rk['dyn_step_s']) * 1e3, 3) for rk in ranks]} ms on the ranks, "
+          f"{dyn_ref['step_s'] * 1e3:.3f} ms at world size 1; launches {dyn_counts}")
+    check(out_err <= DIST_TOL and grad_err <= DIST_TOL and np.array_equal(deg, dyn_ref["deg"]) and ne == dyn_ref["ne"],
+          "the ranks' dist-dyn run disagrees with world size 1")
+    check(all(c == only(K6=steps, K7=steps) for c in dyn_counts), f"the ranks' dist-dyn launches {dyn_counts}")
+    batch = {}
+    for m in (f"{n_ranks}x1", f"1x{n_ranks}"):
+        losses = [float(rk[f"batch_{m}_loss"]) for rk in ranks]
+        loss_err = max(abs(v - batch_ref["loss"]) / abs(batch_ref["loss"]) for v in losses)
+        g_err = {}
+        for rk in ranks:
+            got = {k: rk[f"batch_{m}_grad_{k}"] for k in batch_ref["grads"]}
+            for k, v in _grads_err(got, batch_ref["grads"]).items():
+                g_err[k] = max(g_err.get(k, 0.0), v)
+        counts = [json.loads(str(rk[f"batch_{m}_counts"])) for rk in ranks]
+        expected = [json.loads(str(rk[f"batch_{m}_expected"])) for rk in ranks]
+        seconds = [float(rk[f"batch_{m}_s"]) for rk in ranks]
+        print(f"  batched-tgcn {m} mesh: loss {losses} against the sequential windows' {batch_ref['loss']:.6f} "
+              f"(relative {loss_err:.2e}), gradients err/max worst {max(g_err.values()):.2e} (tol {DIST_TOL:g}); "
+              f"forward and backward {[round(v, 3) for v in seconds]} s; launches {counts}")
+        check(loss_err <= DIST_TOL and max(g_err.values()) <= DIST_TOL,
+              f"the batched TGCN on the {m} mesh disagrees with the sequential windows")
+        check(counts == expected and all(c["K1_traced"] > 0 for c in counts),
+              f"the batched TGCN on the {m} mesh launched {counts}, expected {expected}")
+        batch[m] = {"losses": losses, "loss_rel_diff": loss_err, "grad_err_over_max": g_err, "seconds": seconds,
+                    "launches": counts}
+    return ({"out_err_over_max": out_err, "grad_err_over_max": grad_err, "live_edges": ne,
+             "step_s": [float(rk["dyn_step_s"]) for rk in ranks], "update_s": [float(rk["dyn_update_s"]) for rk in ranks],
+             "step_s_world_of_one": dyn_ref["step_s"], "launches": dyn_counts}, batch)
 
 
 def kernel_entry(name, source, replaces, key, by_path, max_abs_err, per_launch, library=None, paths=None,
@@ -4877,6 +5442,7 @@ def main() -> int:
         record["dyn_step"] = dyn["record"]
         rowid_launch, rowid_err = phase_rowid_at_main_shapes(dyn)
         record["rowid_main"] = rowid_launch
+        dyn_stream_data = dyn["stream"]  # the dist-dyn phase's workload
         del dyn
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(dir=build_root) as workdir:
@@ -4893,6 +5459,12 @@ def main() -> int:
             torch.cuda.empty_cache()
             record["dynamic_temporal"] = {name: phase_dynamic_temporal(dev, args, workdir, name)
                                           for name in DTDG_DATASETS}
+            # The PMA store, distributed dynamic graphs and 2-D window batches
+            record["pma_scan"] = {name: phase_pma_scan(dev, args, workdir, name) for name in DTDG_DATASETS}
+            record["dist_dyn"] = phase_dist_dyn(dev, args, dyn_stream_data)
+            del dyn_stream_data
+            torch.cuda.empty_cache()
+            record["batched_tgcn"] = phase_batched_tgcn(dev, args, workdir)
             record["dist_halo_2rank"] = phase_dist_halo_2rank(dev, args, workdir)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -4910,10 +5482,13 @@ def main() -> int:
     by_path.update({f"static-temporal:{name}": r["launches"] for name, r in record["static_temporal"].items()})
     by_path.update({f"dynamic-temporal:{name}:{kind}": r["launches"]
                     for name, rec in record["dynamic_temporal"].items() for kind, r in rec["runs"].items()})
+    by_path.update({f"pma-scan:{name}": r["launches"] for name, r in record["pma_scan"].items()})
+    by_path["dist-dyn"] = record["dist_dyn"]["launches"]
+    by_path["batched-tgcn"] = record["batched_tgcn"]["launches"]
     temporal = record["static_temporal_checks"]["per_launch"]
     wiki_temporal = record["dynamic_temporal"]["wiki-shape"]["per_launch"]
     rowmask_paths = ("pubmed-rowmask", "rowmask-ppi")
-    dist_paths = ("dist-gcn-training",)
+    dist_paths = ("dist-gcn-training", "batched-tgcn")
     one_head_paths = tuple(path for path in by_path if path not in rowmask_paths + dist_paths)
     dropout_paths = ("gat-dropout-training",)
     undropped_paths = tuple(path for path in by_path if path not in dropout_paths)
@@ -4985,16 +5560,22 @@ def main() -> int:
         kernel_entry("spmm_rowid (K6)", "stgraph_tpu_torch/csrc/spmm_rowid.cu",
                      "stgraph_tpu/ops/segment_pallas.py:1673", "K6", by_path,
                      max(record["rowid_checks"]["max_abs_err"]["K6"], rowid_err["K6"],
-                         *(r["kernel_max_abs_err"]["K6"] for r in record["dtdg_training"].values())),
+                         *(r["kernel_max_abs_err"]["K6"] for r in record["dtdg_training"].values()),
+                         *(k["max_abs_err"] for r in record["pma_scan"].values()
+                           for name, k in r["kernels"].items() if name.startswith("K6")),
+                         record["dist_dyn"]["out_max_abs_err"]),
                      rowid_launch["K6"],
                      "torch.sparse.mm on a CSR built from the store (the build timed apart)",
-                     kernels_per_call=2, kernels_of_a_call=["rowid_chunk_plan_kernel", "spmm_rowid_kernel"]),
+                     kernels_per_call=2, kernels_of_a_call=["rowid_chunk_plan_kernel", "spmm_rowid_kernel"],
+                     by_shape={f"pma-scan:{name}:{side}": r["kernels"][f"K6_{side}"]
+                               for name, r in record["pma_scan"].items() for side in ("fwd", "bwd")}),
         kernel_entry("rowid_denom (K7)", "stgraph_tpu_torch/csrc/rowid_denom.cu",
                      "stgraph_tpu/ops/dyn_spmm.py:382", "K7", by_path,
                      max(record["rowid_checks"]["max_abs_err"]["K7"], rowid_err["K7"]), rowid_launch["K7"],
                      "torch.bincount(rows, weights, minlength=n + 1)",
                      by_shape={**{name: r["k7"] for name, r in record["dtdg_training"].items()},
-                               "dyn-step": rowid_launch["K7"][0]}),
+                               "dyn-step": rowid_launch["K7"][0],
+                               **{f"pma-scan:{name}": r["kernels"]["K7"] for name, r in record["pma_scan"].items()}}),
         kernel_entry("flash_gat_fwd (K8)", "stgraph_tpu_torch/csrc/flash_gat_fwd.cu",
                      "stgraph_tpu/ops/flash_gat.py:191", "K8", by_path,
                      max(record["gat_checks"]["max_abs_err"]["K8"], gat_err["K8"]), gat_launch["K8"],
@@ -5011,12 +5592,14 @@ def main() -> int:
                      "stgraph_tpu_torch/csrc/flash_gat_bwd.cu", "stgraph_tpu/ops/flash_gat.py:365", "K9_dropout",
                      by_path, max(record["gat_checks"]["max_abs_err"]["K9_dropout"], gat_err["K9_dropout"]),
                      gat_launch["K9_dropout"], paths=dropout_paths),
-        kernel_entry("spmm_rowmask_traced (K1's shard mode: H=1, F=64, 64, 47, f32 stream)",
+        kernel_entry("spmm_rowmask_traced (K1's shard mode: H=1, F=64, 64, 47, f32 stream; and 160 in the "
+                     "batched TGCN)",
                      "stgraph_tpu_torch/csrc/spmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:1136", "K1_traced",
                      by_path, max(record["dist_k1_traced_checks"]["max_abs_err"]["K1_traced"],
                                   *(p["max_abs_err"] for p in dist_main["K1_traced"])),
                      dist_main["K1_traced"], "torch.sparse.mm on the shard CSR", paths=dist_paths),
-        kernel_entry("spmm_rowmask (K1 on the shard transposes: H=1, F=64, 64, 47, f32 stream)",
+        kernel_entry("spmm_rowmask (K1 on the shard transposes: H=1, F=64, 64, 47, f32 stream; and 160 in the "
+                     "batched TGCN)",
                      "stgraph_tpu_torch/csrc/spmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:761", "K1", by_path,
                      max(p["max_abs_err"] for p in dist_main["K1"]), dist_main["K1"],
                      "torch.sparse.mm on the transpose CSR", paths=dist_paths),

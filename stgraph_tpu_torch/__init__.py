@@ -9,14 +9,18 @@ Pallas TPU kernel on its path with a kernel written by hand for Hopper
 CUDA unless the caller asks for the CPU.
 
 Ported: the graph core (CSR, ``StaticGraph``, the blocked layouts, the
-locality reorder) and the naive, delta and lazy dynamic stores; the segment,
+locality reorder) and the naive, delta, lazy and PMA dynamic stores; the segment,
 message, attention and dynamic SpMM ops with every Pallas kernel of the JAX
 package as a CUDA kernel (K1-K10, K1's shard mode); the vertex compiler;
 ``GCNConv``, ``GATConv`` (flash, rowmask and blocked routes, attention
 dropout) and ``TGCN``; ``Predictor``, checkpoints and the training helpers;
 the datasets (Cora, Pubmed, OGB, England-COVID and the six static-temporal
 loaders); ``DataTable``; the distribution layer (``parallel``: partition,
-halo exchange, mesh, layers, launch); and the temporal drivers
+halo exchange, mesh, layers, launch, distributed dynamic graphs
+``DistDynGraph``, ``partition_dynamic``, ``shard_dyn_arrays``,
+``dist_dyn_apply_delta``, ``dist_dyn_spmm``, ``dist_dyn_degree``, and 2-D
+window batches ``shard_window_batch``, ``dist_tgcn_batched_loss``); and the
+temporal drivers
 (``drivers.static_temporal_tgcn``, ``drivers.dynamic_temporal_tgcn``).
 """
 

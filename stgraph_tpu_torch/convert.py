@@ -40,7 +40,8 @@ does), as f32 tensors on ``device``.
 ``lazy_pair_from_jax`` carries a JAX ``LazyPair`` (its two ``LazyStore``s,
 leaves as numpy: ``jax.tree_util.tree_map(np.asarray, pair)``) into the
 port's ``LazyPair`` on ``device``, so that both packages start from the same
-dynamic-graph state.
+dynamic-graph state; ``pma_pair_from_jax`` does the same for a
+``PMAGraphPair`` (its two ``PMAStore``s).
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ import torch
 
 from stgraph_tpu_torch.graph.delta_graph import pack_keys
 from stgraph_tpu_torch.graph.lazy_store import LazyStore
-from stgraph_tpu_torch.ops.dyn_spmm import LazyPair
+from stgraph_tpu_torch.graph.pma_store import PMAStore
+from stgraph_tpu_torch.ops.dyn_spmm import LazyPair, PMAGraphPair
 from stgraph_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -64,6 +66,7 @@ __all__ = [
     "gcn_params_from_jax",
     "lazy_pair_from_jax",
     "linear_params_from_jax",
+    "pma_pair_from_jax",
     "tgcn_params_from_jax",
 ]
 
@@ -191,3 +194,19 @@ def lazy_pair_from_jax(pair, device=None):
     ``device`` (default ``cuda``)."""
     dev = resolve_device(device)
     return LazyPair(fwd=_lazy_store_from_jax(pair.fwd, dev), bwd=_lazy_store_from_jax(pair.bwd, dev))
+
+
+def _pma_store_from_jax(store, device):
+    def t(x, dtype):
+        return torch.from_numpy(np.array(x, dtype)).to(device)
+
+    return PMAStore(rows=t(store.rows, np.int32), cols=t(store.cols, np.int32), counts=t(store.counts, np.int32),
+                    num_edges=t(store.num_edges, np.int32), num_nodes=int(store.num_nodes),
+                    weights=None if store.weights is None else t(store.weights, np.float32))
+
+
+def pma_pair_from_jax(pair, device=None):
+    """A JAX ``PMAGraphPair`` (numpy leaves) as the port's ``PMAGraphPair``
+    on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return PMAGraphPair(fwd=_pma_store_from_jax(pair.fwd, dev), bwd=_pma_store_from_jax(pair.bwd, dev))

@@ -52,6 +52,13 @@
 //   - the gather happens inside the kernel (the TPU kernel needed an XLA
 //     pre-gather into a (cap, F) plane).
 //
+// A live slot (row id below n, tombstones included) must name a row of the
+// table: m, the table's row count, bounds its column, and a column outside
+// [0, m) fails the launch by a device-side assert (one compare a slot, no
+// host sync) before any read of it, as PyTorch's own gathers do. n bounds no
+// read: the table may have more rows than the output (a shard's rows over
+// the all-gathered table).
+//
 // The stream is f32 throughout (lazy_spmm casts its input to f32), the sums
 // are f32; only their order differs from the plain version's. A row shared
 // between chunks takes its chunks' partial sums in the atomics' order.
@@ -63,6 +70,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cassert>
 #include <climits>
 #include <cstdint>
 
@@ -122,8 +130,8 @@ spmm_rowid_kernel(const int32_t* __restrict__ rows,
                   const int32_t* __restrict__ first,
                   const int32_t* __restrict__ last,
                   const uint32_t* __restrict__ present,
-                  float* __restrict__ out, int64_t cap, int n, int f,
-                  int chunk, int chunk_blocks) {
+                  float* __restrict__ out, int64_t cap, int n, int m,
+                  int f, int chunk, int chunk_blocks) {
   constexpr int kUnroll = kGroup < 8 ? kGroup : 8;
   constexpr int kCols = 4 * kGroup;  // columns a group covers per pass
   constexpr int kGroupsPerBlock = kWarpsPerBlock * (32 / kGroup);
@@ -197,6 +205,8 @@ spmm_rowid_kernel(const int32_t* __restrict__ rows,
       my_row = rows[e];
       my_w = kWeighted ? w[e] : 1.f;
       my_col = cols[e];
+      // a live slot's column must be a row of the (m, f) table
+      assert(my_row >= n || static_cast<unsigned>(my_col) < static_cast<unsigned>(m));
     }
     const int cnt = static_cast<int>(end - base < kGroup ? end - base : kGroup);
     for (int j0 = 0; j0 < cnt; j0 += kUnroll) {
@@ -251,7 +261,7 @@ template <int kGroup, bool kWeighted>
 void launch_group(const int32_t* rows, const int32_t* cols, const float* w,
                   const float* feats, const int32_t* first, const int32_t* last,
                   const uint32_t* present, float* out, int64_t cap, int n,
-                  int f, int chunk, cudaStream_t stream) {
+                  int m, int f, int chunk, cudaStream_t stream) {
   constexpr int kGroupsPerBlock = kWarpsPerBlock * (32 / kGroup);
   const int64_t groups = (cap + chunk - 1) / chunk;
   const int chunk_blocks = static_cast<int>((groups + kGroupsPerBlock - 1) / kGroupsPerBlock);
@@ -264,31 +274,31 @@ void launch_group(const int32_t* rows, const int32_t* cols, const float* w,
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (vec) {
     spmm_rowid_kernel<kGroup, true, kWeighted><<<grid, block, 0, stream>>>(
-        rows, cols, w, feats, first, last, present, out, cap, n, f, chunk, chunk_blocks);
+        rows, cols, w, feats, first, last, present, out, cap, n, m, f, chunk, chunk_blocks);
   } else {
     spmm_rowid_kernel<kGroup, false, kWeighted><<<grid, block, 0, stream>>>(
-        rows, cols, w, feats, first, last, present, out, cap, n, f, chunk, chunk_blocks);
+        rows, cols, w, feats, first, last, present, out, cap, n, m, f, chunk, chunk_blocks);
   }
 }
 
 template <bool kWeighted>
 void launch(const int32_t* rows, const int32_t* cols, const float* w,
             const float* feats, const int32_t* first, const int32_t* last,
-            const uint32_t* present, float* out, int64_t cap, int n, int f,
-            int chunk, cudaStream_t stream) {
+            const uint32_t* present, float* out, int64_t cap, int n, int m,
+            int f, int chunk, cudaStream_t stream) {
   const int lanes = (f + 3) / 4;
   if (lanes <= 1) {
-    launch_group<1, kWeighted>(rows, cols, w, feats, first, last, present, out, cap, n, f, chunk, stream);
+    launch_group<1, kWeighted>(rows, cols, w, feats, first, last, present, out, cap, n, m, f, chunk, stream);
   } else if (lanes <= 2) {
-    launch_group<2, kWeighted>(rows, cols, w, feats, first, last, present, out, cap, n, f, chunk, stream);
+    launch_group<2, kWeighted>(rows, cols, w, feats, first, last, present, out, cap, n, m, f, chunk, stream);
   } else if (lanes <= 4) {
-    launch_group<4, kWeighted>(rows, cols, w, feats, first, last, present, out, cap, n, f, chunk, stream);
+    launch_group<4, kWeighted>(rows, cols, w, feats, first, last, present, out, cap, n, m, f, chunk, stream);
   } else if (lanes <= 8) {
-    launch_group<8, kWeighted>(rows, cols, w, feats, first, last, present, out, cap, n, f, chunk, stream);
+    launch_group<8, kWeighted>(rows, cols, w, feats, first, last, present, out, cap, n, m, f, chunk, stream);
   } else if (lanes <= 16) {
-    launch_group<16, kWeighted>(rows, cols, w, feats, first, last, present, out, cap, n, f, chunk, stream);
+    launch_group<16, kWeighted>(rows, cols, w, feats, first, last, present, out, cap, n, m, f, chunk, stream);
   } else {
-    launch_group<32, kWeighted>(rows, cols, w, feats, first, last, present, out, cap, n, f, chunk, stream);
+    launch_group<32, kWeighted>(rows, cols, w, feats, first, last, present, out, cap, n, m, f, chunk, stream);
   }
 }
 
@@ -316,14 +326,16 @@ extern "C" int stg_rowid_chunk_plan(const void* rows, int64_t cap, int n,
 
 // Launch 2 of K6 on `stream`; returns cudaGetLastError() (0 on success).
 // `rows`, `cols` are (cap,) int32, `w` (cap,) f32 or null (every slot with a
-// row id below n counts 1), `feats` (n, f) f32 contiguous, `out` (n, f) f32
-// after launch 1 on it; `first`, `last` and `present` launch 1's plan; each
+// row id below n counts 1), `feats` (m, f) f32 contiguous with a row for every
+// column a live slot reads (a live column outside [0, m) fails the launch by
+// a device-side assert; n bounds no read of it: m may exceed n), `out`
+// (n, f) f32 after launch 1 on it; `first`, `last` and `present` launch 1's plan; each
 // group of lanes takes `chunk` slots.
 extern "C" int stg_spmm_rowid(const void* rows, const void* cols, const void* w,
                               const void* feats, const void* first,
                               const void* last, const void* present,
-                              void* out, int64_t cap, int n, int f, int chunk,
-                              void* stream) {
+                              void* out, int64_t cap, int n, int m, int f,
+                              int chunk, void* stream) {
   const auto* r = static_cast<const int32_t*>(rows);
   const auto* c = static_cast<const int32_t*>(cols);
   const auto* wt = static_cast<const float*>(w);
@@ -334,9 +346,9 @@ extern "C" int stg_spmm_rowid(const void* rows, const void* cols, const void* w,
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (wt != nullptr) {
-    launch<true>(r, c, wt, x, fi, la, pr, o, cap, n, f, chunk, s);
+    launch<true>(r, c, wt, x, fi, la, pr, o, cap, n, m, f, chunk, s);
   } else {
-    launch<false>(r, c, wt, x, fi, la, pr, o, cap, n, f, chunk, s);
+    launch<false>(r, c, wt, x, fi, la, pr, o, cap, n, m, f, chunk, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,12 @@ switch ``--type``:
     batches wide, ``apply_delta_lazy_pair`` inside the loop; ``GCNConv``
     aggregates from the pair (K6, K7) and the positive edges are the fwd
     store's main and tail slots;
-  * ``pma-scan`` is not ported yet (``ROADMAP.md`` section 1, item 3).
+  * ``pma-scan``: the PMA store pair (chunks of ``PMA_CHUNK`` slots, twice
+    the capacity's chunks) built from the same snapshot's live slots, one
+    ``apply_delta_pair`` a timestep over the staged deltas as they are;
+    ``GCNConv`` aggregates from the pair (K6, K7) and the positive edges are
+    the fwd store's flat view, sentinels masked. Each update reads one flag
+    a store on the host (``graph/pma_store.py``).
 
 Where JAX scans the epoch inside one jitted step, the port runs a Python
 loop over the timesteps. The negatives come from an explicit
@@ -45,13 +50,19 @@ import torch.nn.functional as F
 from stgraph_tpu_torch.graph import DeltaGraph, NaiveGraph
 from stgraph_tpu_torch.graph.delta_graph import EdgeStore, apply_delta, edge_store_to_csr
 from stgraph_tpu_torch.nn import TGCN
-from stgraph_tpu_torch.ops.dyn_spmm import apply_delta_lazy_pair, lazy_pair_from_edges
+from stgraph_tpu_torch.ops.dyn_spmm import (
+    apply_delta_lazy_pair,
+    apply_delta_pair,
+    lazy_pair_from_edges,
+    pma_pair_from_edges,
+)
 from stgraph_tpu_torch.utils import DataTable
 from stgraph_tpu_torch.utils.device import resolve_device
 
 __all__ = ["DynamicTemporalTrainer", "GRAPH_TYPES", "link_loss", "load_dataset", "run"]
 
 GRAPH_TYPES = ("naive", "delta", "delta-scan", "pma-scan", "lazy-scan")
+PMA_CHUNK = 256  # train.py's S
 
 
 class _SyntheticDTDG:
@@ -145,9 +156,6 @@ class DynamicTemporalTrainer:
                  graph_type: str = "naive", lags: int = 8, hidden: int = 32, lr: float = 1e-2, device=None,
                  seed: int = 0, negatives: Optional[Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]] = None
                  ) -> None:
-        if graph_type == "pma-scan":
-            raise NotImplementedError("--type pma-scan needs the PMA store, not ported yet (ROADMAP.md, "
-                                      "section 1, item 3)")
         if graph_type not in GRAPH_TYPES:
             raise ValueError(f"unknown graph type {graph_type!r}; one of {GRAPH_TYPES}")
         dev = resolve_device(device)
@@ -160,7 +168,7 @@ class DynamicTemporalTrainer:
         n = self.num_nodes = self.store.get_num_nodes()
         self.steps = len(feats)
         self.xs = torch.from_numpy(np.ascontiguousarray(np.stack(feats), np.float32)).to(dev)
-        if graph_type in ("delta-scan", "lazy-scan"):
+        if graph_type in ("delta-scan", "lazy-scan", "pma-scan"):
             self._stage_deltas()
         gen = torch.Generator().manual_seed(seed)
         self.model = TGCN(lags, hidden, device="cpu", generator=gen).to(dev)
@@ -181,6 +189,11 @@ class DynamicTemporalTrainer:
 
             self.init_store = EdgeStore(t(init.rows, np.int32), t(init.cols, np.int32), t(init.num_edges, np.int64),
                                         n, None if init.weights is None else t(init.weights, np.float32))
+        elif self.graph_type == "pma-scan":
+            live = init.rows < n
+            self.pair0 = pma_pair_from_edges(
+                init.cols[live], init.rows[live], n, num_chunks=max(-(-g._capacity // PMA_CHUNK) * 2, 2),
+                chunk_size=PMA_CHUNK, weights=None if init.weights is None else init.weights[live], device=self.device)
         else:
             # the window's largest real batch (one read at set-up, as the
             # script does): the staged batches are padded to the largest of
@@ -203,6 +216,8 @@ class DynamicTemporalTrainer:
         aw = None if self.add_w is None else self.add_w[t]
         if self.graph_type == "lazy-scan":
             return apply_delta_lazy_pair(graph, a[:, 0], a[:, 1], d[:, 0], d[:, 1], add_weights=aw)
+        if self.graph_type == "pma-scan":
+            return apply_delta_pair(graph, a[:, 0], a[:, 1], d[:, 0], d[:, 1], add_weights=aw)
         return apply_delta(graph, a[:, 1], a[:, 0], d[:, 1], d[:, 0], add_weights=aw)  # row = dst
 
     def timesteps(self):
@@ -221,6 +236,12 @@ class DynamicTemporalTrainer:
                 csr = edge_store_to_csr(store, self.device)
                 w = store.weights.reshape(-1, 1) if self.weighted else None
                 yield csr, w, csr.rows_clamped, csr.cols_clamped, csr.edge_mask
+        elif self.graph_type == "pma-scan":
+            pair, n = self.pair0, self.num_nodes
+            for t in range(self.steps):
+                pair = self.update(pair, t)
+                rows, cols, _ = pair.fwd.flatten()
+                yield pair, None, rows.clamp(max=n - 1), cols.clamp(max=n - 1), rows < n
         else:
             pair, n = self.pair0, self.num_nodes
             for t in range(self.steps):

@@ -2,8 +2,7 @@
 
 Counterpart of ``stgraph_tpu/graph/``: the CSR core and its blocked layout,
 the static graph, the dynamic graphs (naive snapshots, the delta store,
-the lazy store) and the gather-locality reorder; the PMA store is a later
-slice.
+the lazy store, the PMA store) and the gather-locality reorder.
 """
 
 from stgraph_tpu_torch.graph.blocked import BlockedCSR, blocked_layout, build_blocked
@@ -12,6 +11,7 @@ from stgraph_tpu_torch.graph.delta_graph import DeltaGraph, EdgeStore, apply_del
 from stgraph_tpu_torch.graph.dynamic_graph import DynamicGraph, preprocess_deltas
 from stgraph_tpu_torch.graph.lazy_store import LazyStore, apply_delta_lazy, compact, lazy_from_edges
 from stgraph_tpu_torch.graph.naive_graph import NaiveGraph
+from stgraph_tpu_torch.graph.pma_store import PMAStore, apply_delta_pma, pma_from_edges, pma_init
 from stgraph_tpu_torch.graph.reorder import locality_order, relabel_edges
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
 
@@ -23,9 +23,11 @@ __all__ = [
     "EdgeStore",
     "LazyStore",
     "NaiveGraph",
+    "PMAStore",
     "StaticGraph",
     "apply_delta",
     "apply_delta_lazy",
+    "apply_delta_pma",
     "blocked_layout",
     "build_blocked",
     "build_csr",
@@ -34,6 +36,8 @@ __all__ = [
     "lazy_from_edges",
     "locality_order",
     "pad_edges",
+    "pma_from_edges",
+    "pma_init",
     "preprocess_deltas",
     "relabel_edges",
     "round_up",

@@ -3,7 +3,7 @@
 Counterpart of ``stgraph_tpu/ops/``: plain torch paths (the port's oracle),
 the dense-adjacency path, GAT's attention (``attention``, ``flash_gat``,
 and the blocked multi-head SpMM ``spmm_blocked``),
-the lazy dynamic store's SpMM and norm (``dyn_spmm``), and the hand-written
+the dynamic store pairs' SpMM and norm (``dyn_spmm``: PMA and lazy), and the hand-written
 CUDA kernels behind one functional API. Kernels are
 built and loaded only when a CUDA tensor first reaches them, never at
 import.
@@ -17,10 +17,15 @@ from stgraph_tpu_torch.ops.attention import (
 )
 from stgraph_tpu_torch.ops.dyn_spmm import (
     LazyPair,
+    PMAGraphPair,
     apply_delta_lazy_pair,
+    apply_delta_pair,
     lazy_norm,
     lazy_pair_from_edges,
     lazy_spmm,
+    pma_norm,
+    pma_pair_from_edges,
+    pma_spmm,
 )
 from stgraph_tpu_torch.ops.flash_gat import (
     flash_gat_attention,
@@ -77,11 +82,13 @@ from stgraph_tpu_torch.ops.spmm_kernels import (
 __all__ = [
     "ComposedGat",
     "LazyPair",
+    "PMAGraphPair",
     "SegmentMaxNarrow",
     "SegmentSumNarrow",
     "SpmmMultihead",
     "aggregate",
     "apply_delta_lazy_pair",
+    "apply_delta_pair",
     "broadcast_to_edges",
     "csr_to_dense",
     "dense_gat_attention",
@@ -100,6 +107,9 @@ __all__ = [
     "lazy_norm",
     "lazy_pair_from_edges",
     "lazy_spmm",
+    "pma_norm",
+    "pma_pair_from_edges",
+    "pma_spmm",
     "sddmm",
     "segment_max",
     "segment_max_narrow",

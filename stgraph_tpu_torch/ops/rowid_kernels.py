@@ -69,7 +69,7 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _K6_SIGNATURES = {
     "stg_rowid_chunk_plan": [_VP, _I64, _I, _I, _VP, _VP, _VP, _VP, _I, _VP],
-    "stg_spmm_rowid": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I, _I, _I, _VP],
+    "stg_spmm_rowid": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I, _I, _I, _I, _VP],
 }
 _K7_SIGNATURES = {"stg_rowid_denom": [_VP, _VP, _VP, _VP, _VP, _I64, _I, _I, _I, _VP]}
 _K7_EPOCHS = 2**30  # the kernel's status words hold 2 epoch + 1 in an int32
@@ -112,7 +112,7 @@ def spmm_rowid_plain(
     for e0 in range(0, cap, block):
         r = rows[e0:e0 + block].long()
         live = r < n
-        x = feats[cols[e0:e0 + block].long().clamp(max=max(n - 1, 0))].to(torch.float32)
+        x = feats[cols[e0:e0 + block].long().clamp(max=max(feats.shape[0] - 1, 0))].to(torch.float32)
         if w is not None:
             x = x * w[e0:e0 + block].to(torch.float32)[:, None]
         x = torch.where(live[:, None], x, 0.0)
@@ -163,9 +163,19 @@ def spmm_rowid_with_plan(
 
 
 def _check_rowid_call(rows, cols, w, feats, num_nodes) -> None:
+    """The table may have more rows than the output (a shard's all-gathered
+    table): it needs one for every column a live slot reads. On the CPU that
+    is checked here; on the card the kernel checks each live column against
+    the table's rows and fails the launch by a device-side assert, which
+    costs no host sync."""
     _check_store(rows, w, num_nodes, ("cols", cols))
-    if feats.dim() != 2 or feats.shape[0] != num_nodes:
-        raise ValueError(f"feats must be (num_nodes={num_nodes}, F), got {tuple(feats.shape)}")
+    if feats.dim() != 2:
+        raise ValueError(f"feats must be a (rows, F) table, got {tuple(feats.shape)}")
+    if feats.device.type == "cpu":
+        live = cols[rows < num_nodes]
+        if live.numel() and not 0 <= int(live.min()) <= int(live.max()) < feats.shape[0]:
+            raise ValueError(f"a live slot reads column {int(live.min())} or {int(live.max())} of a table of "
+                             f"{feats.shape[0]} rows")
 
 
 def _spmm_rowid_cuda(rows, cols, w, feats, num_nodes):
@@ -178,7 +188,10 @@ def _spmm_rowid_cuda(rows, cols, w, feats, num_nodes):
         raise ValueError(f"K6 takes int32 rows and cols, got {rows.dtype} and {cols.dtype}")
     if feats.dtype != torch.float32 or (w is not None and w.dtype != torch.float32):
         raise ValueError("K6 streams f32 features and weights")
-    n, f = feats.shape
+    # n sizes the output and the plan and marks the sentinel; m, the table's
+    # rows, bounds the live slots' columns (csrc/spmm_rowid.cu), so the table
+    # may have more rows than the output
+    n, m, f = num_nodes, min(feats.shape[0], 2**31 - 1), feats.shape[1]
     rows, cols, table = rows.contiguous(), cols.contiguous(), feats.contiguous()
     w = None if w is None else w.contiguous()
     cap = rows.numel()
@@ -205,6 +218,7 @@ def _spmm_rowid_cuda(rows, cols, w, feats, num_nodes):
         out.data_ptr(),
         cap,
         n,
+        m,
         f,
         EDGE_CHUNK,
         stream,
@@ -226,7 +240,11 @@ def spmm_rowid(
     (num_nodes, F) f32, over a live-sorted flat store.
 
     ``rows`` and ``cols`` are (capacity,) int32, ``w`` (capacity,) f32 or
-    None (every real slot counts 1), ``feats`` (num_nodes, F) f32. One call
+    None (every real slot counts 1), ``feats`` (M, F) f32 with a row for
+    every column a live slot reads (M may exceed ``num_nodes``: a shard's
+    rows over the all-gathered table, ``parallel.dyn``); a live column
+    outside ``[0, M)`` raises ``ValueError`` on the CPU and fails the
+    launch by a device-side assert on the card. One call
     is two launches (the chunk plan, then the sums) and counts one on
     ``spmm_rowid.launches``.
     """

@@ -9,7 +9,14 @@ this rank's shard, on the CPU: ``dist_spmm`` (both routes, overlap on and
 off, unweighted, weighted, two heads), ``dist_gat_attention``, the three
 layers and the distributed GCN training step of
 ``benchmarking/dist/train.py`` (loss, gradients after
-``reduce_replicated_grads`` and the parameters after one Adam step). Writes
+``reduce_replicated_grads`` and the parameters after one Adam step); then
+the distributed dynamic graph (``partition_dynamic`` of WORLD shards, a
+replay of the staged deltas with ``dist_dyn_apply_delta``, and at each step
+``dist_dyn_spmm`` and ``dist_dyn_degree``, with the features' gradient of
+the steps' summed products), unweighted and weighted; and the batched TGCN
+loss of ``parallel.batch`` with its gradients on the 2-D meshes of WORLD
+ranks (1 x 2 and 2 x 1 for two ranks, 2 x 2 for four), and its
+``ValueError``s for a batch that does not divide. Writes
 ``OUT_DIR/rank{RANK}.npz``: node arrays as this rank's Ns rows, parameter
 gradients whole.
 """
@@ -27,19 +34,27 @@ from stgraph_tpu_torch.convert import (  # noqa: E402
     dist_gcn_params_from_jax,
     dist_tgcn_params_from_jax,
 )
+from stgraph_tpu_torch.graph.delta_graph import EdgeStore  # noqa: E402
 from stgraph_tpu_torch.parallel import (  # noqa: E402
+    dist_dyn_apply_delta,
+    dist_dyn_degree,
+    dist_dyn_spmm,
     dist_gat_attention,
     dist_gat_conv,
     dist_gcn_conv,
     dist_spmm,
     dist_tgcn_cell,
+    dist_tgcn_batched_loss,
     launch,
     make_mesh,
+    partition_dynamic,
     partition_edges,
     reduce_replicated_grads,
     replicate,
+    shard_dyn_arrays,
     shard_edge_array,
     shard_node_array,
+    shard_window_batch,
 )
 from stgraph_tpu_torch.parallel.halo import exchange  # noqa: E402
 
@@ -160,10 +175,77 @@ def main():
         for k, v in params.items():
             out[f"train/{impl}/after/{k}"] = v.detach().numpy()
 
-    out["exchange_rows"] = np.int64(exchange.rows)
+    out["exchange_rows"] = np.int64(exchange.rows)  # the cases above; the ones below exchange too
+    dyn_cases(inp, mesh, world, out)
+    batch_cases(inp, world, out)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     launch.shutdown()
     print(f"[rank {rank}] TORCH DIST OK", flush=True)
+
+
+def dyn_cases(inp, mesh, world, out):
+    """``parallel.dyn`` on this rank's shard: the carry after each step, and
+    each step's output and degrees; the features' gradient of the sum over
+    the steps of ``(out_t * g_t).sum()``."""
+    n = int(inp["n"])
+    for case in ("u", "w"):
+        weighted = case == "w"
+        init = EdgeStore(inp["dyn_rows0"], inp["dyn_cols0"], inp["dyn_ne0"], n,
+                         inp["dyn_w0"] if weighted else None)
+        ddg = partition_dynamic(init, inp["dyn_add"], inp["dyn_del"], inp["dyn_add_w"] if weighted else None, world)
+        (rows, cols, w, ne), (adds, dels, add_w) = shard_dyn_arrays(mesh, ddg)
+        h = shard_node_array(mesh, torch.from_numpy(inp["dyn_h"]), ddg).requires_grad_(True)
+        total = 0.0
+        for t in range(adds.shape[0]):
+            rows, cols, w, ne = dist_dyn_apply_delta(mesh, ddg, rows, cols, w, ne, adds[t], dels[t],
+                                                     None if add_w is None else add_w[t])
+            y = dist_dyn_spmm(mesh, ddg, rows, cols, w, h)
+            g = shard_node_array(mesh, torch.from_numpy(inp["dyn_g"][t]), ddg)
+            total = total + (y * g).sum()
+            key = f"dyn/{case}/{t}"
+            out[key + "/rows"], out[key + "/cols"], out[key + "/ne"] = rows.numpy(), cols.numpy(), ne.numpy()
+            if weighted:
+                out[key + "/w"] = w.numpy()
+            out[key + "/out"] = y.detach().numpy()
+            out[key + "/deg"] = dist_dyn_degree(mesh, ddg, rows).numpy()
+        total.backward()
+        out[f"dyn/{case}/dh"] = h.grad.numpy()
+
+
+BATCH_MESHES = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}  # (data, graph)
+
+
+def batch_cases(inp, world, out):
+    """``dist_tgcn_batched_loss`` and its gradients on each 2-D mesh of the
+    world; then a batch of 3 windows over 2 data ranks, refused by
+    ``shard_window_batch`` and, sliced unevenly, by the loss."""
+    n = int(inp["n"])
+    for data, graph in BATCH_MESHES[world]:
+        mesh = make_mesh(graph=graph, data=data, device="cpu")
+        dg = partition_edges(inp["src"], inp["dst"], n, graph)
+        params = dist_tgcn_params_from_jax(_params(inp, "tgcn_params"), device="cpu")
+        for sub in params.values():
+            for v in sub.values():
+                v.requires_grad_(True)
+        norm = shard_node_array(mesh, torch.from_numpy(inp["norm"]), dg)
+        xs = shard_window_batch(mesh, inp["bt_x"], dg)
+        ys = shard_window_batch(mesh, inp["bt_y"], dg)
+        loss = dist_tgcn_batched_loss(mesh, dg, params, norm, xs, ys)
+        loss.backward()
+        out[f"batch/{data}x{graph}/loss"] = loss.detach().numpy()
+        _save_grads(out, f"batch/{data}x{graph}/grad", params)
+        if data == 2:
+            refused = 0
+            try:
+                shard_window_batch(mesh, inp["bt_x"][:1].repeat(3, 0), dg)
+            except ValueError:
+                refused += 1
+            uneven = xs[:1] if mesh.get_local_rank("data") == 0 else xs[:0]
+            try:
+                dist_tgcn_batched_loss(mesh, dg, params, norm, torch.cat([xs, uneven]), torch.cat([ys, ys[:len(uneven)]]))
+            except ValueError:
+                refused += 1
+            out[f"batch/{data}x{graph}/refused"] = np.int64(refused)
 
 
 def _save_grads(out, prefix, tree):

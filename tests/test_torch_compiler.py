@@ -18,6 +18,7 @@ import stgraph_tpu_torch.compiler as PC
 from stgraph_tpu.graph.static_graph import StaticGraph as JaxStaticGraph
 from stgraph_tpu_torch.compiler.ir import ValType
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -3,8 +3,10 @@ mode), K3, K4, K5, K6, K7, K8 and K9 (with their dropout mode, and the
 in-kernel keep-mask hash bit for bit) and K10 on the card against their
 plain versions, and the GCN forward, a GCN training step, GAT training
 steps on the flash route (with and without attention dropout) and on the
-composed route's blocked and rowmask branches, and TGCN on a lazy dynamic
-store pair on CUDA against the CPU. Marked ``cuda``: they skip where no card
+composed route's blocked and rowmask branches, TGCN on a lazy dynamic
+store pair, K6 with a table wider than its output (and its refusal of
+one too short), and ``pma_spmm`` and ``pma_norm`` on a PMA pair on CUDA
+against the CPU. Marked ``cuda``: they skip where no card
 is present. On a machine with a card and without jax they run without the
 suite's conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest``.
@@ -18,6 +20,9 @@ maxima: bit for bit.
 """
 
 import math
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1040,6 +1045,100 @@ def test_tgcn_on_a_lazy_pair_on_cuda_matches_cpu(cuda, rng, weighted):
         results.append([h.detach()] + [p.grad for p in layer.parameters()] + [v.grad for v in x])
     for ref, out in zip(*results):
         _close(out.cpu(), ref, tol=1e-4)
+
+
+@pytest.mark.parametrize("f", [8, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_k6_with_a_table_wider_than_its_output_matches_plain_on_the_card(cuda, rng, f, weighted):
+    """A shard's call (``parallel.dyn``): n output rows over a table of 4n,
+    the live slots reading columns all over it, sentinel columns past it;
+    into a poisoned output."""
+    n = 3000
+    rows, _, w = _rowid_store(rng, n, 80_000, 20_000, weighted)
+    cols = np.where(rows < n, rng.integers(0, 4 * n, rows.size), 5 * n).astype(np.int32)
+    rows, cols = torch.from_numpy(rows).to(cuda), torch.from_numpy(cols).to(cuda)
+    ww = torch.from_numpy(w).to(cuda) if weighted else None
+    table = torch.from_numpy(rng.standard_normal((4 * n, f)).astype(np.float32)).to(cuda)
+    ptr = _poison((n, f), cuda)
+    out = RK.spmm_rowid(rows, cols, ww, table, n)
+    torch.cuda.synchronize()
+    assert out.shape == (n, f) and out.data_ptr() == ptr and not out.isnan().any()
+    ref = RK.spmm_rowid_plain(rows, cols, ww, table, n)
+    mass = RK.spmm_rowid_plain(rows, cols, None if ww is None else ww.abs(), table.abs(), n)
+    assert ((out - ref).abs() <= 2e-4 * mass + 1e-6).all()
+    assert not out[n - 50:].any()
+
+
+_SHORT_TABLE = """
+import torch
+from stgraph_tpu_torch.ops.rowid_kernels import spmm_rowid
+dev, n = torch.device("cuda"), 8
+rows = torch.tensor([0, 1, 1, 3, n, n], dtype=torch.int32, device=dev)
+cols = torch.tensor([0, 2, 7, 5, 100, -3], dtype=torch.int32, device=dev)
+table = torch.randn(8, 4, device=dev)
+spmm_rowid(rows, cols, None, table, n)
+torch.cuda.synchronize()
+print("sentinels past the table: ok", flush=True)
+spmm_rowid(rows, cols, None, table[:7], n)
+torch.cuda.synchronize()
+print("a short table was not refused", flush=True)
+"""
+
+
+def test_k6_refuses_a_table_too_short_for_a_live_column(cuda):
+    """A live slot whose column is past the table fails K6's launch by a
+    device-side assert, and sentinels' columns past the table are never
+    read. The assert leaves its process's CUDA context unusable, so the
+    calls run in a process of their own."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _SHORT_TABLE], cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    assert "sentinels past the table: ok" in proc.stdout, proc.stdout + proc.stderr
+    assert "not refused" not in proc.stdout and proc.returncode != 0, proc.stdout + proc.stderr
+    assert "device-side assert" in proc.stderr, proc.stderr
+
+
+def test_pma_spmm_and_norm_on_the_card_match_plain(cuda, rng):
+    """A weighted PMA pair on the card and on the CPU after three updates
+    (the first takes the rebuild branch): the layouts equal, ``pma_spmm``
+    (K6 on pair.fwd, and on pair.bwd backward) and ``pma_norm`` (K7) against
+    the CPU's plain versions."""
+    n, e, d = 2000, 30_000, 300
+    keys = rng.choice(n * n, e + 3 * d, replace=False)
+    src, dst = keys[:e] // n, keys[:e] % n
+    w0 = (rng.random(e) + 0.1).astype(np.float32)
+    batches = [(np.stack([k // n, k % n], 1).astype(np.int32),
+                np.stack([src[i * d:(i + 1) * d], dst[i * d:(i + 1) * d]], 1).astype(np.int32),
+                (rng.random(d) + 0.1).astype(np.float32)) for i, k in enumerate(np.split(keys[e:], 3))]
+    batches[0] = tuple(np.concatenate([a, np.full((300,) + a.shape[1:], n, a.dtype)]) for a in batches[0][:2]) + (
+        np.concatenate([batches[0][2], np.zeros(300, np.float32)]),)  # padding past a chunk's workspace
+    x = rng.standard_normal((n, 32)).astype(np.float32)
+    g = rng.standard_normal((n, 32)).astype(np.float32)
+    results = []
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.from_numpy(a).to(dev)
+        pair = DS.pma_pair_from_edges(src, dst, n, num_chunks=2 * -(-e // 256), chunk_size=256, weights=w0, device=dev)
+        for a, dl, aw in batches:
+            pair = DS.apply_delta_pair(pair, t(a[:, 0]), t(a[:, 1]), t(dl[:, 0]), t(dl[:, 1]), add_weights=t(aw))
+        xx = t(x).requires_grad_()
+        counts = RK.spmm_rowid.launches, RK.dyn_degree.launches
+        out = DS.pma_spmm(pair, xx)
+        (out * t(g)).sum().backward()
+        norm = DS.pma_norm(pair)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (RK.spmm_rowid.launches - counts[0], RK.dyn_degree.launches - counts[1]) == (2, 1)
+        deg = RK.dyn_degree(pair.fwd.flatten()[0], None, n)
+        results.append((pair, out.detach(), xx.grad, norm, deg))
+    (p_cpu, *ref), (p_gpu, *got) = results
+    for side in ("fwd", "bwd"):
+        a, b = getattr(p_cpu, side), getattr(p_gpu, side)
+        for name in ("rows", "cols", "counts", "weights"):
+            assert torch.equal(getattr(a, name), getattr(b, name).cpu()), (side, name)
+    _close(got[0].cpu(), ref[0])
+    _close(got[1].cpu(), ref[1])
+    assert torch.equal(got[3].cpu(), ref[3])  # K7's counts: exact
+    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=1e-6, atol=0)  # pow(-0.5) on either device
 
 
 @pytest.mark.parametrize("which", ["interior", "frontier", "local"])

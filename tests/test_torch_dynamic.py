@@ -37,6 +37,7 @@ from stgraph_tpu_torch.graph.dynamic_graph import preprocess_deltas
 from stgraph_tpu_torch.nn import TGCN, GCNConv
 from stgraph_tpu_torch.ops import dyn_spmm as DS
 from stgraph_tpu_torch.ops import rowid_kernels as RK
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, CAP, TCAP, D = 120, 1024, 64, 16  # a compaction every 4 steps
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -280,6 +281,25 @@ def test_k6_plain_matches_pallas_interpret(rng, weighted):
     assert not out[n - 20:].any()
     blocked = RK.spmm_rowid_plain(_t(rows), _t(cols), None if w is None else _t(w), _t(x), n, edge_block=333)
     torch.testing.assert_close(blocked, out, rtol=0, atol=0)
+
+
+def test_k6_takes_a_wider_table_and_refuses_a_short_one(rng):
+    """A shard's call: n output rows over a table of 4n rows is the product
+    with the table; a live slot whose column is past the table, or below 0,
+    is refused; a sentinel's column is never read."""
+    n, f = 60, 8
+    rows, _, w = _sentinel_store(rng, n, slots=600)
+    live = rows < n
+    cols = np.where(live, rng.integers(0, 4 * n, rows.size), 9 * n).astype(np.int32)
+    table = rng.standard_normal((4 * n, f)).astype(np.float32)
+    out = RK.spmm_rowid(_t(rows), _t(cols), _t(w), _t(table), n)
+    dense = np.zeros((n, 4 * n))
+    np.add.at(dense, (rows[live], cols[live]), w[live])
+    np.testing.assert_allclose(out.numpy(), dense @ table, **F32)
+    top = int(cols[live].max())
+    for bad_cols, bad_table in ((cols, table[:top]), (np.where(cols == top, -1, cols).astype(np.int32), table)):
+        with pytest.raises(ValueError, match="a live slot reads column"):
+            RK.spmm_rowid(_t(rows), _t(bad_cols), _t(w), _t(bad_table), n)
 
 
 @pytest.mark.parametrize("n, empty_block", [(200, None), (30, None), (400, 1)])

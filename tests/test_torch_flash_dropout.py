@@ -40,6 +40,7 @@ from stgraph_tpu_torch.ops import attention as A
 from stgraph_tpu_torch.ops import flash_gat as FG
 from stgraph_tpu_torch.ops import kernel_lib, spmm_cuda
 from stgraph_tpu_torch.utils import build as B
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=2e-4, atol=2e-4)
 BF16 = dict(rtol=2e-2, atol=2e-2)

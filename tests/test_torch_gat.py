@@ -42,6 +42,7 @@ from stgraph_tpu_torch.ops import flash_gat as FG
 from stgraph_tpu_torch.ops import message as M
 from stgraph_tpu_torch.ops import segment_kernels as SK
 from stgraph_tpu_torch.ops import spmm_cuda
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=2e-4, atol=2e-4)
 BF16 = dict(rtol=2e-2, atol=2e-2)

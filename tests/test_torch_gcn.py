@@ -23,6 +23,7 @@ from stgraph_tpu_torch.dataset import OgbNodeDataLoader
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
 from stgraph_tpu_torch.nn import GCNConv
 from stgraph_tpu_torch.serve import Predictor
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)

@@ -14,6 +14,7 @@ from stgraph_tpu_torch.graph.csr import build_csr, pad_edges, round_up
 from stgraph_tpu_torch.graph.static_graph import StaticGraph
 from stgraph_tpu_torch.ops.spmm_kernels import k1_work_items
 from stgraph_tpu_torch.utils.norm import symmetric_norm
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _graph(rng, n=50, e=180, isolated=0, duplicates=0):

@@ -29,6 +29,7 @@ from stgraph_tpu_torch.ops import (
     spmm_kernels,
 )
 from stgraph_tpu_torch.serve import Predictor
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "stgraph_tpu")
@@ -57,10 +58,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     bad = []
     files = _port_files()
     scanned = {p.relative_to(ROOT).as_posix() for p in files}
-    for module in ("halo", "launch", "layers", "mesh", "partition"):
+    for module in ("batch", "dyn", "halo", "launch", "layers", "mesh", "partition"):
         assert f"stgraph_tpu_torch/parallel/{module}.py" in scanned
     for module in ("drivers/static_temporal_tgcn", "drivers/dynamic_temporal_tgcn", "utils/data_table",
-                   "dataset/windmilloutput_dataloader", "dataset/metrla_dataloader"):
+                   "dataset/windmilloutput_dataloader", "dataset/metrla_dataloader", "graph/pma_store"):
         assert f"stgraph_tpu_torch/{module}.py" in scanned
     for path in files:
         for mod in _imported_modules(path):
@@ -372,3 +373,62 @@ def test_non_cpu_tensor_never_takes_the_plain_version_on_the_shard_route(monkeyp
     finally:
         parallel.launch.shutdown()
     assert spmm_kernels.spmm_rowmask_traced.launches == before
+
+
+def test_the_pma_and_distributed_dynamic_names_are_exported():
+    from stgraph_tpu_torch import convert, graph, ops, parallel
+
+    for name in ("DistDynGraph", "partition_dynamic", "shard_dyn_arrays", "dist_dyn_apply_delta", "dist_dyn_spmm",
+                 "dist_dyn_degree", "shard_window_batch", "dist_tgcn_batched_loss"):
+        assert name in parallel.__all__ and callable(getattr(parallel, name)), name
+    for name in ("PMAGraphPair", "pma_pair_from_edges", "apply_delta_pair", "pma_spmm", "pma_norm"):
+        assert name in ops.__all__ and hasattr(ops, name), name
+    for name in ("PMAStore", "pma_init", "pma_from_edges", "apply_delta_pma"):
+        assert name in graph.__all__ and hasattr(graph, name), name
+    assert "pma_pair_from_jax" in convert.__all__
+
+
+def test_non_cpu_tensor_never_takes_the_plain_rowid_kernels_on_the_pma_and_dist_dyn_paths(monkeypatch, tmp_path):
+    """``pma_spmm``, ``pma_norm``, ``dist_dyn_spmm`` and ``dist_dyn_degree``
+    as the lazy pair's: a tensor that is not on the CPU goes to K6 or K7 or
+    raises."""
+    import socket
+
+    from stgraph_tpu_torch import parallel
+    from stgraph_tpu_torch.graph.delta_graph import EdgeStore
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(kernel_lib, "_nvcc", no_nvcc)
+    monkeypatch.setattr(kernel_lib, "_loaded", {})
+    monkeypatch.setattr(kernel_lib, "_paths", lambda names: {n: str(tmp_path / f"{n}.so") for n in names})
+    monkeypatch.setattr(rowid_kernels, "spmm_rowid_plain", plain)
+    monkeypatch.setattr(rowid_kernels, "dyn_degree_plain", plain)
+    pair = dyn_spmm.pma_pair_from_edges([0, 1, 2], [1, 2, 0], 3, num_chunks=2, chunk_size=128, device="meta")
+    feats = torch.empty(3, 8, device="meta")
+    counts = rowid_kernels.spmm_rowid.launches, rowid_kernels.dyn_degree.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        dyn_spmm.pma_spmm(pair, feats)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        dyn_spmm.pma_norm(pair)
+    rows = np.array([1, 2, 3, 3], np.int32)
+    ddg = parallel.partition_dynamic(EdgeStore(rows, np.array([0, 1, 3, 3], np.int32), 2, 3),
+                                     np.full((1, 1, 2), 3, np.int32), np.full((1, 1, 2), 3, np.int32), None, 1)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    parallel.launch.initialize(f"127.0.0.1:{port}", 1, 0, backend="gloo")
+    try:
+        mesh = parallel.make_mesh(device="cpu")
+        r, c = (torch.from_numpy(a).to("meta") for a in (ddg.init_rows[0], ddg.init_cols[0]))
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            parallel.dist_dyn_spmm(mesh, ddg, r, c, None, feats)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            parallel.dist_dyn_degree(mesh, ddg, r)
+    finally:
+        parallel.launch.shutdown()
+    assert counts == (rowid_kernels.spmm_rowid.launches, rowid_kernels.dyn_degree.launches)

@@ -26,6 +26,7 @@ from stgraph_tpu_torch.graph.blocked import ROW_BLOCK, build_blocked
 from stgraph_tpu_torch.graph.csr import build_csr
 from stgraph_tpu_torch.ops import rowid_kernels as RK
 from stgraph_tpu_torch.ops import spmm_blocked as SB
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _layout(rng, n=1500, e=20_000, hub_deg=1000):

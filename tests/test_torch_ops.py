@@ -19,6 +19,7 @@ from stgraph_tpu_torch.graph.csr import build_csr
 from stgraph_tpu_torch.ops import message as M
 from stgraph_tpu_torch.ops import segment as S
 from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_plain
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

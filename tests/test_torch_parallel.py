@@ -13,6 +13,16 @@ parameters carried by ``convert``, and ``benchmarking/dist/train.py``'s
 training step (loss, parameter gradients after the all-reduce, and the
 parameters after one Adam step). The port's kernel route runs K1's shard
 mode, whose plain version takes the CPU tensors.
+
+The same spawns run the rest of the distribution layer: ``parallel.dyn``
+(``partition_dynamic`` array for array at P = 1, 2 and 4 here; in the
+ranks, each shard's store after every step of a replay, ``dist_dyn_spmm``,
+its gradient and ``dist_dyn_degree``, unweighted and weighted, against
+JAX's ``use_kernel=False`` path on the P-device mesh) and ``parallel.batch``
+(the batched TGCN loss and its gradients on 1 x 2, 2 x 1 and 2 x 2 meshes
+against JAX's ``dist_tgcn_cell`` run window by window, as
+``tests/test_batch2d.py``'s sequential reference with the padding rows
+masked, and its ``ValueError``s).
 """
 
 import os
@@ -35,13 +45,17 @@ from stgraph_tpu.parallel import (
     shard_edge_array as jax_shard_edge_array,
     shard_node_array as jax_shard_node_array,
 )
+from stgraph_tpu.graph.delta_graph import EdgeStore as JaxEdgeStore
+from stgraph_tpu.parallel import dyn as jax_dyn
 from stgraph_tpu.parallel import layers as jax_layers
 from stgraph_tpu.parallel.layers import dist_gat_conv as jax_dist_gat_conv
 from stgraph_tpu.parallel.layers import dist_gcn_conv as jax_dist_gcn_conv
 from stgraph_tpu.parallel.layers import dist_tgcn_cell as jax_dist_tgcn_cell
 from stgraph_tpu_torch import parallel
 from stgraph_tpu_torch.graph.csr import CSR, csr_order
-from stgraph_tpu_torch.parallel import launch, make_mesh, partition_edges
+from stgraph_tpu_torch.graph.delta_graph import EdgeStore
+from stgraph_tpu_torch.parallel import launch, make_mesh, partition_dynamic, partition_edges
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORKER = os.path.join(os.path.dirname(__file__), "scripts", "torch_dist_worker.py")
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -50,6 +64,8 @@ N, E = 203, 1200  # uneven: 203 rows over 2 or 4 shards
 SPMM_F, GAT_H, GAT_F = 16, 2, 64  # two heads of 64: the kernel route's tiling
 GCN_DIMS, TRAIN_DIMS = (8, 16), (16, 32, 32, 5)
 TGCN_IN, TGCN_OUT = 6, 5
+DYN_F, DYN_T = 8, 3  # the dynamic graph's features and steps
+BATCH_B, BATCH_T = 2, 2  # windows of TGCN_IN -> TGCN_OUT
 
 
 # -- partition_edges ---------------------------------------------------------
@@ -287,7 +303,40 @@ def _inputs(seed=0):
     for i, (a, b) in enumerate(zip(TRAIN_DIMS[:-1], TRAIN_DIMS[1:])):
         inp[f"train_params/w{i}"] = (rng.standard_normal((a, b)) * 0.1).astype(np.float32)
         inp[f"train_params/b{i}"] = f32(b) * 0.1
+    inp.update(_dyn_inputs(np.random.default_rng(seed + 1)))
     return inp
+
+
+def _dyn_inputs(rng, e0=400, cap=512, adds=40, dels=20):
+    """A dynamic graph on the N nodes: an initial (dst, src)-sorted store of
+    ``e0`` edges with weights, DYN_T staged batches (each delete names a live
+    edge, each add is new; the last slots sentinel padding) with weights, the
+    features and each step's cotangent; and the windows of the batched loss."""
+    keys = rng.choice(N * N, e0, replace=False)
+    src, dst = keys // N, keys % N
+    order = np.lexsort((src, dst))
+    rows0, cols0, w0 = np.full(cap, N, np.int32), np.full(cap, N, np.int32), np.zeros(cap, np.float32)
+    rows0[:e0], cols0[:e0] = dst[order], src[order]
+    w0[:e0] = 0.5 + rng.random(e0)
+    live = set(keys.tolist())
+    add = np.full((DYN_T, adds + 4, 2), N, np.int32)
+    dele = np.full((DYN_T, dels + 4, 2), N, np.int32)
+    for t in range(DYN_T):
+        gone = rng.choice(sorted(live), dels, replace=False)
+        live -= set(gone.tolist())
+        new = []
+        while len(new) < adds:
+            k = int(rng.integers(0, N * N))
+            if k not in live and k not in new:
+                new.append(k)
+        live |= set(new)
+        dele[t, :dels] = np.stack([gone // N, gone % N], 1)
+        add[t, :adds] = np.stack([np.array(new) // N, np.array(new) % N], 1)
+    f32 = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    return {"dyn_rows0": rows0, "dyn_cols0": cols0, "dyn_w0": w0, "dyn_ne0": np.int32(e0), "dyn_add": add,
+            "dyn_del": dele, "dyn_add_w": (0.5 + rng.random(add.shape[:2])).astype(np.float32),
+            "dyn_h": f32(N, DYN_F), "dyn_g": f32(DYN_T, N, DYN_F),
+            "bt_x": f32(BATCH_B, BATCH_T, N, TGCN_IN), "bt_y": f32(BATCH_B, BATCH_T, N, TGCN_OUT)}
 
 
 def _tree(inp, prefix):
@@ -538,3 +587,143 @@ def test_halo_rows_sent_match_the_ring(world):
     calls = 4 + 6 + 2 + 2 * (1 + 3 + 1) + 2 * 3
     for r in world["ranks"]:
         assert int(r["exchange_rows"]) == 2 * calls * per
+
+
+# -- parallel.dyn --------------------------------------------------------------
+
+
+def _dyn_store(inputs, weighted, store_cls):
+    return store_cls(rows=inputs["dyn_rows0"], cols=inputs["dyn_cols0"], num_edges=inputs["dyn_ne0"], num_nodes=N,
+                     weights=inputs["dyn_w0"] if weighted else None)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_partition_dynamic_matches_jax_array_for_array(inputs, p, weighted):
+    add_w = inputs["dyn_add_w"] if weighted else None
+    want = jax_dyn.partition_dynamic(_dyn_store(inputs, weighted, JaxEdgeStore), inputs["dyn_add"],
+                                     inputs["dyn_del"], add_w, p)
+    got = partition_dynamic(_dyn_store(inputs, weighted, EdgeStore), torch.from_numpy(inputs["dyn_add"]),
+                            inputs["dyn_del"], add_w, p)
+    for name in want._fields:
+        w, g = getattr(want, name), getattr(got, name)
+        if w is None or isinstance(w, int):
+            assert g == w, name
+        else:
+            assert g.dtype == w.dtype, name
+            np.testing.assert_array_equal(g, w, err_msg=name)
+    assert got.padded_nodes == want.padded_nodes
+    with pytest.raises(ValueError, match="capacity too small"):
+        partition_dynamic(_dyn_store(inputs, weighted, EdgeStore), inputs["dyn_add"], inputs["dyn_del"], add_w, p,
+                          capacity=8)
+
+
+def _jax_dyn_runs(world, inputs):
+    """JAX's replay on the P-device mesh (``use_kernel=False``), unweighted
+    (``u``) and weighted (``w``), both in one jitted call so that the two
+    cases share a compile: the carry and the output and degrees after each
+    step, and the features' gradient of the steps' summed products."""
+    mesh = world["mesh"]
+    ddgs, stores = [], []
+    for weighted in (False, True):
+        ddg = jax_dyn.partition_dynamic(_dyn_store(inputs, weighted, JaxEdgeStore), inputs["dyn_add"],
+                                        inputs["dyn_del"], inputs["dyn_add_w"] if weighted else None, world["p"])
+        ddgs.append(ddg)
+        stores.append(jax_dyn.shard_dyn_arrays(mesh, ddg))
+    h = _sh(world, inputs["dyn_h"])
+    gs = [_sh(world, g) for g in inputs["dyn_g"]]
+
+    def replay(ddg, h, carry, xs, gs):
+        def loss(h):
+            rows, cols, w, ne = carry
+            total, trace = 0.0, []
+            for t in range(DYN_T):
+                rows, cols, w, ne = jax_dyn.dist_dyn_apply_delta(mesh, ddg, rows, cols, w, ne, xs[0][t], xs[1][t],
+                                                                 None if xs[2] is None else xs[2][t])
+                out = jax_dyn.dist_dyn_spmm(mesh, ddg, rows, cols, w, h, use_kernel=False)
+                deg = jax_dyn.dist_dyn_degree(mesh, ddg, rows, use_kernel=False)
+                total = total + jnp.sum(out * gs[t])
+                trace.append((rows, cols, w, ne, out, deg))
+            return total, trace
+
+        (_, trace), dh = jax.value_and_grad(loss, has_aux=True)(h)
+        return trace, dh
+
+    @jax.jit
+    def run(h, stores, gs):
+        return tuple(replay(ddg, h, carry, xs, gs) for ddg, (carry, xs) in zip(ddgs, stores))
+
+    return dict(zip(("u", "w"), jax.tree_util.tree_map(np.asarray, run(h, stores, gs))))
+
+
+@pytest.mark.parametrize("case", ["u", "w"])
+def test_dist_dyn_replay_spmm_and_degree_match_jax(world, inputs, case):
+    """Each rank's store after every step (rows, cols, weights, live count)
+    against JAX's shard of the stacked carry; each step's ``dist_dyn_spmm``
+    and ``dist_dyn_degree`` (the port's K6 and K7 plain versions over the
+    all-gathered table) and the features' gradient."""
+    trace, dh = _ref(world, "dyn", lambda: _jax_dyn_runs(world, inputs))[case]
+    for t, (rows, cols, w, ne, out, deg) in enumerate(trace):
+        key = f"dyn/{case}/{t}"
+        np.testing.assert_array_equal(_edges(world, key + "/rows"), rows, err_msg=key)
+        np.testing.assert_array_equal(_edges(world, key + "/cols"), cols, err_msg=key)
+        np.testing.assert_array_equal(_edges(world, key + "/ne"), ne, err_msg=key)
+        if case == "w":
+            np.testing.assert_array_equal(_edges(world, key + "/w"), w, err_msg=key)
+        np.testing.assert_allclose(_nodes(world, key + "/out"), out, **TOL, err_msg=key)
+        np.testing.assert_array_equal(_nodes(world, key + "/deg"), deg, err_msg=key)
+    np.testing.assert_allclose(_nodes(world, f"dyn/{case}/dh"), dh, **TOL)
+
+
+# -- parallel.batch ------------------------------------------------------------
+
+
+def _jax_batch_reference(inputs):
+    """JAX's ``dist_tgcn_cell`` window by window on a 2-device graph mesh
+    (``tests/test_batch2d.py``'s sequential reference, each timestep's
+    squared error over the real rows only, over N * F_out): the mean loss
+    over the windows and its parameter gradients."""
+    dg = jax_partition_edges(inputs["src"], inputs["dst"], N, 2)
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("graph",))
+
+    def sh(a):
+        return jax_shard_node_array(mesh, jnp.asarray(a), dg)
+
+    norm = sh(inputs["norm"])
+    xs = [[sh(inputs["bt_x"][b, t]) for t in range(BATCH_T)] for b in range(BATCH_B)]
+    ys = [[sh(inputs["bt_y"][b, t]) for t in range(BATCH_T)] for b in range(BATCH_B)]
+    mask = (jnp.arange(dg.padded_nodes) < N)[:, None]
+
+    def loss(params):
+        total = 0.0
+        for b in range(BATCH_B):
+            hidden, steps = jnp.zeros((dg.padded_nodes, TGCN_OUT)), []
+            for t in range(BATCH_T):
+                hidden = jax_dist_tgcn_cell(mesh, dg, params, xs[b][t], norm, hidden)
+                steps.append(jnp.sum(jnp.where(mask, (hidden - ys[b][t]) ** 2, 0.0)) / (N * TGCN_OUT))
+            total = total + jnp.stack(steps).mean()
+        return total / BATCH_B
+
+    return jax.tree_util.tree_map(np.asarray, jax.jit(jax.value_and_grad(loss))(_tree(inputs, "tgcn_params")))
+
+
+@pytest.fixture(scope="module")
+def batch_reference(inputs):
+    return _jax_batch_reference(inputs)
+
+
+def test_batched_tgcn_loss_and_grads_match_sequential_jax(world, batch_reference):
+    """On every 2-D mesh of the world's ranks (1 x 2 and 2 x 1 at P = 2,
+    2 x 2 at P = 4): the loss on every rank and every rank's parameter
+    gradients after ``backward()`` alone; and the batch of 3 windows over 2
+    data ranks refused by ``shard_window_batch`` and by the loss."""
+    loss, grads = batch_reference
+    meshes = {2: ("1x2", "2x1"), 4: ("2x2",)}[world["p"]]
+    for mesh in meshes:
+        np.testing.assert_allclose(_replicated(world, f"batch/{mesh}/loss"), loss, **TOL, err_msg=mesh)
+        flat = jax.tree_util.tree_flatten_with_path(grads)[0]
+        for path, want in flat:
+            key = f"batch/{mesh}/grad/" + "/".join(p.key for p in path)
+            np.testing.assert_allclose(_replicated(world, key), want, **TOL, err_msg=key)
+        if mesh.startswith("2x"):
+            assert all(int(r[f"batch/{mesh}/refused"]) == 2 for r in world["ranks"])

@@ -27,6 +27,7 @@ from stgraph_tpu.parallel import partition_edges as jax_partition_edges
 from stgraph_tpu.parallel import shard_node_array as jax_shard_node_array
 from stgraph_tpu_torch.ops import spmm_kernels
 from stgraph_tpu_torch.parallel import dist_spmm, launch, make_mesh, partition_edges, shard_node_array
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P, N, E = 4, 97, 900
 

@@ -13,6 +13,7 @@ from stgraph_tpu_torch import native
 from stgraph_tpu_torch.dataset import OgbNodeDataLoader
 from stgraph_tpu_torch.graph import locality_order, relabel_edges
 from stgraph_tpu_torch.graph import reorder
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _community_graph(rng, n=3000, e=30_000, k=24, p_intra=0.85):

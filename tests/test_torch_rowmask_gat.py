@@ -44,6 +44,7 @@ from stgraph_tpu_torch.ops import message as M
 from stgraph_tpu_torch.ops import segment_kernels as SK
 from stgraph_tpu_torch.ops import spmm_cuda
 from stgraph_tpu_torch.ops import spmm_kernels as K
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=2e-4, atol=2e-4)
 GRAD = dict(rtol=2e-3, atol=2e-3)

@@ -4,7 +4,9 @@ printed text, ``drivers.static_temporal_tgcn``'s loop (truncated BPTT with a
 short last window, with and without ``--remat``, two Adam epochs),
 ``bench_tgcn_epoch``'s loss and gradients, and
 ``drivers.dynamic_temporal_tgcn``'s ``naive``, ``delta`` and ``delta-scan``
-epochs with the same negatives in both packages.
+epochs with the same negatives in both packages (``pma-scan`` against JAX:
+``tests/test_torch_pma.py``), and ``pma-scan``'s hidden states against
+``delta-scan``'s.
 
 The JAX side is built from its library under ``jax.jit`` as its scripts
 build it (``benchmarking/static-temporal-tgcn/train.py``'s padded, masked
@@ -47,6 +49,7 @@ from stgraph_tpu_torch.dataset import STGraphDataset
 from stgraph_tpu_torch.drivers import dynamic_temporal_tgcn as DT
 from stgraph_tpu_torch.drivers import static_temporal_tgcn as ST
 from stgraph_tpu_torch.utils import DataTable
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOSS = dict(rtol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-5)
@@ -426,21 +429,33 @@ def test_dynamic_temporal_epochs_match_jax(dynamic_data, dynamic_reference, kind
     np.testing.assert_allclose(losses[kind], losses["naive"], rtol=0, atol=TYPES_AGREE)
 
 
-def test_dynamic_types_agree_and_pma_scan_is_not_ported(dynamic_data, capsys):
+def test_dynamic_types_agree_and_pma_scan_follows_delta_scan(dynamic_data, capsys):
     """The trainers' own negatives (their generators, the same seed): ``naive``,
     ``delta`` and ``delta-scan`` give one loss trajectory; the script's run
-    prints its table, build time and average; ``pma-scan`` is refused."""
+    prints its table, build time and average. ``pma-scan`` (its losses draw
+    one negative a slot of another layout, so they are not comparable) gives
+    ``delta-scan``'s hidden state at every timestep of an epoch from the same
+    parameters, and the script runs it."""
     c = DYN
     d = D.EnglandCovidDataLoader(lags=c["lags"], cutoff_time=c["cutoff"])
-    losses = {}
-    for kind in ("naive", "delta", "delta-scan"):
+    losses, hiddens = {}, {}
+    for kind in ("naive", "delta", "delta-scan", "pma-scan"):
         tr = DT.DynamicTemporalTrainer(d.get_edges(), d.get_edge_weights(), d.get_all_features(), kind, c["lags"],
                                        c["hidden"], c["lr"], device="cpu")
+        hiddens[kind] = []
+        with torch.no_grad():
+            tr.epoch_loss(hiddens[kind])
         losses[kind] = [tr.epoch().item() for _ in range(c["epochs"])]
     for kind in ("delta", "delta-scan"):
         np.testing.assert_allclose(losses[kind], losses["naive"], rtol=0, atol=TYPES_AGREE)
+    assert len(hiddens["pma-scan"]) == len(hiddens["delta-scan"]) == c["cutoff"] - c["lags"]
+    for t, (a, b) in enumerate(zip(hiddens["pma-scan"], hiddens["delta-scan"])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5, err_msg=f"timestep {t}")
+    assert np.all(np.isfinite(losses["pma-scan"]))
     r = DT.main(["--type", "delta-scan", "--num_epochs", "2", "--feat_size", "4", "--num_hidden", "8", "--cpu"])
     out = capsys.readouterr().out
     assert "graph build time:" in out and f"^^^0^^^{r['avg_epoch_s']:.6f}" in out and r["timesteps"] == 57
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DT.main(["--type", "pma-scan", "--cpu"])
+    r = DT.main(["--type", "pma-scan", "--num_epochs", "2", "--feat_size", "4", "--num_hidden", "8", "--cpu"])
+    out = capsys.readouterr().out
+    assert "pma-scan" in out and f"^^^0^^^{r['avg_epoch_s']:.6f}" in out and r["timesteps"] == 57
+    assert np.all(np.isfinite(r["loss"]))

@@ -42,6 +42,7 @@ from stgraph_tpu_torch.ops.spmm_kernels import (
 )
 from stgraph_tpu_torch.serve import Predictor
 from stgraph_tpu_torch.utils import Checkpointer, EarlyStopping, accuracy
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
