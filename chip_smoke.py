@@ -262,13 +262,32 @@ Phases (any failure exits nonzero and prints no result line):
     through ``dist_tgcn_cell``. The rank phase (41) also runs
     ``parallel.dyn`` at its graph size and the batched loss on (ranks x 1)
     and (1 x ranks) meshes, against world size 1.
+50. evolvegcn: ``benchmarking/evolvegcn/train.py --variant o|h --dataset
+    wikimath --feat_size 8 --num_hidden 32 --impl kernel`` through
+    ``drivers.evolvegcn`` (1068 nodes, 27,079 edges, 723 timesteps): for each
+    variant the script's 10 epochs of exactly T K1 and T K2 (f32 streams),
+    the loss finite and below the first epoch's at a later one, a profile
+    of the first
+    ``TEMPORAL_PROFILE_STEPS`` timesteps, those timesteps on the kernel
+    route against the dense route (loss, evolved weight, gradients), and K1
+    and K2 with a timestep's arguments against their plain versions, timed;
+51. segment-sum-edges: ``ops.segment_sum_edges`` on the composed check
+    graph at K = 4, 16 (K3) and 24 (K1's no-gather mode), f32 and bf16 with
+    NaN in the padding slots: one kernel launch a call (bf16 values also
+    take one PyTorch cast to f32 before it) into a poisoned output,
+    against the plain versions, f32 out, the backward equal to the gather,
+    timed (the cast included);
+52. utilities: ``DeviceInfo``, ``device_memory_stats`` against the
+    allocator's peak, a ``Timer`` around synced K1 calls, ``profiler.trace``
+    of one K1 call in a fresh process holding K1's kernel, ``fetch_float`` of
+    EvolveGCN's loss; the run fails if ``d2h_available()`` has latched false.
 
 Every path of the kernels line (serving, training, gat-serving,
 gat-training, gat-dropout-training, composed-serving, ppi-serving,
 ppi-training, dyn-step, dtdg-training on each dataset, pubmed-rowmask,
 rowmask-ppi, dist-gcn-training, tgcn-epoch, static-temporal on each dataset,
 dynamic-temporal on each dataset and type, pma-scan on each dataset,
-dist-dyn and batched-tgcn) is driven with every launch count set to
+dist-dyn, batched-tgcn and evolvegcn on each variant) is driven with every launch count set to
 0 just before it and read just after; K8's and K9's dropout-mode launches
 count apart (``K8_dropout``, ``K9_dropout``) as well as with all of theirs,
 and K1's shard mode apart from K1 (``K1_traced``).
@@ -375,6 +394,19 @@ STATIC_RUNS = (("wikimath", None, 0, "auto", 3), ("windmill_large", 3000, 1000, 
 # the same run (the idle share of a host-bound loop is the same at every
 # step; the profiler's own cost grows by about 0.1 s a timestep)
 TEMPORAL_PROFILE_STEPS = 32
+# Late in a long process the profiler loses the first device events of a
+# window (PERF.md section 7): every profile first launches PROFILE_FILLERS
+# tiny kernels (waited for, then PROFILE_PAD_S of idle host time) to take
+# the loss, and counts the call's own launches that it saw no device event of
+PROFILE_FILLERS, PROFILE_PAD_S = 512, 0.1
+# the device function that each wrapper count launches, for the check that a
+# profile saw every wrapper launch of its call
+PROFILED_KERNELS = {"K1": "spmm_rowmask_kernel", "K1_traced": "spmm_rowmask_kernel",
+                    "K2": "spmm_sddmm_rowmask_kernel", "K3": "segment_sum_narrow_kernel",
+                    "K4": "segment_max_narrow_kernel", "K5": "segment_max_wide_kernel",
+                    "K1_nogather": "segment_sum_wide_kernel", "K6": "spmm_rowid_kernel",
+                    "K7": "rowid_denom_kernel", "K8": "flash_gat_fwd_kernel", "K9": "flash_gat_bwd_kernel",
+                    "K10": "segment_sum_blocked_kernel"}
 # benchmarking/dynamic-bench.sh's widest point on England-COVID (--feat_size 32
 # --num_hidden 64); the wiki-talk-shaped stream at the script's defaults (8,
 # 32: its 12 timestamps leave no window of 32); 1 warm and 4 timed epochs
@@ -479,6 +511,11 @@ DIST_DYN_SMALL = dict(nodes=100_000, edges=1_000_000, slide=10_000, steps=8, fea
 # point (STATIC_F -> STATIC_H), BATCH_WINDOWS windows of BATCH_STEPS
 # timesteps; the 2-D meshes of the rank phase are (ranks x 1) and (1 x ranks)
 BATCH_WINDOWS, BATCH_STEPS = 4, 8
+# benchmarking/evolvegcn/train.py's defaults (--feat_size 8 --num_hidden 32,
+# Adam 1e-2, 10 epochs, the time averaged over epochs >= 3) on WikiMath,
+# --impl kernel, each variant
+EVOLVE_F, EVOLVE_H, EVOLVE_LR, EVOLVE_EPOCHS = 8, 32, 1e-2, 10
+SEGMENT_SUM_EDGES_K = (4, 16, 24)  # K3's, K3's widest and the no-gather sum's
 
 
 class SmokeFailure(Exception):
@@ -1013,28 +1050,91 @@ def phase_model_vs_plain(dev, args, workdir):
     return {"n": n, "e": graph.get_num_edges(), "max_abs_err": err, "max_abs_plain": scale}
 
 
-@timed_phase
-def phase_profile(fn, what):
-    """Device time by kernel over one call of ``fn``, and the device's idle
-    share between its first and last kernel. The device events are read
-    from the profiler's raw results, the ones ``prof.events()`` keeps,
-    without building its tree of host events (seconds for a few thousand
-    host operations)."""
+FILL_RANGE = "chip_smoke.profile_fill"
+
+
+def profile_fill():
+    """``PROFILE_FILLERS`` one-element adds on the card, waited for, inside
+    a ``record_function`` range: the first device events of a profiler
+    window, which the profiler may lose late in a process."""
+    from torch.profiler import record_function
+
+    t = torch.zeros(1, device="cuda")
+    with record_function(FILL_RANGE):
+        for _ in range(PROFILE_FILLERS):
+            t.add_(1)
+        torch.cuda.synchronize()
+    time.sleep(PROFILE_PAD_S)
+
+
+def profiled(fn):
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA activities),
+    after ``profile_fill``. Returns the call's device events as (name, start
+    ns, end ns), a record of the launches (kernels, copies, fills) that the
+    host issued in the fill and in the call and how many of each have no
+    device event in the profile (their correlation ids; the host's calls
+    after the fill's end and a half pad are the call's), the least lag from
+    one of the call's launches to its start on the device, and the call's
+    host ms. The events are read from the profiler's raw results (the ones
+    ``prof.events()`` keeps), without building its tree of host events
+    (seconds for a few thousand host operations)."""
     from torch.autograd import DeviceType
     from torch.autograd.profiler_util import _filter_name
     from torch.profiler import ProfilerActivity, profile
 
-    fn()  # the profiler's own first-use cost stays out of the window
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profile_fill()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA and not _filter_name(e.name())
-               and not getattr(e, "is_hidden_event", lambda: False)()]
+    events = list(prof.profiler.kineto_results.events())
+    fill_end = max(e.end_ns() for e in events if e.name() == FILL_RANGE)
+    split = fill_end + int(PROFILE_PAD_S * 5e8)
+    issued = {"fill": {}, "call": {}}
+    device = []
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            if not _filter_name(e.name()) and not getattr(e, "is_hidden_event", lambda: False)():
+                device.append(e)
+        elif any(k in e.name() for k in ("LaunchKernel", "Memcpy", "Memset")):
+            issued["call" if e.start_ns() > split else "fill"][e.correlation_id()] = e.start_ns()
+    seen = {e.correlation_id() for e in device}
+    own = [e for e in device if e.correlation_id() in issued["call"]]
+    lags = [e.start_ns() - issued["call"][e.correlation_id()] for e in own]
+    launches = {"issued": len(issued["call"]), "missing": len(set(issued["call"]) - seen),
+                "fill_issued": len(issued["fill"]), "fill_missing": len(set(issued["fill"]) - seen)}
+    return ([(e.name(), e.start_ns(), e.end_ns()) for e in own], launches,
+            min(lags) / 1e6 if lags else None, wall_ms)
+
+
+def profile_short(kernels, launched) -> dict:
+    """The wrapper kernels that a profile saw fewer times than their
+    wrappers launched them in its call: {device function: [seen,
+    launched]} (empty: the profile is complete for them)."""
+    want = {}
+    for key, n in launched.items():
+        if n and key in PROFILED_KERNELS:
+            want[PROFILED_KERNELS[key]] = want.get(PROFILED_KERNELS[key], 0) + n
+    seen = {fn: sum(1 for name, _, _ in kernels if fn in name) for fn in want}
+    return {fn: [seen[fn], n] for fn, n in want.items() if seen[fn] < n}
+
+
+@timed_phase
+def phase_profile(fn, what):
+    """Device time by kernel over one call of ``fn`` (``profiled``), and the
+    device's idle share between its first and last kernel. A profile that
+    saw no device event of some launch of the call, or fewer kernels of a
+    wrapper than the wrapper's count of the call, is marked short: its
+    device figures are then a lower bound."""
+    fn()  # the profiler's own first-use cost stays out of the window
+    torch.cuda.synchronize()
+    before = read_counts()
+    kernels, launches, lag_ms, wall_ms = profiled(fn)
+    launched = {k: v - before[k] for k, v in read_counts().items() if v - before[k]}
     check(len(kernels) > 0, "the profiler saw no device activity")
+    short = profile_short(kernels, launched)
+    complete = not short and not launches["missing"]
     by_name = {}
     for name, start, end in kernels:
         ms, count = by_name.get(name, (0.0, 0))
@@ -1042,12 +1142,18 @@ def phase_profile(fn, what):
     busy = sum(ms for ms, _ in by_name.values())
     span = (max(end for _, _, end in kernels) - min(start for _, start, _ in kernels)) / 1e6
     rows = sorted(((ms, name, c) for name, (ms, c) in by_name.items()), reverse=True)
+    seen = (f"device events of {launches['issued'] - launches['missing']} of its {launches['issued']} launches, "
+            f"wrapper kernels {'all seen' if not short else f'short {short}'} ({launched}); "
+            f"the fill's {launches['fill_missing']} of {launches['fill_issued']} lost")
     print(f"profile: {what} {wall_ms:.1f} ms wall (profiled); kernels busy {busy:.2f} ms of a "
-          f"{span:.2f} ms device span (idle share {1 - busy / span:.3f})")
+          f"{span:.2f} ms device span (idle share {1 - busy / span:.3f}); {seen}; least launch-to-start lag "
+          f"{'not measured' if lag_ms is None else f'{lag_ms:.4f} ms'}"
+          f"{'' if complete else '; SHORT: its device figures are a lower bound'}")
     for ms, name, count in rows[:8]:
         print(f"  {ms:9.3f} ms  x{count:<3d} {name[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "device_span_ms": span,
-            "idle_share": 1 - busy / span,
+            "idle_share": 1 - busy / span, "launches": launches, "wrapper_launches": launched, "short": short,
+            "complete": complete, "min_launch_lag_ms": lag_ms,
             "top": [{"ms": ms, "name": name, "count": c} for ms, name, c in rows[:12]]}
 
 
@@ -3253,32 +3359,29 @@ def rowid_csr(rows, cols, w, n: int):
 def device_launches(fn, counter, calls: int = 5) -> dict:
     """What one call of ``fn`` adds to the wrapper's count (``counter``, a
     kernel wrapper: one a call, whatever the call launches), and the device
-    work the profiler sees over ``calls`` calls (kernels, fills, copies)
-    with its names and its device ms a call (each kernel's mean event,
-    summed over the kernels): the launches a call, measured; None where the
-    profiler saw no device work (not measured). The profiler records host
-    and device activity together, as the micro benches' does: with the
-    device alone it saw nothing late in a full run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    work the profiler sees over ``calls`` calls (kernels, fills, copies;
+    ``profiled``) with its names and its device ms a call (each kernel's
+    mean event, summed over the kernels): the launches a call, measured;
+    None where the profiler saw no device work (not measured), and the
+    launches it issued without a device event in the profile."""
     before = counter.launches
     fn()
     torch.cuda.synchronize()
     launches = counter.launches - before
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def repeat():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
+
+    events, issued, _, _ = profiled(repeat)
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
-    seen = sum(len(t) for t in by_name.values())
+    for name, start, end in events:
+        by_name.setdefault(name, []).append((end - start) / 1e6)
+    seen = len(events)
     return {"wrapper_count_per_call": launches, "device_work_per_call": seen / calls if seen else None,
-            # each kernel's mean event, summed: the profiler may drop events at long calls
+            # each kernel's mean event, summed
             "device_ms_per_call": sum(sum(t) / len(t) for t in by_name.values()) if seen else None,
-            "kernels_of_a_call": sorted(by_name)}
+            "kernels_of_a_call": sorted(by_name), "profile_launches": issued}
 
 
 def k7_at_shape(rows, w, n, where):
@@ -5072,6 +5175,302 @@ def phase_batched_tgcn(dev, args, workdir):
             "launches": counts}
 
 
+def evolvegcn_records(tr, steps):
+    """The first ``steps`` timesteps of ``tr``'s epoch (an
+    ``EvolveGCNTrainer``), forward and backward from the ``weight``
+    parameter: (loss, the evolved weight, the gradients by name)."""
+    loss, w = tr.backward(steps)
+    grads = {k: p.grad.clone() for k, p in (*tr.conv.named_parameters(), *(
+        (f"head.{k}", p) for k, p in tr.head.named_parameters()))}
+    torch.cuda.synchronize()
+    return loss.item(), w, grads
+
+
+@timed_phase
+def phase_evolvegcn(dev, args, workdir):
+    """``benchmarking/evolvegcn/train.py --variant o|h --dataset wikimath
+    --feat_size 8 --num_hidden 32 --impl kernel`` on the port
+    (``drivers.evolvegcn``): for each variant, first the kernel route
+    against the dense route over the first ``TEMPORAL_PROFILE_STEPS``
+    timesteps from the same seed's parameters (loss and evolved weight to
+    ``STATIC_LOSS_TOL``, gradients to ``STATIC_GRAD_TOL``), then the
+    script's ``EVOLVE_EPOCHS`` epochs, timed (the script averages epochs
+    >= 3), each launching exactly T K1 and T K2 (the weighted SpMM of the
+    GCN aggregate, f32 streams) and nothing else, the loss finite and below
+    the first epoch's at a later one; a profile of the first
+    ``TEMPORAL_PROFILE_STEPS`` timesteps; then K1 and K2 with the arguments
+    a timestep gives them against their plain versions, timed
+    (``k1_k2_at_temporal_shape``)."""
+    from stgraph_tpu_torch.dataset import STGraphDataset
+    from stgraph_tpu_torch.drivers.evolvegcn import EvolveGCNTrainer, load_evolvegcn_dataset
+
+    STGraphDataset._offline = True  # no network here: the synthetic data
+    t0 = time.perf_counter()
+    d = load_evolvegcn_dataset("wikimath", EVOLVE_F, None, os.path.join(workdir, "datasets"))
+    load_s = time.perf_counter() - t0
+
+    def trainer(variant, impl):
+        return EvolveGCNTrainer(d, variant, EVOLVE_F, EVOLVE_H, EVOLVE_LR, impl, dev, args.seed)
+
+    runs, per, last_loss = {}, None, None
+    for variant in ("o", "h"):
+        name = f"EvolveGCN-{variant.upper()}"
+        # the first timesteps on the kernel route against the dense route,
+        # from the same seed's parameters, before any training
+        route = {}
+        for impl in ("kernel", "dense"):
+            reset_counts()
+            route[impl] = evolvegcn_records(trainer(variant, impl), TEMPORAL_PROFILE_STEPS)
+            route[impl + "_launches"] = read_counts()
+        (k_loss, k_w, k_grads), (d_loss, d_w, d_grads) = route["kernel"], route["dense"]
+        loss_err = abs(k_loss - d_loss) / max(abs(d_loss), 1e-30)
+        w_err = (k_w - d_w).abs().max().item() / max(d_w.abs().max().item(), 1e-30)
+        grad_err = {k: (k_grads[k] - v).abs().max().item() / max(v.abs().max().item(), 1e-30)
+                    for k, v in d_grads.items()}
+        ok = (loss_err <= STATIC_LOSS_TOL and w_err <= STATIC_LOSS_TOL and max(grad_err.values()) <= STATIC_GRAD_TOL
+              and route["dense_launches"] == only()
+              and route["kernel_launches"] == only(K1=TEMPORAL_PROFILE_STEPS, K2=TEMPORAL_PROFILE_STEPS))
+        print(f"evolvegcn-check {variant}: the first {TEMPORAL_PROFILE_STEPS} timesteps, kernel route vs dense: "
+              f"loss {k_loss:.6f} / {d_loss:.6f} (err/|loss| {loss_err:.2e}), evolved weight err/max {w_err:.2e} "
+              f"(tol {STATIC_LOSS_TOL:g}), worst gradient err/max {max(grad_err.values()):.2e} (tol "
+              f"{STATIC_GRAD_TOL:g}); launches {route['kernel_launches']} / {route['dense_launches']} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{name}'s kernel route disagrees with its dense route: loss {loss_err}, weight {w_err}, "
+                  f"gradients {grad_err}, launches {route['kernel_launches']} / {route['dense_launches']}")
+        t = time.perf_counter()
+        tr = trainer(variant, "kernel")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        # what the run starts from, for tools/evolvegcn_trajectory.py's --init
+        init = {f"{m}.{k}": v.cpu().numpy().tolist() for m, mod in (("conv", tr.conv), ("head", tr.head))
+                for k, v in mod.state_dict().items()}
+        n, e, steps = tr.num_nodes, tr.graph.fwd_csr.num_edges, tr.total
+        expected = only(K1=steps, K2=steps)
+        reset_counts()
+        losses, times, per_epoch = [], [], []
+        for _ in range(EVOLVE_EPOCHS):
+            before = read_counts()
+            t = time.perf_counter()
+            last_loss = tr.epoch()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(last_loss.item())
+            per_epoch.append({k: v - before[k] for k, v in read_counts().items()})
+        counts = read_counts()
+        avg_s = float(np.mean(times[3:]))  # the script's average: epochs >= 3
+        profile = phase_profile(lambda: tr.backward(TEMPORAL_PROFILE_STEPS), f"the first {TEMPORAL_PROFILE_STEPS} "
+                                f"timesteps of an {name} epoch")
+        print(f"evolvegcn {variant}: WikiMath N={n}, E={e}, T={steps} timesteps, F={EVOLVE_F} H={EVOLVE_H}, kernel "
+              f"route (data {load_s:.2f} s, set-up {setup_s:.2f} s); {EVOLVE_EPOCHS} epochs, s "
+              f"{[round(v, 3) for v in times]} (avg >= 3: {avg_s:.4f} s), loss {[round(v, 5) for v in losses]}; "
+              f"launches an epoch {per_epoch[0]}; idle share {profile['idle_share']:.3f}")
+        check(all(c == expected for c in per_epoch), f"an {name} epoch launched {per_epoch}, expected {expected}")
+        check(all(np.isfinite(losses)), f"non-finite {name} loss: {losses}")
+        # one Adam step an epoch through 723 timesteps of BPTT: the loss
+        # swings from epoch to epoch at the script's lr, so what is checked
+        # is that training takes it below the first epoch's
+        check(min(losses[1:]) < losses[0], f"the {name} loss never fell below the first epoch's: {losses}")
+        if per is None:  # K1 and K2 take the same arguments' shapes in both variants
+            per = k1_k2_at_temporal_shape("evolvegcn", lambda: tr.backward(1), None)
+        runs[variant] = {"n": n, "e": e, "timesteps": steps, "F": EVOLVE_F, "H": EVOLVE_H, "route": "kernel",
+                         "load_s": load_s, "setup_s": setup_s, "epoch_s": times, "avg_epoch_s": avg_s,
+                         "loss": losses, "launches": counts, "launches_per_epoch": per_epoch,
+                         "profile": profile, "profile_timesteps": TEMPORAL_PROFILE_STEPS, "init": init,
+                         "data": {"targets_f64_sum": float(tr.ys.double().sum()),
+                                  "targets_f64_abs_sum": float(tr.ys.double().abs().sum()),
+                                  "csr_rows_sum": int(tr.graph.fwd_csr.rows.long().sum()),
+                                  "csr_cols_sum": int(tr.graph.fwd_csr.cols.long().sum())},
+                         "kernel_vs_dense": {"timesteps": TEMPORAL_PROFILE_STEPS, "loss": [k_loss, d_loss],
+                                             "loss_err": loss_err, "weight_err": w_err, "grad_err": grad_err}}
+    return {"runs": runs, "per_launch": per, "loss": last_loss}
+
+
+def segment_sum_edges_bound(n: int, e: int, k: int, elem_bytes: int):
+    """Least time for one ``segment_sum_edges`` call: indptr and the (E, K)
+    plane of the values' dtype read once, the (N, K) f32 output written
+    once; or one add per edge and column."""
+    nbytes = (n + 1) * 4 + e * k * elem_bytes + n * k * 4
+    ops = e * k
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+@timed_phase
+def phase_segment_sum_edges(dev, rng, n=100_000, e=1_000_000, hub_deg=150_000):
+    """``ops.segment_sum_edges`` on the composed check graph (``check_graph``:
+    a hub each way, empty rows and row blocks, padding slots) at K in
+    ``SEGMENT_SUM_EDGES_K``, f32 and bf16 values with NaN in every padding
+    slot: one launch of K3 (K <= 16) or of K1's no-gather mode a call (bf16
+    values also take one PyTorch cast to an f32 plane first), into a
+    poisoned output, within ``KERNEL_TOL`` of each output's sum of |terms|
+    of its plain version (the no-gather sum's bf16 stream only for bf16
+    values), an f32 result; the backward equal to the gather
+    ``g[rows_clamped] * edge_mask`` and launching nothing; then each call
+    timed (the bf16 cast included) beside its plain version,
+    ``torch.segment_reduce`` and its bound."""
+    from stgraph_tpu_torch.ops import segment_kernels as SK
+    from stgraph_tpu_torch.ops import segment_sum_edges
+
+    csr, _ = check_graph(dev, rng, n, e, hub_deg)
+    e_real = csr.num_edges
+    rows_c, mask = csr.rows_clamped.long(), csr.edge_mask[:, None].float()
+    per, worst = [], {"K3": 0.0, "K1_nogather": 0.0}
+    for k in SEGMENT_SUM_EDGES_K:
+        key = "K3" if k <= SK.MAX_NARROW_K else "K1_nogather"
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            vals = torch.from_numpy(rng.standard_normal((csr.capacity, k), dtype=np.float32)).to(dev).to(dtype)
+            vals[e_real:] = float("nan")
+            if key == "K3":
+                def plain(v):
+                    return SK.segment_sum_narrow_plain(csr, v, 1 << 24)
+            else:
+                def plain(v, bf16=dtype == torch.bfloat16):
+                    return SK.segment_sum_wide_plain(csr, v, 1 << 24, round_bf16=bf16)
+
+            def call(vals=vals):
+                return segment_sum_edges(csr, vals)
+
+            call()  # the plan, built once
+            reset_counts()
+            out = poisoned_call((n, k), call)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(counts == only(**{key: 1}), f"segment_sum_edges K={k} {name} launched {counts}, expected one {key}")
+            check(out.dtype == torch.float32, f"segment_sum_edges K={k} {name} returned {out.dtype}")
+            (a, r, _), = _stats([out], [plain(vals)], [plain(vals.abs())])
+            del out
+            v = vals.clone().requires_grad_()
+            g = torch.from_numpy(rng.standard_normal((n, k), dtype=np.float32)).to(dev)
+            reset_counts()
+            segment_sum_edges(csr, v).backward(g)
+            torch.cuda.synchronize()
+            bwd_ok = torch.equal(v.grad, (g[rows_c] * mask).to(dtype)) and read_counts() == only(**{key: 1})
+            ok = r <= KERNEL_TOL and bwd_ok
+            bound_ms, bound_by, nbytes, ops = segment_sum_edges_bound(n, e_real, k, vals.element_size())
+            ms = cuda_ms(call, iters=20, warmup=2)
+            cast = " (and the cast to f32 before it)" if dtype == torch.bfloat16 else ""
+            plain_ms = cuda_ms(lambda: plain(vals), iters=3)
+            lib_ms = _library_segment_sum_ms(csr, vals, e_real)
+            print(f"segment-sum-edges K={k} {name} ({key}): N={n} E={e_real}, NaN padding: max_abs_err {a:.3e} "
+                  f"(err/sum|terms| {r:.2e}, tol {KERNEL_TOL:g}), one kernel launch{cast}, f32 out, backward the gather "
+                  f"{'ok' if bwd_ok else 'FAIL'}; {ms:.4f} ms (plain {plain_ms:.3f} ms, segment_reduce {lib_ms} ms, "
+                  f"bound {bound_ms:.4f} ms by {bound_by}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"segment_sum_edges K={k} {name} disagrees: forward {r}, backward gather {bwd_ok}")
+            worst[key] = max(worst[key], a)
+            per.append({"where": f"segment_sum_edges K={k} {name}", "kernel": key, "K": k, "stream": name,
+                        "N": n, "E": e_real, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "library": "torch.segment_reduce(sum)", "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bytes": nbytes, "ops": ops, "max_abs_err": a, "err_over_mass": r,
+                        "cast_to_f32_launch": dtype == torch.bfloat16})
+            del vals, v, g
+    return {"per_launch": per, "max_abs_err": worst}
+
+
+@timed_phase
+def phase_utilities(dev, workdir, loss):
+    """The port's utilities on the card: ``DeviceInfo``'s rows,
+    ``device_memory_stats`` against the allocator's own peak and the card's
+    memory, a ``Timer`` around synced K1 calls (against CUDA events),
+    ``profiler.trace`` of one K1 call in a fresh process (``trace_worker``)
+    writing a trace under the workdir that holds K1's kernel once, the same
+    trace in this process after ``profile_fill`` (recorded),
+    ``fetch_float`` of EvolveGCN's last loss against ``.item()``;
+    ``d2h_available()`` must still be true at the end."""
+    from stgraph_tpu_torch.graph.csr import build_csr
+    from stgraph_tpu_torch.ops import spmm_kernels as SK
+    from stgraph_tpu_torch.utils import DeviceInfo, d2h_available, fetch_float, profiler
+
+    info = DeviceInfo()
+    rows = info.rows()
+    info.log()
+    check(len(rows) == torch.cuda.device_count() and rows[0]["platform"] == "gpu"
+          and rows[0]["kind"] == torch.cuda.get_device_name(0), f"DeviceInfo's rows {rows}")
+    stats = profiler.device_memory_stats()
+    peak, limit = torch.cuda.max_memory_allocated(0), torch.cuda.get_device_properties(0).total_memory
+    check(stats["cuda:0"]["peak_bytes_in_use"] == peak and stats["cuda:0"]["bytes_limit"] == limit,
+          f"device_memory_stats {stats} against the allocator's peak {peak} and the card's {limit} B")
+    rng = np.random.default_rng(0)
+    n, e, f = 100_000, 1_000_000, 64
+    csr = build_csr(rng.integers(0, n, e), rng.integers(0, n, e), n, device=dev)
+    x = torch.from_numpy(rng.standard_normal((n, f), dtype=np.float32)).to(dev)
+    SK.spmm_rowmask(csr, None, x)  # the work items, built once
+    timer, calls = profiler.Timer(), 5
+    before = SK.spmm_rowmask.launches
+    for _ in range(calls):
+        with timer.time("k1") as sync:
+            sync.value = SK.spmm_rowmask(csr, None, x)[0]
+    check(SK.spmm_rowmask.launches - before == calls, "the timed K1 calls did not launch K1 once each")
+    k1_ms = cuda_ms(lambda: SK.spmm_rowmask(csr, None, x), iters=20, warmup=2)
+    # profiler.trace in a fresh process (trace_worker), where the profiler
+    # keeps a window's first device events (PROFILE_FILLERS): one K1 call
+    logdir = os.path.join(workdir, "trace")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace-worker", logdir], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    worker_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"the trace worker failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    worker = json.loads(proc.stdout.strip().splitlines()[-1])
+    trace = trace_kernels(logdir)
+    check(worker["k1_launches"] == 1 and trace["k1_kernels"] == 1,
+          f"profiler.trace of one K1 call in a fresh process: {worker['k1_launches']} launches, {trace}")
+    # the same in this process, late in the run, after profile_fill: what
+    # the fill recovers (recorded, not checked)
+    late_dir = os.path.join(workdir, "trace_late")
+    with profiler.trace(late_dir):
+        profile_fill()
+        SK.spmm_rowmask(csr, None, x)
+        torch.cuda.synchronize()
+    late = trace_kernels(late_dir)
+    fetched, item = fetch_float(loss), loss.item()
+    available = d2h_available()
+    print(f"utilities: DeviceInfo {rows}; device_memory_stats peak {stats['cuda:0']['peak_bytes_in_use']} B = "
+          f"max_memory_allocated, limit {limit} B; Timer over {calls} synced K1 calls (N={n}, E={e}, F={f}) "
+          f"{timer.mean('k1') * 1e3:.4f} ms a call on the host clock (CUDA events {k1_ms:.4f} ms); trace of one "
+          f"K1 call in a fresh process ({worker_s:.1f} s) {trace['file']}: {trace['events']} events "
+          f"({trace['categories']}), {trace['kernels']} device kernels, {trace['k1_kernels']} of them K1's; the same "
+          f"in this process after {PROFILE_FILLERS} fill kernels: {late['kernels']} device kernels, {late['k1_kernels']} "
+          f"K1's; "
+          f"fetch_float(EvolveGCN loss) {fetched!r} (.item() {item!r}); d2h_available {available}")
+    check(fetched == item, f"fetch_float gave {fetched}, .item() {item}")
+    check(available, "a device fetch timed out: d2h_available() latched false")
+    return {"device_info": rows, "memory_stats": stats, "timer": timer.summary(), "k1_cuda_events_ms": k1_ms,
+            "trace": trace, "trace_worker_s": worker_s, "trace_in_process_padded": late, "fetch_float": fetched,
+            "d2h_available": available}
+
+
+def trace_kernels(logdir) -> dict:
+    """The one Chrome trace that ``profiler.trace`` wrote into ``logdir``:
+    its events, their categories, its device kernels and K1's among them."""
+    files = os.listdir(logdir)
+    check(len(files) == 1, f"profiler.trace wrote {files}")
+    with open(os.path.join(logdir, files[0])) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    kernels = [str(ev.get("name")) for ev in events if str(ev.get("cat")).lower() == "kernel"]
+    return {"file": files[0], "events": len(events), "categories": sorted({str(ev.get("cat")) for ev in events}),
+            "kernels": len(kernels), "k1_kernels": sum(PROFILED_KERNELS["K1"] in k for k in kernels)}
+
+
+def trace_worker(dev, logdir) -> None:
+    """``phase_utilities``' fresh process: one K1 call (N = 100,000, E =
+    1,000,000, F = 64, its work items built by a first call) inside
+    ``utils.profiler.trace(logdir)``; prints its K1 launches as JSON."""
+    from stgraph_tpu_torch.graph.csr import build_csr
+    from stgraph_tpu_torch.ops import spmm_kernels as SK
+    from stgraph_tpu_torch.utils import profiler
+
+    rng = np.random.default_rng(0)
+    n, e, f = 100_000, 1_000_000, 64
+    csr = build_csr(rng.integers(0, n, e), rng.integers(0, n, e), n, device=dev)
+    x = torch.from_numpy(rng.standard_normal((n, f), dtype=np.float32)).to(dev)
+    SK.spmm_rowmask(csr, None, x)
+    torch.cuda.synchronize()
+    before = SK.spmm_rowmask.launches
+    with profiler.trace(logdir):
+        SK.spmm_rowmask(csr, None, x)
+        torch.cuda.synchronize()
+    print(json.dumps({"k1_launches": SK.spmm_rowmask.launches - before}))
+
+
 def dist_worker(rank, world, port, out_path, seed, backend):
     """One of ``phase_dist_halo_2rank``'s ranks on ``backend`` (gloo on the
     one card, or NCCL on a card each), ``train.py``'s
@@ -5335,6 +5734,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--details", help="write every measurement of the run to this JSON file")
     ap.add_argument("--dist-worker", help=argparse.SUPPRESS)  # RANK,WORLD,PORT,OUT,BACKEND: one rank of dist-halo
+    ap.add_argument("--trace-worker", help=argparse.SUPPRESS)  # LOGDIR: the utilities phase's fresh process
     ap.add_argument("--dist-ranks", type=int,
                     help="run only dist-halo-2rank, with this many ranks (NCCL on a card each where there are enough)")
     args = ap.parse_args()
@@ -5355,6 +5755,9 @@ def main() -> int:
     if args.dist_worker:
         rank, world, port, out, backend = args.dist_worker.split(",")
         dist_worker(int(rank), int(world), int(port), out, args.seed, backend)
+        return 0
+    if args.trace_worker:
+        trace_worker(dev, args.trace_worker)
         return 0
     rng = np.random.default_rng(args.seed)
     record = {"args": vars(args)}
@@ -5465,6 +5868,12 @@ def main() -> int:
             del dyn_stream_data
             torch.cuda.empty_cache()
             record["batched_tgcn"] = phase_batched_tgcn(dev, args, workdir)
+            # EvolveGCN's two variants, segment_sum_edges and the utilities
+            evolve = phase_evolvegcn(dev, args, workdir)
+            record["evolvegcn"], record["evolvegcn_main"] = evolve["runs"], evolve["per_launch"]
+            record["segment_sum_edges"] = phase_segment_sum_edges(dev, np.random.default_rng(args.seed + 11))
+            record["utilities"] = phase_utilities(dev, workdir, evolve["loss"])
+            del evolve
             record["dist_halo_2rank"] = phase_dist_halo_2rank(dev, args, workdir)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -5485,8 +5894,13 @@ def main() -> int:
     by_path.update({f"pma-scan:{name}": r["launches"] for name, r in record["pma_scan"].items()})
     by_path["dist-dyn"] = record["dist_dyn"]["launches"]
     by_path["batched-tgcn"] = record["batched_tgcn"]["launches"]
+    by_path.update({f"evolvegcn:{variant}": r["launches"] for variant, r in record["evolvegcn"].items()})
     temporal = record["static_temporal_checks"]["per_launch"]
     wiki_temporal = record["dynamic_temporal"]["wiki-shape"]["per_launch"]
+    evolve_main = record["evolvegcn_main"]
+    seg_edges = record["segment_sum_edges"]
+    seg_edges_shapes = {key: {p["where"]: p for p in seg_edges["per_launch"] if p["kernel"] == key}
+                        for key in ("K3", "K1_nogather")}
     rowmask_paths = ("pubmed-rowmask", "rowmask-ppi")
     dist_paths = ("dist-gcn-training", "batched-tgcn")
     one_head_paths = tuple(path for path in by_path if path not in rowmask_paths + dist_paths)
@@ -5518,9 +5932,9 @@ def main() -> int:
         kernel_entry("spmm_rowmask (K1, one head: H=1, F=128, 128, 47, bf16 stream)",
                      "stgraph_tpu_torch/csrc/spmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:761", "K1", by_path,
                      max(record["k1_checks"]["max_abs_err"], k1_err, temporal["K1"]["max_abs_err"],
-                         wiki_temporal["K1"]["max_abs_err"]),
+                         wiki_temporal["K1"]["max_abs_err"], evolve_main["K1"]["max_abs_err"]),
                      [dict(p, H=1) for p in k1_launch], paths=one_head_paths, temporal_shape=temporal["K1"],
-                     temporal_wiki_shape=wiki_temporal["K1"]),
+                     temporal_wiki_shape=wiki_temporal["K1"], evolvegcn_shape=evolve_main["K1"]),
         kernel_entry(f"spmm_rowmask (K1, heads and denominator: H={h}, F={f}, bf16 stream at PPI size, f32 on "
                      "Pubmed)", "stgraph_tpu_torch/csrc/spmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:761",
                      "K1", by_path, max(rowmask_checks["K1"], rowmask_ppi["max_abs_err"]["K1"]), rowmask_main["K1"],
@@ -5529,11 +5943,12 @@ def main() -> int:
                      "stgraph_tpu_torch/csrc/spmm_sddmm_rowmask.cu",
                      "stgraph_tpu/ops/segment_pallas.py:1248", "K2", by_path,
                      max(record["k2_checks"]["max_abs_err"], k2_err, record["dist_k1_traced_checks"]["max_abs_err"]["K2"],
-                         temporal["K2"]["max_abs_err"], wiki_temporal["K2"]["max_abs_err"]),
+                         temporal["K2"]["max_abs_err"], wiki_temporal["K2"]["max_abs_err"],
+                         evolve_main["K2"]["max_abs_err"]),
                      # a training step's three launches: F = 128, 128, 47
                      [dict(p, H=1) for f_ in (128, 128, 47) for p in k2_launch if p["F"] == f_],
                      paths=one_head_paths, designs=k2_designs, temporal_shape=temporal["K2"],
-                     temporal_wiki_shape=wiki_temporal["K2"]),
+                     temporal_wiki_shape=wiki_temporal["K2"], evolvegcn_shape=evolve_main["K2"]),
         kernel_entry(f"spmm_sddmm_rowmask (K2, heads: H={h}, F={f}, bf16 stream at PPI size, f32 on Pubmed)",
                      "stgraph_tpu_torch/csrc/spmm_sddmm_rowmask.cu", "stgraph_tpu/ops/segment_pallas.py:1248", "K2",
                      by_path, max(rowmask_checks["K2"], rowmask_ppi["max_abs_err"]["K2"]), rowmask_main["K2"],
@@ -5541,8 +5956,10 @@ def main() -> int:
         kernel_entry(f"segment_sum_wide (K1's no-gather mode, K={h}, bf16 stream at PPI size, f32 on Pubmed)",
                      "stgraph_tpu_torch/csrc/segment_sum_wide.cu", "stgraph_tpu/ops/segment_pallas.py:710",
                      "K1_nogather", by_path, max(rowmask_checks["K1_nogather"],
-                                                 rowmask_ppi["max_abs_err"]["K1_nogather"]),
-                     rowmask_main["K1_nogather"], rowmask_main["K1_nogather"][0]["library"]),
+                                                 rowmask_ppi["max_abs_err"]["K1_nogather"],
+                                                 seg_edges["max_abs_err"]["K1_nogather"]),
+                     rowmask_main["K1_nogather"], rowmask_main["K1_nogather"][0]["library"],
+                     by_shape=seg_edges_shapes["K1_nogather"]),
         kernel_entry(f"segment_max_wide (K5, K={h})", "stgraph_tpu_torch/csrc/segment_max_wide.cu",
                      "stgraph_tpu/ops/segment_pallas.py:466", "K5", by_path, rowmask_ppi["max_abs_err"]["K5"],
                      rowmask_main["K5"], rowmask_main["K5"][0]["library"],
@@ -5550,9 +5967,10 @@ def main() -> int:
         kernel_entry("segment_sum_narrow (K3)", "stgraph_tpu_torch/csrc/segment_sum_narrow.cu",
                      "stgraph_tpu/ops/segment_pallas.py:155", "K3", by_path,
                      max(record["composed_checks"]["max_abs_err"]["K3"], composed_err["K3"],
-                         composed["max_abs_err"]["K3"]), composed_launch["K3"],
+                         composed["max_abs_err"]["K3"], seg_edges["max_abs_err"]["K3"]), composed_launch["K3"],
                      "torch.segment_reduce(sum) over the CSR-order (E, H) plane", designs=k3_designs,
-                     by_shape={**composed_launch["K3_by_shape"], "ogbn forward K=4": composed["main"]["K3"]}),
+                     by_shape={**composed_launch["K3_by_shape"], "ogbn forward K=4": composed["main"]["K3"],
+                               **seg_edges_shapes["K3"]}),
         kernel_entry("segment_max_narrow (K4)", "stgraph_tpu_torch/csrc/segment_max_narrow.cu",
                      "stgraph_tpu/ops/segment_pallas.py:235", "K4", by_path,
                      max(record["gat_checks"]["max_abs_err"]["K4"], gat_err["K4"]), gat_launch["K4"],

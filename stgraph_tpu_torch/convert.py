@@ -26,6 +26,12 @@ vectors carry over as they are.
 kernel is (in, out) and an ``nn.Linear`` weight (out, in): it is
 transposed.
 
+``evolvegcn_params_from_jax`` does the same for a flax ``EvolveGCNO`` or
+``EvolveGCNH`` tree (``weight``, the H variant's ``summarize_p``, and
+``gru`` with its six ``Dense`` maps), loadable into
+``stgraph_tpu_torch.nn.EvolveGCNO``/``EvolveGCNH``: the maps' kernels are
+transposed as ``TGCN``'s.
+
 ``linear_params_from_jax`` does the same for a flax ``Dense`` tree
 (``kernel``, ``bias``), loadable into an ``nn.Linear`` (the drivers'
 regression head): the (in, out) kernel becomes the (out, in) weight.
@@ -62,6 +68,7 @@ __all__ = [
     "dist_gat_params_from_jax",
     "dist_gcn_params_from_jax",
     "dist_tgcn_params_from_jax",
+    "evolvegcn_params_from_jax",
     "gat_params_from_jax",
     "gcn_params_from_jax",
     "lazy_pair_from_jax",
@@ -210,3 +217,25 @@ def pma_pair_from_jax(pair, device=None):
     on ``device`` (default ``cuda``)."""
     dev = resolve_device(device)
     return PMAGraphPair(fwd=_pma_store_from_jax(pair.fwd, dev), bwd=_pma_store_from_jax(pair.bwd, dev))
+
+
+_GRU_MAPS = ("wz_x", "wz_h", "wr_x", "wr_h", "wh_x", "wh_h")
+
+
+def evolvegcn_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``EvolveGCNO``/``EvolveGCNH`` parameter tree (numpy leaves) as
+    a torch ``state_dict``: ``weight`` (and the H variant's ``summarize_p``)
+    as they are, each GRU map's (in, out) ``kernel`` transposed into
+    ``gru.<map>.weight``, and the ``bias`` of the maps that have one."""
+    tree = params.get("params", params)
+    if set(tree) - {"summarize_p"} != {"weight", "gru"} or set(tree["gru"]) != set(_GRU_MAPS):
+        raise ValueError(f"not an EvolveGCN parameter tree: keys {sorted(tree)}")
+    out = {"weight": _tensor(tree["weight"])}
+    if "summarize_p" in tree:
+        out["summarize_p"] = _tensor(tree["summarize_p"])
+    for name in _GRU_MAPS:
+        dense = tree["gru"][name]
+        out[f"gru.{name}.weight"] = _tensor(dense["kernel"]).T.contiguous()
+        if "bias" in dense:
+            out[f"gru.{name}.bias"] = _tensor(dense["bias"])
+    return out

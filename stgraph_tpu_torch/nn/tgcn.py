@@ -31,12 +31,13 @@ _CLAMP = 1e6
 _TRUNC_STD = 0.87962566103423978
 
 
-def _lecun_dense(in_features: int, out_features: int, device, generator) -> nn.Linear:
-    linear = nn.Linear(in_features, out_features, device=device)
+def _lecun_dense(in_features: int, out_features: int, device, generator, bias: bool = True) -> nn.Linear:
+    linear = nn.Linear(in_features, out_features, bias=bias, device=device)
     std = 1.0 / math.sqrt(in_features) / _TRUNC_STD
     with torch.no_grad():
         nn.init.trunc_normal_(linear.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-        linear.bias.zero_()
+        if bias:
+            linear.bias.zero_()
     return linear
 
 

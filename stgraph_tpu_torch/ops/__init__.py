@@ -3,7 +3,8 @@
 Counterpart of ``stgraph_tpu/ops/``: plain torch paths (the port's oracle),
 the dense-adjacency path, GAT's attention (``attention``, ``flash_gat``,
 and the blocked multi-head SpMM ``spmm_blocked``),
-the dynamic store pairs' SpMM and norm (``dyn_spmm``: PMA and lazy), and the hand-written
+the dynamic store pairs' SpMM and norm (``dyn_spmm``: PMA and lazy), the
+edge-value segment sum ``segment_sum_edges``, and the hand-written
 CUDA kernels behind one functional API. Kernels are
 built and loaded only when a CUDA tensor first reaches them, never at
 import.
@@ -72,6 +73,7 @@ from stgraph_tpu_torch.ops.spmm_blocked import (
     segment_sum_blocked_plain,
     spmm_multihead,
 )
+from stgraph_tpu_torch.ops.spmm_cuda import segment_sum_edges
 from stgraph_tpu_torch.ops.spmm_kernels import (
     spmm_rowmask,
     spmm_rowmask_bwd,
@@ -120,6 +122,7 @@ __all__ = [
     "segment_sum",
     "segment_sum_blocked",
     "segment_sum_blocked_plain",
+    "segment_sum_edges",
     "segment_sum_narrow",
     "segment_sum_narrow_plain",
     "sparse_gat_attention",

@@ -482,13 +482,17 @@ def wide_stream_is_bf16(csr: CSR, vals: torch.Tensor) -> bool:
     return csr.capacity >= WIDE_BF16_MIN_SLOTS and vals.dtype == torch.float32
 
 
-def segment_sum_wide_plain(csr: CSR, vals: torch.Tensor, edge_block: Optional[int] = None) -> torch.Tensor:
+def segment_sum_wide_plain(csr: CSR, vals: torch.Tensor, edge_block: Optional[int] = None,
+                           round_bf16: Optional[bool] = None) -> torch.Tensor:
     """The no-gather sum's plain version: each value rounded to bf16 when
-    ``wide_stream_is_bf16``, then a masked ``index_add`` over the real edges
-    in f64, rounded once to f32 (the reference that the kernel's f32 sums
-    approximate). ``edge_block`` bounds the temporaries."""
+    ``round_bf16`` (default ``wide_stream_is_bf16``), then a masked
+    ``index_add`` over the real edges in f64, rounded once to f32 (the
+    reference that the kernel's f32 sums approximate). ``edge_block`` bounds
+    the temporaries."""
     k = _check_wide(csr, vals)
-    dt = torch.bfloat16 if wide_stream_is_bf16(csr, vals) else vals.dtype
+    if round_bf16 is None:
+        round_bf16 = wide_stream_is_bf16(csr, vals)
+    dt = torch.bfloat16 if round_bf16 else vals.dtype
     e = int(csr.host_arrays()[0][-1])
     out = torch.zeros(csr.num_nodes, k, dtype=torch.float64, device=vals.device)
     block = max(e, 1) if edge_block is None else edge_block
@@ -498,20 +502,23 @@ def segment_sum_wide_plain(csr: CSR, vals: torch.Tensor, edge_block: Optional[in
     return out.float()
 
 
-def segment_sum_wide(csr: CSR, vals: torch.Tensor) -> torch.Tensor:
+def segment_sum_wide(csr: CSR, vals: torch.Tensor, round_bf16: Optional[bool] = None) -> torch.Tensor:
     """K1's no-gather mode: ``out[d, k] = sum over row d of vals[e, k]``,
     (N, K) f32, any K; empty rows give 0. ``vals`` is (capacity, K) in CSR
-    order, rounded to bf16 when ``wide_stream_is_bf16``. Not
-    differentiable: ``SegmentSumWide`` is."""
+    order, rounded to bf16 when ``round_bf16`` (default
+    ``wide_stream_is_bf16``: the caller that follows JAX's attention route
+    lets the graph's size decide, ``segment_sum_edges`` the values' dtype).
+    Not differentiable: ``SegmentSumWide`` is."""
     k = _check_wide(csr, vals)
+    if round_bf16 is None:
+        round_bf16 = wide_stream_is_bf16(csr, vals)
     if vals.device.type == "cpu":
-        return segment_sum_wide_plain(csr, vals)
+        return segment_sum_wide_plain(csr, vals, round_bf16=round_bf16)
 
     lib = kernel_lib.load("segment_sum_wide", _WIDE_SUM_SIGNATURES)
     dev = vals.device
     if csr.device != dev:
         raise ValueError(f"the no-gather sum needs the CSR and vals on one CUDA device, got {csr.device} and {dev}")
-    round_bf16 = wide_stream_is_bf16(csr, vals)
     n = csr.num_nodes
     # allocated first, so the poisoned-output checks find it in the block freed just before
     out = torch.empty(n, k, dtype=torch.float32, device=dev)
@@ -545,9 +552,16 @@ segment_sum_wide.launches = 0  # kernel launches since the count was last reset
 
 class SegmentSumWide(SegmentSumNarrow):
     """``segment_sum_wide`` with the JAX custom VJP's destination gather
-    (``segment_pallas.py:741-747``), ``SegmentSumNarrow``'s backward."""
+    (``segment_pallas.py:741-747``), ``SegmentSumNarrow``'s backward.
+    ``round_bf16`` is ``segment_sum_wide``'s."""
 
     @staticmethod
-    def forward(ctx, vals, csr):
+    def forward(ctx, vals, csr, round_bf16=None):
         ctx.csr = csr
-        return segment_sum_wide(csr, vals)
+        if round_bf16 is None:  # the wrapper's own default, its call unchanged for the attention routes
+            return segment_sum_wide(csr, vals)
+        return segment_sum_wide(csr, vals, round_bf16=round_bf16)
+
+    @staticmethod
+    def backward(ctx, g):
+        return SegmentSumNarrow.backward(ctx, g) + (None,)

@@ -14,20 +14,30 @@ only for the TPU's compile-request limit and has no counterpart.
 Multi-head weighted sums take K1's and K2's heads modes through the same
 function where the row-wise kernel takes the tiling (``rowmask_eligible``),
 and the blocked kernel K10 (``ops.spmm_blocked``) otherwise.
+
+``segment_sum_edges`` is the counterpart of ``spmm_pallas.segment_sum_edges``
+(``:691-737``): CSR-ordered edge values summed into their destination rows,
+with a gather for its backward. JAX permutes the values into blocked order
+for its selection-matmul kernel (K10); CSR order is already sorted by
+destination, so the port sums the rows in place: K3 up to ``MAX_NARROW_K``
+trailing columns, K1's no-gather mode past it, at every graph size (JAX
+always takes its kernel here).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from stgraph_tpu_torch.graph.csr import CSR
 from stgraph_tpu_torch.ops import message as _msg
+from stgraph_tpu_torch.ops import segment_kernels as _sk
 from stgraph_tpu_torch.ops.spmm_blocked import rowmask_eligible, spmm_multihead
 from stgraph_tpu_torch.ops.spmm_kernels import spmm_rowmask, spmm_rowmask_bwd, spmm_rowmask_traced
 
-__all__ = ["spmm", "spmm_traced"]
+__all__ = ["segment_sum_edges", "spmm", "spmm_traced"]
 
 # f32 inputs on graphs at least this large stream bf16 through K1 and K2
 # (f32 sums), as in the JAX package: it halves the dominant gathered stream.
@@ -129,3 +139,29 @@ def spmm_traced(csr: CSR, h: torch.Tensor, w: Optional[torch.Tensor] = None, hea
     the transpose (unweighted) or K2 (weighted) on the same stream.
     """
     return _RowmaskSpmm.apply(h, w, csr, None, heads, True).to(h.dtype)
+
+
+def segment_sum_edges(csr: CSR, edge_vals: torch.Tensor, blocked=None) -> torch.Tensor:
+    """Sum CSR-ordered edge values into their destination rows.
+
+    ``edge_vals`` is (capacity, ...) in CSR edge order; the result is
+    (num_nodes, ...) f32, whatever the values' dtype (bf16 values are summed
+    in f32), as JAX's kernel returns it. Padding slots add nothing. The
+    backward is a gather: each real edge takes its destination row's
+    cotangent, padding slots 0. On a CUDA tensor K3 or K1's no-gather mode
+    sums (one kernel launch a call; bf16 values are first widened to an f32
+    plane by one PyTorch cast, as both kernels read f32); CPU tensors take
+    their plain versions.
+    ``blocked`` is accepted for the JAX signature and ignored: the port
+    needs no blocked layout here.
+    """
+    if edge_vals.shape[0] != csr.capacity:
+        raise ValueError(f"edge_vals must have {csr.capacity} rows (the CSR's capacity), got {edge_vals.shape[0]}")
+    trailing = tuple(edge_vals.shape[1:])
+    k = int(np.prod(trailing)) if trailing else 1
+    v = edge_vals.reshape(csr.capacity, k)
+    if k <= _sk.MAX_NARROW_K:
+        out = _sk.SegmentSumNarrow.apply(v, csr)
+    else:  # bf16 stream only for bf16 values (JAX's K10 streams f32 for f32 values at every size)
+        out = _sk.SegmentSumWide.apply(v, csr, v.dtype == torch.bfloat16)
+    return out.reshape((csr.num_nodes,) + trailing)

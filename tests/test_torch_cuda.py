@@ -5,8 +5,9 @@ plain versions, and the GCN forward, a GCN training step, GAT training
 steps on the flash route (with and without attention dropout) and on the
 composed route's blocked and rowmask branches, TGCN on a lazy dynamic
 store pair, K6 with a table wider than its output (and its refusal of
-one too short), and ``pma_spmm`` and ``pma_norm`` on a PMA pair on CUDA
-against the CPU. Marked ``cuda``: they skip where no card
+one too short), ``pma_spmm`` and ``pma_norm`` on a PMA pair,
+``segment_sum_edges`` (K3 and the no-gather sum) and EvolveGCN's kernel
+route on CUDA against the CPU. Marked ``cuda``: they skip where no card
 is present. On a machine with a card and without jax they run without the
 suite's conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest``.
@@ -1226,4 +1227,60 @@ def test_dist_gcn_step_at_world_size_one_on_cuda_matches_cpu(cuda, rng):
     finally:
         launch.shutdown()
     for got, want in zip(res["kernel"], res["torch"]):
+        assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("k", [4, 16, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_edges_on_the_card(cuda, rng, k, dtype):
+    """``ops.segment_sum_edges`` on the card: one launch of K3 (k <= 16) or
+    of the no-gather sum a call, f32 out, NaN in the padding slots never
+    read, the forward within 2e-4 of each output's sum of |terms| of the
+    CPU's plain version, and the gather backward equal to the CPU's."""
+    from stgraph_tpu_torch.ops import segment_sum_edges
+
+    n, e = 3000, 60_000
+    src, dst = _graph(rng, n, e, hub_deg=5 * ROW_CHUNK + 3)
+    csr, csr_cpu = (build_csr(src, dst, n, capacity=e + 64, device=d) for d in (cuda, "cpu"))
+    vals = torch.from_numpy(rng.standard_normal((csr.capacity, k)).astype(np.float32)).to(dtype)
+    vals[e:] = float("nan")
+    counter = segment_sum_narrow if k <= SK.MAX_NARROW_K else segment_sum_wide
+    before = counter.launches
+    v = vals.to(cuda).requires_grad_()
+    out = segment_sum_edges(csr, v)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 and out.dtype == torch.float32
+    ref = segment_sum_edges(csr_cpu, vals)
+    mass = segment_sum_edges(csr_cpu, torch.nan_to_num(vals.float().abs(), nan=0.0))
+    _within_mass(out.cpu(), ref, mass)
+    g = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
+    out.backward(g.to(cuda))
+    want = g[csr_cpu.rows_clamped.long()] * csr_cpu.edge_mask[:, None].float()
+    assert torch.equal(v.grad.cpu(), want.to(dtype))
+
+
+@pytest.mark.parametrize("variant", ["o", "h"])
+def test_evolvegcn_kernel_route_on_cuda_matches_cpu(cuda, rng, variant):
+    """EvolveGCN's kernel route on the card (K1 forward and K2 backward, a
+    launch each a step) against the same layer on the CPU's plain route:
+    outputs, evolved weights and every gradient over two chained steps."""
+    from stgraph_tpu_torch.nn import EvolveGCNH, EvolveGCNO
+
+    cls = EvolveGCNO if variant == "o" else EvolveGCNH
+    n, e = 3000, 60_000
+    edges = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)], 1)
+    x = torch.from_numpy(rng.standard_normal((n, 8)).astype(np.float32))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        layer = cls(8, 32, impl="kernel", device="cpu", generator=torch.Generator().manual_seed(0)).to(dev)
+        g = StaticGraph(edges, None, n, device=dev)
+        before = spmm_rowmask.launches, spmm_rowmask_bwd.launches
+        out1, w1 = layer(g, x.to(dev))
+        out2, w2 = layer(g, x.to(dev), weight=w1)
+        ((out1 ** 2).mean() + (out2 ** 2).mean()).backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (spmm_rowmask.launches - before[0], spmm_rowmask_bwd.launches - before[1]) == (2, 2)
+        res[dev.type] = [t.detach().cpu() for t in (out1, w1, out2, w2)] + [p.grad.cpu() for p in layer.parameters()]
+    for got, want in zip(res["cuda"], res["cpu"]):
         assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())

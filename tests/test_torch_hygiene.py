@@ -61,7 +61,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for module in ("batch", "dyn", "halo", "launch", "layers", "mesh", "partition"):
         assert f"stgraph_tpu_torch/parallel/{module}.py" in scanned
     for module in ("drivers/static_temporal_tgcn", "drivers/dynamic_temporal_tgcn", "utils/data_table",
-                   "dataset/windmilloutput_dataloader", "dataset/metrla_dataloader", "graph/pma_store"):
+                   "dataset/windmilloutput_dataloader", "dataset/metrla_dataloader", "graph/pma_store",
+                   "nn/evolvegcn", "drivers/evolvegcn", "utils/profiler", "utils/device_info", "utils/cache",
+                   "utils/fetch"):
         assert f"stgraph_tpu_torch/{module}.py" in scanned
     for path in files:
         for mod in _imported_modules(path):
@@ -432,3 +434,70 @@ def test_non_cpu_tensor_never_takes_the_plain_rowid_kernels_on_the_pma_and_dist_
     finally:
         parallel.launch.shutdown()
     assert counts == (rowid_kernels.spmm_rowid.launches, rowid_kernels.dyn_degree.launches)
+
+
+# JAX names with no counterpart in the port, each on purpose
+NO_COUNTERPART = {
+    "row_block_meta": "TPU block metadata: the port plans its own work items",
+    "RowBlockMeta": "TPU block metadata: the port plans its own work items",
+    "traced_block_meta": "TPU block metadata: the port plans its own work items",
+    "manual_shard_map": "torch ranks are already SPMD",
+    "spmm_rowid_traced": "K6, under the port's name ops.rowid_kernels.spmm_rowid",
+}
+
+
+def _public_names(package):
+    """The top-level public functions and classes of every module of
+    ``package``, by an AST walk (nothing imported)."""
+    names = set()
+    for path in (ROOT / package).rglob("*.py"):
+        for node in ast.parse(path.read_text(), filename=str(path)).body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) and not node.name.startswith("_"):
+                names.add(node.name)
+    return names
+
+
+def test_every_public_jax_name_has_a_port_counterpart():
+    """The port does all that the JAX package does: every top-level public
+    function and class of ``stgraph_tpu`` has one of the same name in
+    ``stgraph_tpu_torch``, but the listed exceptions, which stay exceptions
+    (JAX names that the port does not define)."""
+    jax_names, port_names = _public_names("stgraph_tpu"), _public_names("stgraph_tpu_torch")
+    assert set(NO_COUNTERPART) <= jax_names and not set(NO_COUNTERPART) & port_names
+    assert "spmm_rowid" in port_names
+    missing = sorted(jax_names - port_names - set(NO_COUNTERPART))
+    assert not missing, missing
+
+
+def test_the_last_modules_entry_points_raise_when_cuda_is_absent(no_cuda):
+    from stgraph_tpu_torch.drivers import evolvegcn
+    from stgraph_tpu_torch.nn import EvolveGCNH, EvolveGCNO
+    from stgraph_tpu_torch.utils import DeviceInfo, profiler
+
+    for entry in (lambda: EvolveGCNO(4, 4), lambda: EvolveGCNH(4, 4), evolvegcn.run, DeviceInfo,
+                  profiler.device_memory_stats):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version_in_segment_sum_edges(monkeypatch, tmp_path):
+    """``segment_sum_edges`` as the others: a tensor that is not on the CPU
+    goes to K3 or K1's no-gather mode, or raises."""
+    csr = build_csr([0, 1, 2, 2], [1, 2, 0, 1], 3, device="cpu")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(kernel_lib, "_nvcc", no_nvcc)
+    monkeypatch.setattr(kernel_lib, "_loaded", {})
+    monkeypatch.setattr(kernel_lib, "_paths", lambda names: {n: str(tmp_path / f"{n}.so") for n in names})
+    monkeypatch.setattr(segment_kernels, "segment_sum_narrow_plain", plain)
+    monkeypatch.setattr(segment_kernels, "segment_sum_wide_plain", plain)
+    counts = segment_kernels.segment_sum_narrow.launches, segment_kernels.segment_sum_wide.launches
+    for k in (4, 24):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            spmm_cuda.segment_sum_edges(csr, torch.empty(csr.capacity, k, device="meta"))
+    assert counts == (segment_kernels.segment_sum_narrow.launches, segment_kernels.segment_sum_wide.launches)

@@ -41,13 +41,16 @@ from stgraph_tpu.graph import NaiveGraph as JaxNaiveGraph
 from stgraph_tpu.graph.delta_graph import EdgeStore as JaxEdgeStore
 from stgraph_tpu.graph.delta_graph import apply_delta as jax_apply_delta
 from stgraph_tpu.graph.delta_graph import edge_store_to_csr as jax_edge_store_to_csr
+from stgraph_tpu.nn import GCNConv as JaxGCNConv
 from stgraph_tpu.nn import TGCN as JaxTGCN
 from stgraph_tpu.utils.data_table import DataTable as JaxDataTable
 from stgraph_tpu_torch import dataset as D
-from stgraph_tpu_torch.convert import linear_params_from_jax, tgcn_params_from_jax
+from stgraph_tpu_torch.convert import gcn_params_from_jax, linear_params_from_jax, tgcn_params_from_jax
 from stgraph_tpu_torch.dataset import STGraphDataset
 from stgraph_tpu_torch.drivers import dynamic_temporal_tgcn as DT
 from stgraph_tpu_torch.drivers import static_temporal_tgcn as ST
+from stgraph_tpu_torch.graph import StaticGraph
+from stgraph_tpu_torch.nn import GCNConv
 from stgraph_tpu_torch.utils import DataTable
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -154,6 +157,37 @@ def test_data_table_prints_the_jax_text(rich, capsys, monkeypatch):
             table.add_row([1, 2])
     assert out[0] == out[1] and "TGCN windmill_large" in out[0] and "OOM" in out[0]
     assert ("epoch | mse" in out[0]) is not rich
+
+
+# -- the testpack's METR-LA pack ----------------------------------------------------
+
+
+def test_metrla_pack_loss_and_gradients_match_jax(offline):
+    """``tests/scripts/stgraph_script.py``'s ``_metrla_pack`` computation:
+    ``GCNConv(F_in * T_in, 8)`` on METR-LA's first window reshaped to (N, -1)
+    (``num_timesteps_in=4, num_timesteps_out=1, cutoff_time=30``), the loss
+    ``mean(conv(x)^2)`` and its gradients, from the JAX layer's parameters.
+    The JAX side is built here from the library (the pack itself writes a
+    log under ``tests/scripts/outputs/``)."""
+    kw = dict(num_timesteps_in=4, num_timesteps_out=1, cutoff_time=30)
+    ref_loader, loader = JD.METRLADataLoader(**kw), D.METRLADataLoader(**kw)
+    n = ref_loader.gdata["num_nodes"]
+    jg = JaxStaticGraph(ref_loader.get_edges(), ref_loader.get_edge_weights(), n)
+    x = np.asarray(ref_loader.get_all_features())[0].astype(np.float32).reshape(n, -1)
+    np.testing.assert_array_equal(np.asarray(loader.get_all_features())[0].reshape(n, -1), x)
+    conv = JaxGCNConv(x.shape[-1], 8)
+    params = jax.jit(lambda k, x: conv.init(k, jg, x))(jax.random.key(0), jnp.asarray(x))
+    loss, grads = jax.jit(jax.value_and_grad(lambda p: (conv.apply(p, jg, jnp.asarray(x)) ** 2).mean()))(params)
+    layer = GCNConv(x.shape[-1], 8, device="cpu")
+    layer.load_state_dict(gcn_params_from_jax(_np(params)))
+    g = StaticGraph(loader.get_edges(), loader.get_edge_weights(), n, device="cpu")
+    got = (layer(g, torch.from_numpy(x)) ** 2).mean()
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(loss), **LOSS)
+    ref = gcn_params_from_jax(_np(grads))
+    assert x.shape[-1] == int(np.prod(loader.get_all_features().shape[2:])) and set(ref) == {"weight", "bias"}
+    for k, p in layer.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), ref[k].numpy(), err_msg=k, **GRAD)
 
 
 # -- the static-temporal loop ---------------------------------------------------
